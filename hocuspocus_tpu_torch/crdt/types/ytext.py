@@ -1,0 +1,788 @@
+"""YText — shared rich text type (Y.js-compatible).
+
+Implements the YATA text algorithm with formatting attributes
+(ContentFormat begin/negate pairs), Quill-style deltas, incremental
+text events, and the yjs formatting-cleanup passes: every local delete
+dedups markers across the tombstone gap it opens, and remote
+transactions touching formatted texts trigger the per-transaction
+hygiene pass (`cleanup_ytext_after_transaction`) — contextless gap
+dedup for pure deletions, the full-document sweep when a live
+ContentFormat arrived. Cleanup deletions are ordinary CRDT deletes, so
+peers converge through normal delete-set propagation.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+from ..content import ContentEmbed, ContentFormat, ContentString, ContentType
+from ..encoding import UNDEFINED
+from ..ids import ID
+from ..structs import Item
+from .base import (
+    AbstractType,
+    YTEXT_REF,
+    YEvent,
+    call_type_observers,
+    find_search_marker,
+    update_search_markers,
+)
+
+
+def equal_attrs(a: Any, b: Any) -> bool:
+    if a is b:
+        return True
+    if a is None or b is None:
+        return a is None and b is None
+    return a == b
+
+
+def identical_attrs(a: Any, b: Any) -> bool:
+    """yjs's `===` over attribute values: value equality for JS
+    primitives (strings, numbers, booleans, null), REFERENCE identity
+    for objects/arrays. cleanupFormattingGap compares with `===`, so a
+    marker restating an equal-but-distinct object attribute is KEPT by
+    yjs peers — using deep equality there deletes markers a yjs peer
+    retains and diverges the tombstone layout (round-5 ADVICE)."""
+    if a is b:
+        return True
+    # JS has one number type but distinct booleans: True must not
+    # compare identical to 1 (Python's == would)
+    if isinstance(a, bool) or isinstance(b, bool):
+        return a is b
+    if isinstance(a, (int, float)) and isinstance(b, (int, float)):
+        return a == b
+    if isinstance(a, str) and isinstance(b, str):
+        return a == b
+    return False
+
+
+class ItemTextListPosition:
+    __slots__ = ("left", "right", "index", "current_attributes")
+
+    def __init__(self, left: Optional[Item], right: Optional[Item], index: int, current_attributes: dict) -> None:
+        self.left = left
+        self.right = right
+        self.index = index
+        self.current_attributes = current_attributes
+
+    def forward(self) -> None:
+        right = self.right
+        if right is None:
+            raise RuntimeError("unexpected end of item chain")
+        if isinstance(right.content, ContentFormat):
+            if not right.deleted:
+                _update_current_attributes(self.current_attributes, right.content)
+        elif not right.deleted:
+            self.index += right.length
+        self.left = right
+        self.right = right.right
+
+
+def _update_current_attributes(attrs: dict, fmt: ContentFormat) -> None:
+    if fmt.value is None:
+        attrs.pop(fmt.key, None)
+    else:
+        attrs[fmt.key] = fmt.value
+
+
+def _find_next_position(transaction, pos: ItemTextListPosition, count: int) -> ItemTextListPosition:
+    store = transaction.doc.store
+    while pos.right is not None and count > 0:
+        right = pos.right
+        if isinstance(right.content, ContentFormat):
+            if not right.deleted:
+                _update_current_attributes(pos.current_attributes, right.content)
+        elif not right.deleted:
+            if count < right.length:
+                store.get_item_clean_start(transaction, ID(right.id.client, right.id.clock + count))
+            pos.index += right.length
+            count -= right.length
+        pos.left = pos.right
+        pos.right = pos.right.right if pos.right is not None else None
+    return pos
+
+
+def _find_position(transaction, parent: "YText", index: int) -> ItemTextListPosition:
+    # anchor-based fast path, UNFORMATTED text only: current_attributes
+    # must accumulate from the document start once ContentFormat items
+    # exist, so a mid-document anchor would lose formatting context
+    if parent._search_markers is not None and not parent._has_formatting:
+        marker = find_search_marker(parent, index)
+        if marker is not None:
+            pos = ItemTextListPosition(marker.item.left, marker.item, marker.index, {})
+            return _find_next_position(transaction, pos, index - marker.index)
+    pos = ItemTextListPosition(None, parent._start, 0, {})
+    return _find_next_position(transaction, pos, index)
+
+
+def _make_item(transaction, parent, left, right, content) -> Item:
+    doc = transaction.doc
+    item = Item(
+        ID(doc.client_id, doc.store.get_state(doc.client_id)),
+        left,
+        left.last_id if left is not None else None,
+        right,
+        right.id if right is not None else None,
+        parent,
+        None,
+        content,
+    )
+    item.integrate(transaction, 0)
+    return item
+
+
+def _insert_negated_attributes(transaction, parent, pos: ItemTextListPosition, negated: dict) -> None:
+    while pos.right is not None and (
+        pos.right.deleted
+        or (
+            isinstance(pos.right.content, ContentFormat)
+            and equal_attrs(negated.get(pos.right.content.key, UNDEFINED), pos.right.content.value)
+        )
+    ):
+        if not pos.right.deleted:
+            negated.pop(pos.right.content.key, None)  # type: ignore[union-attr]
+        pos.forward()
+    for key, val in negated.items():
+        pos.right = _make_item(transaction, parent, pos.left, pos.right, ContentFormat(key, val))
+        pos.forward()
+
+
+def _minimize_attribute_changes(pos: ItemTextListPosition, attributes: dict) -> None:
+    while pos.right is not None:
+        right = pos.right
+        if right.deleted or (
+            isinstance(right.content, ContentFormat)
+            and equal_attrs(attributes.get(right.content.key), right.content.value)
+        ):
+            pos.forward()
+        else:
+            break
+
+
+def _insert_attributes(transaction, parent, pos: ItemTextListPosition, attributes: dict) -> dict:
+    negated: dict = {}
+    for key, val in attributes.items():
+        current_val = pos.current_attributes.get(key)
+        if not equal_attrs(current_val, val):
+            negated[key] = current_val  # None restores "no attribute"
+            pos.right = _make_item(transaction, parent, pos.left, pos.right, ContentFormat(key, val))
+            pos.forward()
+    return negated
+
+
+def _insert_text(transaction, parent, pos: ItemTextListPosition, text: Any, attributes: dict) -> None:
+    for key in list(pos.current_attributes.keys()):
+        if key not in attributes:
+            attributes[key] = None
+    _minimize_attribute_changes(pos, attributes)
+    negated = _insert_attributes(transaction, parent, pos, attributes)
+    if isinstance(text, str):
+        content = ContentString(text)
+    elif isinstance(text, AbstractType):
+        content = ContentType(text)
+    else:
+        content = ContentEmbed(text)
+    if parent._search_markers is not None:
+        update_search_markers(parent, pos.index, content.get_length())
+    pos.right = _make_item(transaction, parent, pos.left, pos.right, content)
+    pos.forward()
+    _insert_negated_attributes(transaction, parent, pos, negated)
+
+
+def _format_text(transaction, parent, pos: ItemTextListPosition, length: int, attributes: dict) -> None:
+    store = transaction.doc.store
+    _minimize_attribute_changes(pos, attributes)
+    negated = _insert_attributes(transaction, parent, pos, attributes)
+    while pos.right is not None and (
+        length > 0
+        or (negated and (pos.right.deleted or isinstance(pos.right.content, ContentFormat)))
+    ):
+        right = pos.right
+        if not right.deleted:
+            if isinstance(right.content, ContentFormat):
+                key, value = right.content.key, right.content.value
+                if key in attributes:
+                    attr = attributes[key]
+                    if equal_attrs(attr, value):
+                        negated.pop(key, None)
+                    else:
+                        if length == 0:
+                            break
+                        negated[key] = value
+                    right.delete(transaction)
+                else:
+                    _update_current_attributes(pos.current_attributes, right.content)
+            else:
+                if length < right.length:
+                    store.get_item_clean_start(transaction, ID(right.id.client, right.id.clock + length))
+                length -= right.length
+        pos.forward()
+    if length > 0:
+        pos.right = _make_item(transaction, parent, pos.left, pos.right, ContentString("\n" * length))
+        pos.forward()
+    _insert_negated_attributes(transaction, parent, pos, negated)
+
+
+def _cleanup_formatting_gap(transaction, start, curr, start_attributes: dict, curr_attributes: dict) -> int:
+    """Delete format markers made redundant across a tombstone gap.
+
+    Mirrors yjs cleanupFormattingGap: `start`..`curr` brackets a gap of
+    deleted/non-countable items; a ContentFormat inside it is redundant
+    when no LIVE content to the gap's right depends on it (it is not
+    the gap-end's winning marker for its key) or it restates the
+    attribute already active at the gap's start. Deleting markers here
+    is an ordinary CRDT delete — peers converge through the usual
+    delete-set propagation, no special casing."""
+    # walk from START to the first live countable item: the formats
+    # collected on the way are the gap's right-edge context, keyed so
+    # the LAST per key wins (earlier ones are shadowed)
+    end = start
+    end_formats: dict = {}
+    while end is not None and (not end.countable or end.deleted):
+        if not end.deleted and isinstance(end.content, ContentFormat):
+            end_formats[end.content.key] = end.content
+        end = end.right
+    cleanups = 0
+    reached_curr = False
+    while start is not end:
+        if curr is start:
+            reached_curr = True
+        if not start.deleted:
+            content = start.content
+            if isinstance(content, ContentFormat):
+                key, value = content.key, content.value
+                start_attr = start_attributes.get(key)
+                # identical_attrs, not equal_attrs: yjs compares these
+                # with ===, so equal-but-distinct object values keep
+                # their marker — matching that keeps tombstone layouts
+                # in agreement with yjs peers
+                if end_formats.get(key) is not content or identical_attrs(
+                    start_attr, value
+                ):
+                    start.delete(transaction)
+                    cleanups += 1
+                    if (
+                        not reached_curr
+                        and identical_attrs(curr_attributes.get(key), value)
+                        and not identical_attrs(start_attr, value)
+                    ):
+                        if start_attr is None:
+                            curr_attributes.pop(key, None)
+                        else:
+                            curr_attributes[key] = start_attr
+                if not reached_curr and not start.deleted:
+                    _update_current_attributes(curr_attributes, content)
+        start = start.right
+    return cleanups
+
+
+def _cleanup_contextless_formatting_gap(transaction, item) -> None:
+    """Tombstone-gap marker dedup without attribute context (yjs
+    cleanupContextlessFormattingGap): within one run of deleted /
+    non-countable items, only the RIGHTMOST live marker per key can
+    matter — earlier ones in the gap are shadowed and deletable."""
+    while item is not None and item.right is not None and (
+        item.right.deleted or not item.right.countable
+    ):
+        item = item.right
+    seen: set = set()
+    while item is not None and (item.deleted or not item.countable):
+        if not item.deleted and isinstance(item.content, ContentFormat):
+            key = item.content.key
+            if key in seen:
+                item.delete(transaction)
+            else:
+                seen.add(key)
+        item = item.left
+
+
+def cleanup_ytext_after_transaction(transaction) -> None:
+    """Post-transaction marker hygiene for every flagged YText (yjs
+    cleanupYTextAfterTransaction). Texts that RECEIVED a live
+    ContentFormat get the full-document sweep; texts that only saw
+    deletions get the cheap contextless gap dedup per deleted run."""
+    need_full: set = set()
+    doc = transaction.doc
+    store = doc.store
+
+    def scan(struct) -> None:
+        if (
+            isinstance(struct, Item)
+            and not struct.deleted
+            and isinstance(struct.content, ContentFormat)
+        ):
+            need_full.add(struct.parent)
+
+    for client, after_clock in transaction.after_state.items():
+        start_clock = transaction.before_state.get(client, 0)
+        if after_clock != start_clock:
+            store.iterate_structs(
+                transaction, client, start_clock, after_clock - start_clock, scan
+            )
+
+    def run(nested) -> None:
+        def visit(struct) -> None:
+            if not isinstance(struct, Item):
+                return
+            parent = struct.parent
+            if (
+                parent is None
+                or not getattr(parent, "_has_formatting", False)
+                or parent in need_full
+            ):
+                return
+            if isinstance(struct.content, ContentFormat):
+                need_full.add(parent)
+            else:
+                _cleanup_contextless_formatting_gap(nested, struct)
+
+        for client, clock, length in list(transaction.delete_set.iterate()):
+            store.iterate_structs(transaction, client, clock, length, visit)
+        for ytext in need_full:
+            cleanup_ytext_formatting(ytext)
+
+    doc.transact(run)
+
+
+def cleanup_ytext_formatting(ytype: "YText") -> int:
+    """Full-document redundant-marker sweep (yjs cleanupYTextFormatting)."""
+    removed = 0
+
+    def run(transaction) -> None:
+        nonlocal removed
+        start = ytype._start
+        curr = ytype._start
+        start_attributes: dict = {}
+        curr_attributes: dict = {}
+        while curr is not None:
+            if curr.deleted is False:
+                if isinstance(curr.content, ContentFormat):
+                    _update_current_attributes(curr_attributes, curr.content)
+                else:
+                    removed += _cleanup_formatting_gap(
+                        transaction, start, curr, start_attributes, curr_attributes
+                    )
+                    start_attributes = dict(curr_attributes)
+                    start = curr
+            curr = curr.right
+    if ytype.doc is not None:
+        ytype._transact(run)
+    return removed
+
+
+def _delete_text(transaction, pos: ItemTextListPosition, length: int) -> ItemTextListPosition:
+    start_length = length
+    start_index = pos.index
+    start_attrs = dict(pos.current_attributes)
+    start_right = pos.right
+    store = transaction.doc.store
+    while length > 0 and pos.right is not None:
+        right = pos.right
+        if not right.deleted and isinstance(right.content, (ContentType, ContentEmbed, ContentString)):
+            if length < right.length:
+                store.get_item_clean_start(transaction, ID(right.id.client, right.id.clock + length))
+            length -= right.length
+            right.delete(transaction)
+        pos.forward()
+    # the deletion opened a tombstone gap: markers inside it may now be
+    # redundant (yjs deleteText runs the same pass)
+    if start_right is not None:
+        _cleanup_formatting_gap(
+            transaction, start_right, pos.right, start_attrs, pos.current_attributes
+        )
+    parent = (pos.left or pos.right)
+    if parent is not None and parent.parent._search_markers is not None:
+        update_search_markers(parent.parent, start_index, -start_length + length)
+    return pos
+
+
+class YTextEvent(YEvent):
+    def __init__(self, target, transaction, subs: set) -> None:
+        super().__init__(target, transaction)
+        self.child_list_changed = False
+        self.keys_changed: set = set()
+        for sub in subs:
+            if sub is None:
+                self.child_list_changed = True
+            else:
+                self.keys_changed.add(sub)
+
+    @property
+    def changes(self) -> dict:
+        if self._changes is None:
+            self._changes = {
+                "keys": self.keys,
+                "delta": self.delta,
+                "added": set(),
+                "deleted": set(),
+            }
+        return self._changes
+
+    @property
+    def delta(self) -> list[dict]:
+        if self._delta is None:
+            doc = self.target.doc
+            delta: list[dict] = []
+
+            def compute(transaction) -> None:
+                current_attributes: dict = {}
+                old_attributes: dict = {}
+                item = self.target._start
+                action: Optional[str] = None
+                attributes: dict = {}
+                insert: Any = ""
+                retain = 0
+                delete_len = 0
+
+                def add_op() -> None:
+                    nonlocal action, insert, retain, delete_len
+                    if action is None:
+                        return
+                    op: Optional[dict] = None
+                    if action == "delete":
+                        if delete_len > 0:
+                            op = {"delete": delete_len}
+                        delete_len = 0
+                    elif action == "insert":
+                        if not isinstance(insert, str) or len(insert) > 0:
+                            op = {"insert": insert}
+                            if current_attributes:
+                                op["attributes"] = {
+                                    k: v for k, v in current_attributes.items() if v is not None
+                                }
+                                if not op["attributes"]:
+                                    del op["attributes"]
+                        insert = ""
+                    elif action == "retain":
+                        if retain > 0:
+                            op = {"retain": retain}
+                            if attributes:
+                                op["attributes"] = dict(attributes)
+                        retain = 0
+                    if op:
+                        delta.append(op)
+                    action = None
+
+                while item is not None:
+                    content = item.content
+                    if isinstance(content, (ContentType, ContentEmbed)):
+                        if self.adds(item):
+                            if not self.deletes(item):
+                                add_op()
+                                action = "insert"
+                                insert = content.get_content()[0]
+                                add_op()
+                        elif self.deletes(item):
+                            if action != "delete":
+                                add_op()
+                                action = "delete"
+                            delete_len += 1
+                        elif not item.deleted:
+                            if action != "retain":
+                                add_op()
+                                action = "retain"
+                            retain += 1
+                    elif isinstance(content, ContentString):
+                        if self.adds(item):
+                            if not self.deletes(item):
+                                if action != "insert":
+                                    add_op()
+                                    action = "insert"
+                                insert = insert + content.s
+                        elif self.deletes(item):
+                            if action != "delete":
+                                add_op()
+                                action = "delete"
+                            delete_len += item.length
+                        elif not item.deleted:
+                            if action != "retain":
+                                add_op()
+                                action = "retain"
+                            retain += item.length
+                    elif isinstance(content, ContentFormat):
+                        key, value = content.key, content.value
+                        if self.adds(item):
+                            if not self.deletes(item):
+                                cur_val = current_attributes.get(key)
+                                if not equal_attrs(cur_val, value):
+                                    if action == "retain":
+                                        add_op()
+                                    if equal_attrs(value, old_attributes.get(key)):
+                                        attributes.pop(key, None)
+                                    else:
+                                        attributes[key] = value
+                                elif value is not None:
+                                    item.delete(transaction)
+                        elif self.deletes(item):
+                            old_attributes[key] = value
+                            cur_val = current_attributes.get(key)
+                            if not equal_attrs(cur_val, value):
+                                if action == "retain":
+                                    add_op()
+                                attributes[key] = cur_val
+                        elif not item.deleted:
+                            old_attributes[key] = value
+                            if key in attributes:
+                                attr = attributes[key]
+                                if not equal_attrs(attr, value):
+                                    if action == "retain":
+                                        add_op()
+                                    if value is None:
+                                        attributes.pop(key, None)
+                                    else:
+                                        attributes[key] = value
+                                else:
+                                    item.delete(transaction)
+                        if not item.deleted:
+                            if action == "insert":
+                                add_op()
+                            _update_current_attributes(current_attributes, content)
+                    item = item.right
+                add_op()
+                while delta and "retain" in delta[-1] and "attributes" not in delta[-1]:
+                    delta.pop()
+
+            doc.transact(compute)
+            self._delta = delta
+        return self._delta
+
+
+class YText(AbstractType):
+    _type_ref = YTEXT_REF
+
+    def __init__(self, initial: Optional[str] = None) -> None:
+        super().__init__()
+        self._search_markers = []
+        self._pending: Optional[list] = []
+        if initial:
+            self._pending.append(lambda: self.insert(0, initial))
+
+    def _integrate(self, doc, item: Optional[Item]) -> None:
+        super()._integrate(doc, item)
+        pending = self._pending
+        self._pending = None
+        if pending:
+            for fn in pending:
+                fn()
+
+    def _call_observer(self, transaction, parent_subs) -> None:
+        event = YTextEvent(self, transaction, parent_subs)
+        call_type_observers(self, transaction, event)
+        # remote changes can leave redundant format markers (each side
+        # closed a range the other reopened, etc.) — flag the
+        # transaction; doc cleanup runs ONE pass for all flagged texts
+        # (yjs 13.6 _needFormattingCleanup design: zero cost for
+        # unformatted docs)
+        if not transaction.local and self._has_formatting:
+            transaction._need_formatting_cleanup = True
+
+    @property
+    def length(self) -> int:
+        return self._length
+
+    def __len__(self) -> int:
+        return self._length
+
+    def insert(self, index: int, text: str, attributes: Optional[dict] = None) -> None:
+        if len(text) == 0:
+            return
+        if self.doc is None:
+            self._pending.append(lambda: self.insert(index, text, attributes))  # type: ignore[union-attr]
+            return
+
+        def run(transaction) -> None:
+            pos = _find_position(transaction, self, index)
+            attrs = dict(attributes) if attributes is not None else dict(pos.current_attributes)
+            _insert_text(transaction, self, pos, text, attrs)
+
+        self._transact(run)
+
+    def insert_embed(self, index: int, embed: Any, attributes: Optional[dict] = None) -> None:
+        if self.doc is None:
+            self._pending.append(lambda: self.insert_embed(index, embed, attributes))  # type: ignore[union-attr]
+            return
+
+        def run(transaction) -> None:
+            pos = _find_position(transaction, self, index)
+            _insert_text(transaction, self, pos, embed, dict(attributes or {}))
+
+        self._transact(run)
+
+    def delete(self, index: int, length: int) -> None:
+        if length == 0:
+            return
+        if self.doc is None:
+            self._pending.append(lambda: self.delete(index, length))  # type: ignore[union-attr]
+            return
+        self._transact(lambda tr: _delete_text(tr, _find_position(tr, self, index), length))
+
+    def format(self, index: int, length: int, attributes: dict) -> None:
+        if length == 0:
+            return
+        if self.doc is None:
+            self._pending.append(lambda: self.format(index, length, attributes))  # type: ignore[union-attr]
+            return
+
+        def run(transaction) -> None:
+            pos = _find_position(transaction, self, index)
+            if pos.right is None:
+                return
+            _format_text(transaction, self, pos, length, dict(attributes))
+
+        self._transact(run)
+
+    def apply_delta(self, delta: list[dict], sanitize: bool = True) -> None:
+        if self.doc is None:
+            self._pending.append(lambda: self.apply_delta(delta, sanitize))  # type: ignore[union-attr]
+            return
+
+        def run(transaction) -> None:
+            pos = ItemTextListPosition(None, self._start, 0, {})
+            for i, op in enumerate(delta):
+                if "insert" in op:
+                    ins = op["insert"]
+                    if (
+                        not sanitize
+                        and isinstance(ins, str)
+                        and i == len(delta) - 1
+                        and pos.right is None
+                        and ins.endswith("\n")
+                    ):
+                        ins = ins[:-1]
+                    if not isinstance(ins, str) or len(ins) > 0:
+                        _insert_text(transaction, self, pos, ins, dict(op.get("attributes", {})))
+                elif "retain" in op:
+                    _format_text(transaction, self, pos, op["retain"], dict(op.get("attributes", {})))
+                elif "delete" in op:
+                    _delete_text(transaction, pos, op["delete"])
+
+        self._transact(run)
+
+    def to_string(self) -> str:
+        parts: list[str] = []
+        item = self._start
+        while item is not None:
+            if not item.deleted and isinstance(item.content, ContentString):
+                parts.append(item.content.s)
+            item = item.right
+        return "".join(parts)
+
+    def __str__(self) -> str:
+        return self.to_string()
+
+    def to_json(self) -> str:
+        return self.to_string()
+
+    def to_delta(
+        self,
+        snapshot=None,
+        prev_snapshot=None,
+        compute_ychange=None,
+    ) -> list[dict]:
+        """Quill-style delta; with `snapshot` renders the text AS OF
+        that version, and with `prev_snapshot` additionally attributes
+        the differences with `ychange` marks ({"type": "added" |
+        "removed", ...}) — yjs YText.toDelta's version-preview mode.
+        `compute_ychange(type, id)` customizes the mark payload."""
+        from ..update import is_visible, split_snapshot_affected_structs
+
+        ops: list[dict] = []
+        current_attributes: dict = {}
+        buf: list[str] = []
+
+        def pack() -> None:
+            if buf:
+                op: dict = {"insert": "".join(buf)}
+                if current_attributes:
+                    op["attributes"] = dict(current_attributes)
+                ops.append(op)
+                buf.clear()
+
+        def mark_ychange(kind: str, item) -> None:
+            # yjs op granularity: a new op whenever the marking user or
+            # kind changes (default payloads carry no user, so every
+            # struct item starts its own op — interop-identical deltas)
+            cur = current_attributes.get("ychange")
+            if (
+                cur is None
+                or cur.get("user") != item.id.client
+                or cur.get("type") != kind
+            ):
+                pack()
+                current_attributes["ychange"] = (
+                    compute_ychange(kind, item.id)
+                    if compute_ychange is not None
+                    else {"type": kind}
+                )
+
+        def compute_delta() -> None:
+            item = self._start
+            while item is not None:
+                visible_now = is_visible(item, snapshot)
+                visible_prev = prev_snapshot is not None and is_visible(
+                    item, prev_snapshot
+                )
+                if visible_now or visible_prev:
+                    content = item.content
+                    if isinstance(content, ContentString):
+                        if snapshot is not None and not visible_now:
+                            mark_ychange("removed", item)
+                        elif prev_snapshot is not None and not visible_prev:
+                            mark_ychange("added", item)
+                        elif current_attributes.get("ychange") is not None:
+                            pack()
+                            current_attributes.pop("ychange", None)
+                        buf.append(content.s)
+                    elif isinstance(content, (ContentType, ContentEmbed)):
+                        pack()
+                        op = {"insert": content.get_content()[0]}
+                        if current_attributes:
+                            op["attributes"] = dict(current_attributes)
+                        ops.append(op)
+                    elif isinstance(content, ContentFormat):
+                        if visible_now:
+                            pack()
+                            _update_current_attributes(current_attributes, content)
+                item = item.right
+            pack()
+
+        if snapshot is not None or prev_snapshot is not None:
+            # split AND walk inside ONE transaction: cleanup re-merges
+            # the split halves on exit, which would erase the snapshot
+            # boundaries mid-walk (yjs toDelta computes inside the
+            # 'cleanup' transact for the same reason)
+            def run(transaction) -> None:
+                if snapshot is not None:
+                    split_snapshot_affected_structs(transaction, snapshot)
+                if prev_snapshot is not None:
+                    split_snapshot_affected_structs(transaction, prev_snapshot)
+                compute_delta()
+
+            self._transact(run)
+        else:
+            compute_delta()
+        return ops
+
+    def get_attributes(self) -> dict:
+        # attributes on the YText itself (stored in _map)
+        from .base import type_map_get
+
+        return {
+            key: type_map_get(self, key)
+            for key, item in self._map.items()
+            if not item.deleted
+        }
+
+    def set_attribute(self, key: str, value: Any) -> None:
+        from .base import type_map_set
+
+        if self.doc is None:
+            self._pending.append(lambda: self.set_attribute(key, value))  # type: ignore[union-attr]
+            return
+        self._transact(lambda tr: type_map_set(tr, self, key, value))
+
+    def get_attribute(self, key: str) -> Any:
+        from .base import type_map_get
+
+        return type_map_get(self, key)

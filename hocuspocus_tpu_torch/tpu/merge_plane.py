@@ -1,0 +1,997 @@
+"""The merge plane on one device: cross-document update queue + batched
+integrate, in PyTorch.
+
+The counterpart of the JAX package's `tpu/merge_plane.py` for the unit
+arena on a single device. Updates from ALL documents are lowered to
+dense ops, queued per arena row, and each flush cycle dispatches them in
+(K slots, B rows) batches: chained tail appends go to the run-append
+fast path, concurrent edits to the integrate step, which on the card is
+the hand-written Hopper kernel (`integrate.py`).
+
+Arena rows are *sequences*, not documents: a plain text doc occupies one
+row; a tree doc occupies one row per element child-list. Map items are
+host-side last-writer-wins records that never ride the device — they go
+straight to the doc's serve log.
+
+Uploads go from pinned host staging (on the card) with non-blocking
+copies on the current stream; the cycle's single completion barrier is
+the health readback in _sync_health.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .integrate import (
+    append_run_slots_sparse_fast,
+    integrate_op_slots_fast,
+    integrate_op_slots_sparse_fast,
+)
+from .kernels import (
+    KIND_DELETE,
+    KIND_INSERT,
+    NONE_CLIENT,
+    NONE_CLIENT_I32,
+    OpBatch,
+    _INF,
+    extract_live_mask,
+    make_empty_state,
+    tail_probe,
+)
+from .lowering import DenseOp, DocLowerer, units_to_text
+
+
+@dataclass
+class LogRec:
+    """One serve-log record: an op the plane integrated (device or host).
+
+    slot is None for host-only map items; unit_off indexes the slot's
+    unit log where the op's payload starts (sequence inserts only).
+    """
+
+    op: DenseOp
+    slot: Optional[int] = None
+    unit_off: int = 0
+    # op arrived from a peer instance: excluded from the cross-instance
+    # window republish (every peer already received it)
+    remote: bool = False
+
+
+@dataclass
+class PlaneDoc:
+    """Per-document host state: sequence registry + serve log."""
+
+    name: str
+    lowerer: DocLowerer = field(default_factory=DocLowerer)
+    seqs: dict[tuple, int] = field(default_factory=dict)  # seq_key -> slot
+    serve_log: list[LogRec] = field(default_factory=list)
+    # delete ranges that target host-side map items (client, clock, len)
+    map_tombstones: list[tuple] = field(default_factory=list)
+    retired: bool = False
+    retire_reason: Optional[str] = None  # first reason wins (see retire_doc)
+
+
+class _Staging:
+    """One reusable host staging buffer for a batch's op fields plus its
+    (B,) routing vector, laid out flat so a (k, b) batch is ONE
+    contiguous region and uploads in ONE copy: fields (nfields, k, b)
+    int32 followed by b slot entries. Pinned when the plane is on the
+    card, so the copy is a true asynchronous DMA. MergePlane keeps two
+    per path and alternates per batch (double buffering); the event
+    recorded after each upload is waited on before the buffer's next
+    reset, so a later batch never overwrites bytes still in flight."""
+
+    __slots__ = ("buffer", "array", "k_max", "defaults")
+
+    def __init__(self, k_max: int, num_docs: int, defaults: tuple, pin: bool) -> None:
+        size = len(defaults) * k_max * num_docs + num_docs
+        self.buffer = torch.empty(size, dtype=torch.int32, pin_memory=pin)
+        self.array = self.buffer.numpy()
+        self.k_max = k_max
+        self.defaults = defaults
+
+    def views(self, k: int, b: int, reset: tuple) -> tuple:
+        """(k, b) numpy views of the fields; fields whose index is in
+        `reset` are set to their default value."""
+        fields = self.array[: len(self.defaults) * k * b].reshape(len(self.defaults), k, b)
+        for i in reset:
+            fields[i] = self.defaults[i]
+        return tuple(fields)
+
+    def slot_view(self, k: int, b: int) -> np.ndarray:
+        start = len(self.defaults) * k * b
+        return self.array[start : start + b]
+
+    def upload(self, k: int, b: int, device, with_slots: bool = True) -> tuple:
+        """Copy the (k, b) region to `device`: (fields (nfields, k, b),
+        slots (b,) or None) as device tensors."""
+        count = len(self.defaults) * k * b
+        end = count + (b if with_slots else 0)
+        region = self.buffer[:end].to(device, non_blocking=True, copy=True)
+        fields = region[:count].view(len(self.defaults), k, b)
+        return fields, (region[count:] if with_slots else None)
+
+    @staticmethod
+    def nbytes(fields: int, k: int, b: int, with_slots: bool) -> int:
+        return fields * k * b * 4 + (b * 4 if with_slots else 0)
+
+
+# per-field reset value of an op batch: left/right client columns
+# default to the NONE_CLIENT sentinel, everything else to zero (noop)
+_OP_DEFAULTS = (0, 0, 0, 0, NONE_CLIENT_I32, 0, NONE_CLIENT_I32, 0)
+# the append fast path ships three run fields (client, clock, run_len);
+# only run_len resets per batch (run_len == 0 IS the noop sentinel)
+_RUN_DEFAULTS = (0, 0, 0)
+
+
+class MergePlane:
+    """Device-resident arenas for up to `num_docs` sequences on one device.
+
+    `device` defaults to the card: construction raises when CUDA is not
+    available, unless the caller asks for the CPU (`device="cpu"`), in
+    which case the plain PyTorch versions of every step run instead.
+    """
+
+    def __init__(
+        self,
+        num_docs: int = 256,
+        capacity: int = 4096,
+        max_slots_per_flush: int = 16,
+        device="cuda",
+    ) -> None:
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "MergePlane needs a CUDA device; pass device='cpu' to run "
+                "the plain PyTorch path on the CPU"
+            )
+        self.device = device
+        self.num_docs = num_docs
+        self.capacity = capacity
+        self.max_slots_per_flush = max_slots_per_flush
+        # serializes flush + device readbacks when flushes run off the
+        # event loop (direct synchronous use never contends)
+        self.flush_lock = asyncio.Lock()
+        # thread-level companion: flush() holds this for the duration of
+        # the device step; synchronous readers acquire it. Reentrant so a
+        # sync serve can hold it across its own flush()+reads sequence.
+        self._step_lock = threading.RLock()
+        self.state = make_empty_state(num_docs, capacity, device)
+        self.docs: dict[str, PlaneDoc] = {}
+        self.free: list[int] = list(range(num_docs - 1, -1, -1))
+        self.slot_owner: dict[int, str] = {}  # slot -> doc name
+        self.queues: dict[int, list[DenseOp]] = {}
+        # slots with (possibly) queued ops: per-batch bookkeeping walks
+        # THIS set, O(busy), never the full queue registry. enqueue adds
+        # AFTER every extend, so a drain-side discard racing an enqueue
+        # is always repaired by the enqueuer's own add.
+        self._busy_slots: set[int] = set()
+        # per-slot insert units handed to the device so far / as of the
+        # last completed flush: health checks compare device lengths
+        # against the VALIDATED snapshot, never the (ahead) host logs
+        self.dispatched_units = np.zeros(num_docs, np.int64)
+        self.validated_units = np.zeros(num_docs, np.int64)
+        # minimal-work run merge: a drained column takes the append fast
+        # path only when every op chains off the column's host-tracked
+        # RANK TAIL (client == NONE_CLIENT means "empty row"); unknown
+        # tails re-arm through the tail probe at the next health readback
+        self.run_merge_enabled = True
+        self._tail_client = np.full(num_docs, NONE_CLIENT, np.uint32)
+        self._tail_clock = np.zeros(num_docs, np.int64)
+        self._tail_known = np.ones(num_docs, bool)
+        self._tail_dirty: set[int] = set()
+        # slots bound to a live (non-retired) doc
+        self.slot_live = np.zeros(num_docs, bool)
+        # per-slot binding generation, bumped at every alloc/release/
+        # retire: a health snapshot only judges slots whose generation
+        # still matches
+        self.slot_gen = np.zeros(num_docs, np.int64)
+        self.last_gen: Optional[np.ndarray] = None
+        # bumped whenever device state may have changed
+        self.flush_epoch = 0
+        # docs with new serve-log records since the last broadcast pass
+        self.dirty: set[str] = set()
+        # last combined health readback (see _sync_health)
+        self.last_lengths: Optional[np.ndarray] = None
+        self.last_overflows: Optional[np.ndarray] = None
+        # unit payloads never touch the device: arena slot = arrival
+        # index, so payloads land here, indexed by slot (an int UTF-16
+        # unit for text, or the decoded Content object for rich units)
+        self.unit_logs: dict[int, list] = {}
+        self.projected_len: dict[int, int] = {}
+        self.counters: dict[str, int] = {
+            "docs_retired_overflow": 0,
+            "docs_retired_desync": 0,
+            "docs_retired_unsupported": 0,
+            "docs_retired_capacity": 0,
+            "docs_retired_fallback": 0,
+            "docs_retired_plane_full": 0,
+            "sync_serves": 0,
+            "sync_cache_hits": 0,
+            "sync_cache_misses": 0,
+            "sync_cache_evictions": 0,
+            "sync_encode_device": 0,
+            "sync_encode_host": 0,
+            "plane_broadcasts": 0,
+            "cpu_fallbacks": 0,
+            "flush_staging_allocs": 0,
+            "flush_staging_reuses": 0,
+            "flush_batches_sparse": 0,
+            "flush_batches_dense": 0,
+            "flush_batches_fast": 0,
+            "flush_fast_ops": 0,
+            "flush_slow_ops": 0,
+        }
+        # last completed flush cycle's stage breakdown; overwritten per
+        # cycle, never accumulated
+        self.flush_stats: dict[str, float] = {
+            "build_ms": 0.0,
+            "upload_ms": 0.0,
+            "dispatch_ms": 0.0,
+            "device_sync_ms": 0.0,
+            "busy_slots": 0,
+            "busy_fraction": 0.0,
+            "batch_k": 0,
+            "batch_b": 0,
+            "batches": 0,
+            "upload_bytes": 0,
+            "fast_path_ops": 0,
+            "slow_path_ops": 0,
+            "fast_path_fraction": 0.0,
+        }
+        # double-buffered staging per path, allocated on first use; the
+        # inflight entries hold the event recorded after each buffer's
+        # last upload (None on the CPU, where copies are synchronous)
+        self._staging: "Optional[list[_Staging]]" = None
+        self._staging_inflight: list = [None, None]
+        self._append_staging: "Optional[list[_Staging]]" = None
+        self._append_inflight: list = [None, None]
+        self._append_batches = 0
+
+    def enable_lane(self) -> bool:
+        """The native C++ text lane is not part of the port: every doc
+        takes the Python host path, as in the JAX package when its codec
+        is missing (and, like there, this reports False)."""
+        return False
+
+    # -- registry ----------------------------------------------------------
+
+    def register(self, name: str) -> PlaneDoc:
+        doc = self.docs.get(name)
+        if doc is None:
+            doc = PlaneDoc(name)
+            self.docs[name] = doc
+        return doc
+
+    def _alloc_seq(self, doc: PlaneDoc, seq_key: tuple) -> Optional[int]:
+        slot = doc.seqs.get(seq_key)
+        if slot is not None:
+            return slot
+        if not self.free:
+            return None
+        slot = self.free.pop()
+        doc.seqs[seq_key] = slot
+        self.slot_owner[slot] = doc.name
+        self.queues[slot] = []
+        self.unit_logs[slot] = []
+        self.projected_len[slot] = 0
+        self.dispatched_units[slot] = 0
+        self.validated_units[slot] = 0  # freed slots keep length 0 too
+        self.slot_live[slot] = True
+        self.slot_gen[slot] += 1
+        self._set_tail_empty(slot)
+        return slot
+
+    def release(self, name: str) -> None:
+        doc = self.docs.pop(name, None)
+        if doc is None:
+            return
+        self.dirty.discard(name)
+        slots = set(doc.seqs.values())
+        for slot in slots:
+            self.slot_owner.pop(slot, None)
+            self.queues.pop(slot, None)
+            self._busy_slots.discard(slot)
+            self.unit_logs.pop(slot, None)
+            self.projected_len.pop(slot, None)
+            self.dispatched_units[slot] = 0
+            self.validated_units[slot] = 0
+            self.slot_live[slot] = False
+            self.slot_gen[slot] += 1
+            self.free.append(slot)
+        self._clear_slots(sorted(slots))
+
+    def retire_doc(self, name: str, reason: str, count: bool = True) -> None:
+        """Permanently degrade a doc to the CPU path (rows stay allocated
+        until unload so the name keeps resolving to 'unsupported').
+        count=False marks it retired without counting a new incident."""
+        doc = self.docs.get(name)
+        if doc is None:
+            return
+        if not doc.retired:
+            doc.retired = True
+            doc.retire_reason = reason
+            if count:
+                self.counters[f"docs_retired_{reason}"] += 1
+        doc.lowerer.unsupported = True
+        doc.serve_log = []
+        doc.map_tombstones = []
+        self.dirty.discard(name)
+        # lock-free: ops a concurrent drain captured before this clear
+        # still dispatch, but into rows whose generation is bumped below,
+        # so every health compare skips them; unit_logs is REBOUND so an
+        # in-flight serve keeps a consistent snapshot
+        for slot in doc.seqs.values():
+            self._tail_known[slot] = False  # rows go inert: never fast-path
+            self._tail_dirty.discard(slot)
+            self.queues[slot].clear()
+            self._busy_slots.discard(slot)
+            self.unit_logs[slot] = []
+            self.slot_live[slot] = False
+            self.slot_gen[slot] += 1
+
+    def _clear_slots(self, slots: "list[int]") -> None:
+        """Reset a batch of arena rows to empty in place (one indexed
+        write per field) and bump the flush epoch once."""
+        if not slots:
+            return
+        index = torch.as_tensor(slots, dtype=torch.long, device=self.device)
+        state = self.state
+        state.id_client[index] = NONE_CLIENT_I32
+        state.id_clock[index] = 0
+        state.rank[index] = _INF
+        state.origin_rank[index] = -1
+        state.deleted[index] = False
+        state.length[index] = 0
+        state.overflow[index] = False
+        for slot in slots:
+            self._set_tail_empty(slot)
+        self.flush_epoch += 1
+
+    def _set_tail_empty(self, slot: int) -> None:
+        """Mark a slot's rank tail KNOWN-EMPTY (fresh/cleared row)."""
+        self._tail_client[slot] = NONE_CLIENT
+        self._tail_clock[slot] = 0
+        self._tail_known[slot] = True
+        self._tail_dirty.discard(slot)
+
+    def is_supported(self, name: str) -> bool:
+        doc = self.docs.get(name)
+        if doc is None:
+            return False
+        return not doc.lowerer.unsupported
+
+    # -- queueing ----------------------------------------------------------
+
+    def enqueue_update(
+        self, name: str, update: bytes, presync: bool = False, remote: bool = False
+    ) -> int:
+        """Lower + queue one update; returns the number of ops accepted."""
+        doc = self.register(name)
+        if doc.lowerer.unsupported:
+            return 0
+        seq_ops, map_ops, map_tombs = doc.lowerer.lower_update(update)
+        if doc.lowerer.unsupported:
+            self.retire_doc(name, "unsupported")
+            return 0
+        count = 0
+        for seq_key, ops in seq_ops.items():
+            slot = self._alloc_seq(doc, seq_key)
+            if slot is None:
+                self.retire_doc(name, "plane_full")
+                return 0
+            # host-side mirror of the device capacity check: inserts
+            # succeed until the arena overflows, at which point the doc
+            # is CPU-only forever; stop queueing instead of leaking
+            projected = self.projected_len[slot] + sum(
+                op.run_len for op in ops if op.kind == KIND_INSERT
+            )
+            if projected > self.capacity:
+                self.retire_doc(name, "capacity")
+                return 0
+            self.projected_len[slot] = projected
+            if presync:
+                for op in ops:
+                    op.presync = True
+            self.queues[slot].extend(ops)
+            # AFTER the extend, unconditionally (see _busy_slots)
+            self._busy_slots.add(slot)
+            # log at ENQUEUE time: broadcasts build from the host log
+            # without waiting for the device flush; arena slot assignment
+            # is deterministic (arrival order), so unit offsets are final
+            log = self.unit_logs[slot]
+            for op in ops:
+                doc.serve_log.append(
+                    LogRec(op=op, slot=slot, unit_off=len(log), remote=remote)
+                )
+                if op.kind == KIND_INSERT:
+                    log.extend(op.chars)
+            count += len(ops)
+        for op in map_ops:
+            op.presync = presync
+            doc.serve_log.append(LogRec(op=op, slot=None, remote=remote))
+            count += 1
+        for client, clock, length in map_tombs:
+            doc.map_tombstones.append((client, clock, length))
+            doc.serve_log.append(
+                LogRec(
+                    op=DenseOp(
+                        kind=KIND_DELETE, client=client, clock=clock, run_len=length,
+                        presync=presync,
+                    ),
+                    slot=None,
+                    remote=remote,
+                )
+            )
+            count += 1
+        if count:
+            self.dirty.add(name)
+        return count
+
+    def pending_ops(self) -> int:
+        total = 0
+        for slot in list(self._busy_slots):
+            queue = self.queues.get(slot)
+            if queue:
+                total += len(queue)
+        return total
+
+    # -- device step -------------------------------------------------------
+
+    def flush(self, max_batches: Optional[int] = None) -> int:
+        """Integrate queued ops in (K, B) batches. Returns ops integrated.
+
+        max_batches bounds the batches in this cycle (one batch already
+        covers up to max_slots_per_flush ops for EVERY queue)."""
+        with self._step_lock:
+            return self._flush_locked(max_batches)
+
+    def _k_buckets(self) -> list[int]:
+        buckets = []
+        k = 1
+        while True:
+            buckets.append(k)
+            if k >= self.max_slots_per_flush:
+                return buckets
+            k *= 2
+
+    def _bucket_b(self, busy: int) -> int:
+        """Round a busy width up to its sparse bucket (powers of four);
+        num_docs (the dense layout) when it exceeds the top bucket."""
+        b = 1
+        while b < busy:
+            b *= 4
+        return b if b < self.num_docs else self.num_docs
+
+    def _plan_batch(self, busy: int) -> "tuple[bool, int]":
+        """The flush layout decision, in ONE place: (dense, b)."""
+        b = self._bucket_b(busy)
+        return b >= self.num_docs, b
+
+    def _flush_locked(self, max_batches: Optional[int] = None) -> int:
+        k_max = self._k_buckets()[-1]
+        total = 0
+        batches = 0
+        fast_total = slow_total = 0
+        build_ms = upload_ms = dispatch_ms = 0.0
+        upload_bytes = 0
+        k_last = b_last = busy_last = 0
+        while max_batches is None or batches < max_batches:
+            t0 = time.perf_counter()
+            drained = self._drain_ops(k_max)
+            if drained is None:
+                break
+            built = drained[4]
+            busy_total = int(drained[3].size)
+            # split the drained columns into all-sequential (fast) and
+            # concurrent (slow) sets; the two dispatches touch disjoint
+            # rows, so their order is immaterial
+            fast = None
+            slow = drained
+            if self.run_merge_enabled:
+                fast, slow = self._classify_fast(drained)
+            if fast is not None:
+                (
+                    run_row, run_col, f_client, f_clock, f_run,
+                    f_slots, f_ops, f_tail_cl, f_tail_ck,
+                ) = fast
+                nf = int(f_slots.size)
+                bf = self._bucket_b(nf)
+                index = self._append_batches % 2
+                staging_f = self._append_staging_for(index, k_max)
+                cl_v, ck_v, rn_v = staging_f.views(k_max, bf, reset=(2,))
+                cl_v.view(np.uint32)[run_row, run_col] = f_client
+                ck_v[run_row, run_col] = f_clock
+                rn_v[run_row, run_col] = f_run
+                slot_view_f = staging_f.slot_view(k_max, bf)
+                slot_view_f[:nf] = f_slots
+                slot_view_f[nf:] = self.num_docs
+                t1 = time.perf_counter()
+                fields_f, slots_f = staging_f.upload(k_max, bf, self.device)
+                self._append_inflight[index] = self._record_upload()
+                self._append_batches += 1
+                t2 = time.perf_counter()
+                self.state, _count = append_run_slots_sparse_fast(
+                    self.state, fields_f[0], fields_f[1], fields_f[2], slots_f
+                )
+                t_dispatch = time.perf_counter()
+                # the dispatched runs land at the rank tail, so the new
+                # tail is each column's last coalesced run
+                self._tail_client[f_slots] = f_tail_cl
+                self._tail_clock[f_slots] = f_tail_ck
+                self.counters["flush_batches_fast"] += 1
+                self.counters["flush_fast_ops"] += f_ops
+                fast_total += f_ops
+                build_ms += (t1 - t0) * 1000.0
+                upload_ms += (t2 - t1) * 1000.0
+                dispatch_ms += (t_dispatch - t2) * 1000.0
+                upload_bytes += _Staging.nbytes(3, k_max, bf, True)
+                k_last, b_last = k_max, bf
+                t0 = t_dispatch  # the slow build, if any, starts here
+            if slow is not None:
+                depth = slow[5]
+                # sparse batches pin K to the top bucket; dense batches
+                # keep the power-of-two K ladder
+                dense, b_bucket = self._plan_batch(int(slow[3].size))
+                if dense:
+                    k = 1
+                    while k < depth:
+                        k *= 2
+                else:
+                    k = k_max
+                index = batches % 2
+                staging = self._staging_for(index, k)
+                slot_view, b = self._assemble_batch(k, slow, staging, dense, b_bucket)
+                t1 = time.perf_counter()
+                fields, slots_dev = staging.upload(
+                    k, b, self.device, with_slots=slot_view is not None
+                )
+                self._staging_inflight[index] = self._record_upload()
+                ops = OpBatch(*fields)
+                t2 = time.perf_counter()
+                # the dispatch is asynchronous on the card: while it
+                # integrates batch i, the next iteration builds batch i+1
+                # in the OTHER staging buffer; _sync_health below is the
+                # cycle's single completion barrier
+                if slot_view is None:
+                    self.state, _count = integrate_op_slots_fast(self.state, ops)
+                    self.counters["flush_batches_dense"] += 1
+                else:
+                    self.state, _count = integrate_op_slots_sparse_fast(
+                        self.state, ops, slots_dev
+                    )
+                    self.counters["flush_batches_sparse"] += 1
+                t_dispatch = time.perf_counter()
+                # full-integrate columns invalidate their tracked rank
+                # tails; _sync_health re-arms the live ones below
+                slow_cols = slow[3].astype(np.intp)
+                self._tail_known[slow_cols] = False
+                for col in slow_cols:
+                    col = int(col)
+                    if self.slot_live[col]:
+                        self._tail_dirty.add(col)
+                self.counters["flush_slow_ops"] += slow[4]
+                slow_total += slow[4]
+                build_ms += (t1 - t0) * 1000.0
+                upload_ms += (t2 - t1) * 1000.0
+                dispatch_ms += (t_dispatch - t2) * 1000.0
+                upload_bytes += _Staging.nbytes(8, k, b, slot_view is not None)
+                k_last, b_last = k, b
+            total += built
+            busy_last = busy_total
+            batches += 1
+        if batches:
+            t3 = time.perf_counter()
+            self._sync_health()
+            t_sync = time.perf_counter()
+            self.flush_stats.update(
+                build_ms=round(build_ms, 3),
+                upload_ms=round(upload_ms, 3),
+                dispatch_ms=round(dispatch_ms, 3),
+                device_sync_ms=round((t_sync - t3) * 1000.0, 3),
+                busy_slots=busy_last,
+                busy_fraction=round(busy_last / max(self.num_docs, 1), 6),
+                batch_k=k_last,
+                batch_b=b_last,
+                batches=batches,
+                upload_bytes=upload_bytes,
+                fast_path_ops=fast_total,
+                slow_path_ops=slow_total,
+                fast_path_fraction=round(fast_total / max(total, 1), 6),
+            )
+        return total
+
+    def _record_upload(self):
+        """An event on the current stream after an upload, so the staging
+        buffer it read can be waited on before its next reset."""
+        if self.device.type != "cuda":
+            return None
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return event
+
+    def _sync_health(self) -> None:
+        """ONE combined device->host readback per flush cycle.
+
+        Reads lengths + overflow as a single tensor — also the completion
+        barrier for every batch dispatched before it. The dispatched ->
+        validated snapshot is taken at the same point, so health checks
+        compare device rows against exactly the ops the device has
+        integrated. When full-integrate columns invalidated tracked rank
+        tails, the dirty LIVE slots' tail ids ride the same readback via
+        tail_probe and re-arm the run-merge classifier. At most
+        _TAIL_PROBE_MAX slots re-arm per cycle; the rest stay dirty."""
+        probe_slots = None
+        probe_width = 0
+        if self._tail_dirty and self.run_merge_enabled:
+            live = sorted(slot for slot in self._tail_dirty if self.slot_live[slot])
+            self._tail_dirty.clear()
+            if len(live) > self._TAIL_PROBE_MAX:
+                self._tail_dirty.update(live[self._TAIL_PROBE_MAX :])
+                live = live[: self._TAIL_PROBE_MAX]
+            if live:
+                probe_slots = np.asarray(live, np.intp)
+                probe_width = 16 if len(live) <= 16 else self._TAIL_PROBE_MAX
+        parts = [self.state.length, self.state.overflow.to(torch.int32)]
+        if probe_slots is not None:
+            padded = np.zeros(probe_width, np.int32)
+            padded[: probe_slots.size] = probe_slots  # pad: re-read slot 0
+            slots = torch.from_numpy(padded).to(self.device)
+            parts.append(tail_probe(self.state, slots))
+        combined = torch.cat(parts).cpu().numpy()
+        lengths = combined[: self.num_docs].astype(np.int64)
+        self.last_lengths = lengths
+        self.last_overflows = combined[self.num_docs : 2 * self.num_docs].astype(bool)
+        if probe_slots is not None:
+            probe = combined[2 * self.num_docs :].view(np.uint32)
+            n = probe_slots.size
+            clients = probe[:n]
+            clocks = probe[probe_width : probe_width + n].astype(np.int64)
+            empty = lengths[probe_slots] == 0
+            self._tail_client[probe_slots] = np.where(
+                empty, np.uint32(NONE_CLIENT), clients
+            )
+            self._tail_clock[probe_slots] = np.where(empty, 0, clocks)
+            self._tail_known[probe_slots] = True
+        self.validated_units = self.dispatched_units.copy()
+        self.last_gen = self.slot_gen.copy()
+        self.flush_epoch += 1
+
+    # per-cycle cap on tail re-arms (bounds the probe's device work)
+    _TAIL_PROBE_MAX = 256
+
+    def _drain_ops(self, k: int):
+        """Pop up to k ops from every BUSY queue into flat coordinate /
+        value lists — O(busy). Returns None when nothing was drained,
+        else (rows, slots, vals, cols, built, depth): op coordinates
+        (row-in-batch, arena slot), 8 per-field value columns, the sorted
+        unique busy slot ids, the op count and the deepest per-queue
+        take (the dense layout's K requirement)."""
+        rows: list[int] = []
+        slots: list[int] = []
+        vals: tuple[list[int], ...] = ([], [], [], [], [], [], [], [])
+        built = 0
+        depth = 0
+        for slot in sorted(self._busy_slots):
+            queue = self.queues.get(slot)
+            if not queue:
+                self._busy_slots.discard(slot)
+                if queue:  # an enqueue raced the discard: repair
+                    self._busy_slots.add(slot)
+                continue
+            take = queue[:k]
+            # del by len(take), not k: an enqueue may extend this queue
+            # between the slice and the del; only the front is taken
+            del queue[: len(take)]
+            if not queue:
+                self._busy_slots.discard(slot)
+                if queue:  # an enqueue raced the discard: repair
+                    self._busy_slots.add(slot)
+            dispatched = 0
+            for i, op in enumerate(take):
+                rows.append(i)
+                slots.append(slot)
+                vals[0].append(op.kind)
+                vals[1].append(op.client)
+                vals[2].append(op.clock)
+                vals[3].append(op.run_len)
+                vals[4].append(op.left_client)
+                vals[5].append(op.left_clock)
+                vals[6].append(op.right_client)
+                vals[7].append(op.right_clock)
+                if op.kind == KIND_INSERT:
+                    dispatched += op.run_len
+            built += len(take)
+            if len(take) > depth:
+                depth = len(take)
+            self.dispatched_units[slot] += dispatched
+        if not built:
+            return None
+        cols = np.unique(np.asarray(slots, np.int64))
+        return rows, slots, vals, cols, built, depth
+
+    def _classify_fast(self, drained):
+        """The run-merge concurrency classifier: split one drained cycle
+        into fast COLUMNS (every op a chained tail append — integrable by
+        the append program) and slow columns (the full integrate).
+        Returns (fast_pack | None, slow | None), `slow` shaped like a
+        _drain_ops result.
+
+        An op is a pure tail append iff it is an INSERT with no right
+        origin whose left origin is the column's current rank tail; for
+        such ops the YATA window is empty, so the append program is
+        bit-identical to the integrate. Chains verify inductively (op m's
+        left must be op m-1's last unit), all in vectorized numpy."""
+        rows, slots, vals, cols, built, depth = drained
+        if not rows:
+            return None, drained
+        op_row = np.asarray(rows, np.int64)
+        op_slot = np.asarray(slots, np.int64)
+        fields = [
+            np.asarray(vals[i], np.uint32 if i in (1, 4, 6) else np.int64)
+            for i in range(8)
+        ]
+        n = op_slot.size
+        # column-major order: a slot's ops are contiguous, row-ordered
+        order = np.lexsort((op_row, op_slot))
+        s = op_slot[order]
+        row_s = op_row[order]
+        kind_s, cl_s, ck_s, rn_s, lc_s, lk_s, rc_s, rk_s = (f[order] for f in fields)
+        first = np.ones(n, bool)
+        first[1:] = s[1:] != s[:-1]
+        sp = s.astype(np.intp)
+        head_ok = np.where(
+            lc_s == NONE_CLIENT,
+            # an origin-less insert appends only to an EMPTY row
+            self._tail_client[sp] == np.uint32(NONE_CLIENT),
+            (lc_s == self._tail_client[sp]) & (lk_s == self._tail_clock[sp]),
+        )
+        prev_cl = np.empty(n, np.uint32)
+        prev_end = np.empty(n, np.int64)
+        prev_cl[0] = 0
+        prev_end[0] = 0
+        prev_cl[1:] = cl_s[:-1]
+        prev_end[1:] = ck_s[:-1] + rn_s[:-1] - 1
+        ok = (
+            (kind_s == KIND_INSERT)
+            & (rc_s == NONE_CLIENT)
+            & self._tail_known[sp]
+            & np.where(first, head_ok, (lc_s == prev_cl) & (lk_s == prev_end))
+        )
+        col_starts = np.flatnonzero(first)
+        col_ok = np.logical_and.reduceat(ok, col_starts)
+        if not col_ok.any():
+            return None, drained
+        counts = np.diff(np.append(col_starts, n))
+        member = np.repeat(col_ok, counts)
+        # coalesce the fast subset: consecutive same-client runs with
+        # clock continuity merge into ONE device run
+        fs = s[member]
+        fcl = cl_s[member]
+        fck = ck_s[member]
+        frn = rn_s[member]
+        m = int(fs.size)
+        newrun = np.ones(m, bool)
+        newrun[1:] = (
+            (fs[1:] != fs[:-1])
+            | (fcl[1:] != fcl[:-1])
+            | (fck[1:] != fck[:-1] + frn[:-1])
+        )
+        run_starts = np.flatnonzero(newrun)
+        run_slot = fs[run_starts]
+        run_client = fcl[run_starts]
+        run_clock = fck[run_starts]
+        run_len = np.add.reduceat(frn, run_starts)
+        run_first = np.ones(run_slot.size, bool)
+        run_first[1:] = run_slot[1:] != run_slot[:-1]
+        col_of_run = np.cumsum(run_first) - 1
+        first_run = np.flatnonzero(run_first)
+        run_row = np.arange(run_slot.size) - first_run[col_of_run]
+        last_run = np.append(first_run[1:] - 1, run_slot.size - 1)
+        fast = (
+            run_row.astype(np.intp),
+            col_of_run.astype(np.intp),
+            run_client,
+            run_clock.astype(np.int64),
+            run_len.astype(np.int64),
+            run_slot[run_first].astype(np.int64),
+            m,
+            run_client[last_run],
+            (run_clock[last_run] + run_len[last_run] - 1).astype(np.int64),
+        )
+        if member.all():
+            return fast, None
+        keep = ~member
+        slow = (
+            row_s[keep],
+            s[keep],
+            (
+                kind_s[keep], cl_s[keep], ck_s[keep], rn_s[keep],
+                lc_s[keep], lk_s[keep], rc_s[keep], rk_s[keep],
+            ),
+            s[col_starts][~col_ok],
+            int(n - m),
+            int(row_s[keep].max()) + 1,
+        )
+        return fast, slow
+
+    def _staging_for(self, index: int, k: int) -> _Staging:
+        """The op staging buffer for this batch (alternating between two
+        preallocated sets), its previous upload waited on first so a
+        reset can never race an in-flight copy. Reallocation only happens
+        for a K beyond the bucketed grid — counted, so the reuse
+        accounting can pin allocs flat."""
+        if self._staging is None or self._staging[0].k_max < k:
+            k_max = max(self._k_buckets()[-1], k)
+            pin = self.device.type == "cuda"
+            self._staging = [
+                _Staging(k_max, self.num_docs, _OP_DEFAULTS, pin) for _ in range(2)
+            ]
+            self._staging_inflight = [None, None]
+            self.counters["flush_staging_allocs"] += 2
+        else:
+            self.counters["flush_staging_reuses"] += 1
+        return self._retire(self._staging, self._staging_inflight, index)
+
+    def _append_staging_for(self, index: int, k: int) -> _Staging:
+        """The append fast path's staging buffer for this batch — same
+        double-buffer + retire-before-reuse discipline as _staging_for."""
+        if self._append_staging is None or self._append_staging[0].k_max < k:
+            k_max = max(self._k_buckets()[-1], k)
+            pin = self.device.type == "cuda"
+            self._append_staging = [
+                _Staging(k_max, self.num_docs, _RUN_DEFAULTS, pin) for _ in range(2)
+            ]
+            self._append_inflight = [None, None]
+            self.counters["flush_staging_allocs"] += 2
+        else:
+            self.counters["flush_staging_reuses"] += 1
+        return self._retire(self._append_staging, self._append_inflight, index)
+
+    @staticmethod
+    def _retire(buffers: list, inflight: list, index: int) -> _Staging:
+        event = inflight[index]
+        if event is not None:
+            event.synchronize()
+            inflight[index] = None
+        return buffers[index]
+
+    def _assemble_batch(self, k: int, drained, staging: _Staging, dense: bool, b: int):
+        """Scatter drained ops into staging views. `dense`/`b` come from
+        _plan_batch. Sparse layout: a compact (K, B) batch over the busy
+        columns plus the (B,) routing (padding columns route to the
+        num_docs sentinel); dense (K, D) layout (column = arena slot)
+        when every slot is effectively busy. Returns (slot_view | None,
+        b)."""
+        rows, slots, vals, cols, _built, _depth = drained
+        if dense:
+            b = self.num_docs
+            col_idx = np.asarray(slots, np.intp)
+            slot_view = None
+        else:
+            col_idx = np.searchsorted(cols, np.asarray(slots, np.int64))
+            slot_view = staging.slot_view(k, b)
+            slot_view[: cols.size] = cols
+            slot_view[cols.size :] = self.num_docs
+        views = staging.views(k, b, reset=range(8))
+        if len(rows):  # list (live drain) or ndarray (classifier remainder)
+            ri = np.asarray(rows, np.intp)
+            for i, view in enumerate(views):
+                if i in (1, 4, 6):
+                    view.view(np.uint32)[ri, col_idx] = np.asarray(vals[i], np.uint32)
+                else:
+                    view[ri, col_idx] = vals[i]
+        return slot_view, b
+
+    # -- extraction --------------------------------------------------------
+
+    def check_doc_health(
+        self,
+        name: str,
+        doc: PlaneDoc,
+        lengths: np.ndarray,
+        overflows: np.ndarray,
+        validated: Optional[np.ndarray] = None,
+        gens: Optional[np.ndarray] = None,
+    ) -> bool:
+        """Device/host invariants for every row of a doc; retires on fail.
+
+        Callers supply the (D,) length/overflow rows AND the validated-
+        unit + generation snapshots taken with them. Device lengths are
+        compared against VALIDATED dispatch tallies, never the host unit
+        logs (those run ahead of the device by design). A slot whose
+        binding generation changed since the snapshot is skipped."""
+        if validated is None:
+            validated = self.validated_units
+        if gens is None:
+            gens = self.last_gen
+        for slot in doc.seqs.values():
+            if gens is None or gens[slot] != self.slot_gen[slot]:
+                continue  # snapshot predates this slot's binding
+            if bool(overflows[slot]):
+                self.retire_doc(name, "overflow")
+                return False
+            if int(validated[slot]) != int(lengths[slot]):
+                self.retire_doc(name, "desync")
+                return False
+        return True
+
+    def text(self, name: str) -> Optional[str]:
+        """Decode a plain-text document's live text from device state.
+
+        Defined for docs whose content is a single root sequence of text
+        units (formats are zero-width, as in Yjs); tree docs and value
+        sequences return None. A surrogate pair decodes as a real
+        character only when its two units are id-consecutive from one
+        client AND rank-adjacent, as on the CPU path."""
+        from ..crdt.content import ContentFormat
+
+        doc = self.docs.get(name)
+        if doc is None:
+            return None
+        if doc.lowerer.unsupported:
+            return None
+        roots = [key for key in doc.seqs if key[0] == "root"]
+        if len(doc.seqs) != len(roots) or len(roots) > 1:
+            return None  # tree-shaped: byte-served, not materialized
+        if not roots:
+            return ""
+        with self._step_lock:
+            if self.pending_ops() > 0:
+                self._flush_locked(None)
+            if not self.check_doc_health(
+                name,
+                doc,
+                self.state.length.cpu().numpy(),
+                self.state.overflow.cpu().numpy(),
+            ):
+                return None
+            slot = doc.seqs[roots[0]]
+            log = self.unit_logs[slot]
+            live = extract_live_mask(self.state)[slot].cpu().numpy()
+            occupied = np.nonzero(live)[0]
+            ranks_all = self.state.rank[slot].cpu().numpy()[occupied]
+            order = np.argsort(ranks_all)
+            sel = occupied[order]
+            ranks = ranks_all[order]
+            clients = self.state.id_client[slot].cpu().numpy().view(np.uint32)[sel]
+            clocks = self.state.id_clock[slot].cpu().numpy()[sel]
+            entries = [log[i] for i in sel]
+        out: list[int] = []
+        i = 0
+        count = len(entries)
+        while i < count:
+            entry = entries[i]
+            if not isinstance(entry, int):
+                if isinstance(entry, ContentFormat):
+                    i += 1  # zero-width formatting boundary
+                    continue
+                return None  # embeds/values: not a plain text doc
+            c = entry
+            if 0xD800 <= c <= 0xDBFF:
+                nxt = entries[i + 1] if i + 1 < count else None
+                if (
+                    isinstance(nxt, int)
+                    and 0xDC00 <= nxt <= 0xDFFF
+                    and clients[i + 1] == clients[i]
+                    and clocks[i + 1] == clocks[i] + 1
+                    and ranks[i + 1] == ranks[i] + 1
+                ):
+                    out.append(c)
+                    out.append(nxt)
+                    i += 2
+                    continue
+                out.append(0xFFFD)
+            elif 0xDC00 <= c <= 0xDFFF:
+                out.append(0xFFFD)
+            else:
+                out.append(c)
+            i += 1
+        return units_to_text(out)

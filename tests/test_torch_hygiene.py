@@ -1,0 +1,73 @@
+"""The PyTorch port stands alone: it imports nothing of JAX or the JAX
+package, and it runs on the card unless the caller asks for the CPU."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+IMPORT_EVERYTHING = """
+import importlib.util, pkgutil, sys
+import hocuspocus_tpu_torch
+for info in pkgutil.walk_packages(hocuspocus_tpu_torch.__path__, "hocuspocus_tpu_torch."):
+    importlib.import_module(info.name)
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+module = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(module)  # defines main() without running it
+assert callable(module.main)
+leaked = sorted(
+    name for name in sys.modules
+    if name == "jax" or name.startswith("jax.")
+    or name == "hocuspocus_tpu" or name.startswith("hocuspocus_tpu.")
+)
+print("LEAKED", leaked)
+"""
+
+NO_CUDA = """
+from hocuspocus_tpu_torch.tpu import MergePlane
+try:
+    MergePlane()
+except RuntimeError as error:
+    print("RAISED", error)
+plane = MergePlane(num_docs=2, capacity=8, device="cpu")
+print("CPU", plane.state.id_client.device)
+"""
+
+
+def _run(snippet: str, **env) -> str:
+    proc = subprocess.run(
+        [sys.executable, "-c", snippet],
+        cwd=ROOT,
+        capture_output=True,
+        text=True,
+        timeout=120,
+        env={**os.environ, "PYTHONPATH": str(ROOT), **env},
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    return proc.stdout
+
+
+def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
+    out = _run(IMPORT_EVERYTHING)
+    assert "LEAKED []" in out, out
+
+
+def test_merge_plane_raises_without_cuda_unless_asked_for_the_cpu():
+    out = _run(NO_CUDA, CUDA_VISIBLE_DEVICES="")
+    assert "RAISED MergePlane needs a CUDA device" in out, out
+    assert "CPU cpu" in out, out
+
+
+def test_chip_smoke_refuses_to_run_without_cuda():
+    proc = subprocess.run(
+        [sys.executable, "chip_smoke.py"],
+        cwd=ROOT,
+        capture_output=True,
+        text=True,
+        timeout=120,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
