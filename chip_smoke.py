@@ -5,15 +5,16 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It builds the Hopper integrate kernel from `hocuspocus_tpu_torch/csrc/`,
-holds it against its plain PyTorch version (bit for bit) at the bench
-shape and at deployment scale, then drives the merge plane + serving
-path (`MergePlane` on the card, `PlaneServing`, `TpuSyncSource`) with
-concurrent Yjs editors and checks every served byte against a second
-plane on the CPU. Each phase prints one line; any failure exits nonzero.
-The last two lines are the kernels' JSON record and the device line.
-Without a CUDA device, or outside a checkout, it exits nonzero and
-prints no result.
+It builds the Hopper integrate kernels from `hocuspocus_tpu_torch/csrc/`
+(K1 for the unit arena, K2 for the run-length arena, one nvcc each, both
+started together), holds each against its plain PyTorch version (bit for
+bit) at the bench shape and at deployment scale, then drives the merge
+plane + serving path (`MergePlane` on the card, `PlaneServing`,
+`TpuSyncSource`) over each arena with concurrent Yjs editors and checks
+every served byte against a second plane on the CPU. Each phase prints
+one line; any failure exits nonzero. The last two lines are the kernels'
+JSON record and the device line. Without a CUDA device, or outside a
+checkout, it exits nonzero and prints no result.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import random
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -47,6 +49,20 @@ OPS_INSERT = OPS_ORIGINS + OPS_CONFLICT + OPS_SKIPPED + OPS_BUMP
 # per newly filled unit: off, clock + off, ins + off, off == 0, ins + off - 1, select
 OPS_FILL = 7
 ROW_BYTES_PER_UNIT = 17  # 4 int32 fields + a bool
+# int32 operations per occupied ENTRY, counted the same way from the loop
+# bodies of hocuspocus_tpu_torch/csrc/integrate_rle.cu (line numbers):
+OPS_RLE_ORIGINS = 11  # :209 pass 1: end add; per origin ==, >=, <, two ands
+OPS_RLE_CONFLICT = 16  # :229 pass 2: client_ge; head 4 compares, 3 ands, or; successor add, 3 compares, 3 ands
+OPS_RLE_SPLIT = 4  # :243 pass 3, straddle test: <, add, <, and
+OPS_RLE_BUMP = 6  # :257 pass 4: straddle test (4), two >=
+OPS_RLE_INSERT = OPS_RLE_ORIGINS + OPS_RLE_CONFLICT + OPS_RLE_SPLIT + OPS_RLE_BUMP
+OPS_RLE_BOUND = 6  # :288 each id bound's scan: ==, <, add, <, two ands
+OPS_RLE_COVER = 6  # :312 tombstone pass: ==, >=, add, <=, two ands
+RLE_BYTES_PER_ENTRY = 21  # 5 int32 fields + a bool
+# plane rounds per arena: the host work of a round grows with the docs,
+# and the whole script keeps to about five minutes on the card
+UNIT_PLANE_ROUNDS = 12
+RLE_PLANE_ROUNDS = 12
 
 CLIENTS = np.asarray([7, 0x9000_0001], np.uint32)
 NONE = 0xFFFFFFFF
@@ -149,19 +165,25 @@ def event_ms(fn, reps: int, setup=None) -> float:
     return float(np.median(times))
 
 
-def plain_with_lengths(state, ops):
-    """The plain integrate one op slot at a time, in place, recording
-    each row's length before each slot: the reference result plus what
-    the bound needs."""
+def plain_by_slot(state, ops, integrate, field: str):
+    """A plain integrate one op slot at a time, in place, recording each
+    row's `field` (length, or num_runs) before each slot: the reference
+    result plus what the bound needs, (K, B)."""
     import torch
 
     from hocuspocus_tpu_torch.tpu import kernels as tk
 
-    lengths = []
+    seen = []
     for k in range(ops.kind.shape[0]):
-        lengths.append(state.length.clone())
-        tk.integrate_op_slots(state, tk.OpBatch(*(f[k : k + 1] for f in ops)))
-    return torch.stack(lengths)
+        seen.append(getattr(state, field).clone())
+        integrate(state, tk.OpBatch(*(f[k : k + 1] for f in ops)))
+    return torch.stack(seen)
+
+
+def plain_with_lengths(state, ops):
+    from hocuspocus_tpu_torch.tpu import kernels as tk
+
+    return plain_by_slot(state, ops, tk.integrate_op_slots, "length")
 
 
 def integrate_bound(ops, lengths, len_end) -> tuple[float, str, dict]:
@@ -189,10 +211,49 @@ def integrate_bound(ops, lengths, len_end) -> tuple[float, str, dict]:
     operations += OPS_FILL * int(((after - before) * applied.long()).sum())
     moved = ROW_BYTES_PER_UNIT * int(before[0].sum() + len_end.long().sum())
     moved += 8 * 4 * num_slots * batch + 4 * batch + 2 * 5 * batch
+    return _bound(moved, operations)
+
+
+def _bound(moved: int, operations: int) -> tuple[float, str, dict]:
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
     t_ops = operations / INT32_OPS_PER_S * 1e3
     by = "operations" if t_ops >= t_bytes else "bytes"
     return max(t_ops, t_bytes), by, {"bytes": moved, "int32_ops": operations}
+
+
+def plain_rle_with_runs(state, ops):
+    from hocuspocus_tpu_torch.tpu import kernels_rle as tr
+
+    return plain_by_slot(state, ops, tr.integrate_op_slots_rle, "num_runs")
+
+
+def rle_bound(ops, runs, runs_end, entries) -> tuple[float, str, dict]:
+    """Least time for one K2 call on this run's data. Bytes: the occupied
+    entries read once and written once (21 B each), plus 32 B per op and
+    the routing and per-row scalars. Operations: per op slot and row,
+    what the kernel's passes do over the row's occupied entries at that
+    point (`runs`, (K, B), from plain_rle_with_runs): an applied insert
+    makes passes 1-4, a dropped one pass 1 only, a delete that fits the
+    two id-bound scans over the entries before it and the tombstone pass
+    over the entries after its splits; a delete that does not fit does
+    nothing. An insert counts as applied when it added entries."""
+    import torch
+
+    num_slots, batch = ops.kind.shape
+    before = runs.long().clamp(0, entries)
+    after = torch.cat([runs[1:], runs_end[None]]).long().clamp(0, entries)
+    inserts = ops.kind == 1
+    applied = inserts & (after != before)
+    deletes = (ops.kind == 2) & (runs.long() + 2 <= entries)
+    per_entry = (
+        OPS_RLE_INSERT * applied.long()
+        + OPS_RLE_ORIGINS * (inserts & ~applied).long()
+        + 2 * OPS_RLE_BOUND * deletes.long()
+    )
+    operations = int((before * per_entry).sum()) + OPS_RLE_COVER * int((after * deletes.long()).sum())
+    moved = RLE_BYTES_PER_ENTRY * int(before[0].sum() + after[-1].sum())
+    moved += 8 * 4 * num_slots * batch + 4 * batch + 2 * 9 * batch
+    return _bound(moved, operations)
 
 
 # -- phases -----------------------------------------------------------------
@@ -210,23 +271,30 @@ def nvidia_smi_line() -> str:
 
 
 def phase_build():
-    from hocuspocus_tpu_torch.tpu.integrate import LIBRARY
+    """Build K1 and K2, one nvcc each, both started together."""
+    from hocuspocus_tpu_torch.tpu.integrate import LIBRARY, RLE_LIBRARY
 
     started = time.perf_counter()
-    LIBRARY.get()
-    ptxas = [
-        line.strip()
-        for line in LIBRARY.build_log.splitlines()
-        if "registers" in line or "spill" in line or "smem" in line
-    ]
-    emit(
-        "build",
-        gpu=nvidia_smi_line(),
-        kernel="integrate_rows",
-        seconds=round(time.perf_counter() - started, 3),
-        nvcc_seconds=round(LIBRARY.build_seconds, 3),
-        ptxas=ptxas,
-    )
+    libraries = (("build", "integrate_rows", LIBRARY), ("rle_build", "integrate_rle_rows", RLE_LIBRARY))
+    with ThreadPoolExecutor(len(libraries)) as pool:
+        for future in [pool.submit(lib.get) for _tag, _name, lib in libraries]:
+            future.result()
+    seconds = round(time.perf_counter() - started, 3)
+    gpu = nvidia_smi_line()
+    for tag, name, lib in libraries:
+        emit(
+            tag,
+            gpu=gpu,
+            kernel=name,
+            source=str(lib.source.relative_to(lib.source.parent.parent.parent)),
+            seconds=seconds,
+            nvcc_seconds=round(lib.build_seconds, 3),
+            ptxas=[
+                line.strip()
+                for line in lib.build_log.splitlines()
+                if "registers" in line or "spill" in line or "smem" in line
+            ],
+        )
 
 
 def phase_dense(rng, num_docs, capacity, num_slots, reps):
@@ -286,20 +354,41 @@ def phase_dense(rng, num_docs, capacity, num_slots, reps):
 
 
 def _row_checksums(state, chunk=8192):
-    """Per-row int64 checksum of every field (random column weights),
+    """Per-row int64 checksum of every field of either arena (random
+    column weights for row fields, a constant per per-row scalar),
     computed in row chunks to bound the temporaries."""
     import torch
 
-    num_docs, capacity = state.id_client.shape
+    num_docs, width = state[0].shape
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    weights = torch.randint(1, 2**31, (capacity,), generator=gen, device="cuda", dtype=torch.int64)
+    weights = torch.randint(1, 2**31, (width,), generator=gen, device="cuda", dtype=torch.int64)
     out = torch.zeros(num_docs, dtype=torch.int64, device="cuda")
     for start in range(0, num_docs, chunk):
         rows = slice(start, start + chunk)
-        for field in state[:5]:
-            out[rows] += (field[rows].long() * weights).sum(dim=1)
-        out[rows] += state.length[rows].long() * 31 + state.overflow[rows].long() * 17
+        for i, field in enumerate(state):
+            if field.dim() == 2:
+                out[rows] += (field[rows].long() * weights).sum(dim=1)
+            else:
+                out[rows] += field[rows].long() * (17 + 14 * i)
     return out
+
+
+def _routed_ops(live, busy, pad, num_docs, cols, device):
+    """(K, busy) op fields widened with `pad` noop padding columns, and
+    the (busy + pad,) routing vector with the num_docs sentinel."""
+    import torch
+
+    from hocuspocus_tpu_torch.tpu import kernels as tk
+
+    num_slots = live[0].shape[0]
+    fields = []
+    for value, default in zip(live, (0, 0, 0, 0, NONE, 0, NONE, 0)):
+        full = np.full((num_slots, busy + pad), default, value.dtype)
+        full[:, :busy] = value
+        fields.append(full)
+    slots_np = np.full(busy + pad, num_docs, np.int32)
+    slots_np[:busy] = cols
+    return tk.ops_from_numpy(fields, device), torch.from_numpy(slots_np).to(device)
 
 
 def phase_sparse(rng, seeded, num_docs, busy, pad, num_slots, reps):
@@ -324,16 +413,7 @@ def phase_sparse(rng, seeded, num_docs, busy, pad, num_slots, reps):
         rows = tk.gather_doc_rows(state, routed)
         own = torch.where(rows.id_client == int(cid), rows.id_clock + 1, 0)
         next_clock[ci] = own.amax(dim=1).cpu().numpy()
-    live = random_ops(rng, next_clock, num_slots)
-    fields = []
-    for value, default in zip(live, (0, 0, 0, 0, NONE, 0, NONE, 0)):
-        full = np.full((num_slots, busy + pad), default, value.dtype)
-        full[:, :busy] = value
-        fields.append(full)
-    ops = tk.ops_from_numpy(fields, dev)
-    slots_np = np.full(busy + pad, num_docs, np.int32)
-    slots_np[:busy] = cols
-    slots = torch.from_numpy(slots_np).to(dev)
+    ops, slots = _routed_ops(random_ops(rng, next_clock, num_slots), busy, pad, num_docs, cols, dev)
 
     before = tk.gather_doc_rows(state, routed)
     expected = clone_state(before)
@@ -377,6 +457,142 @@ def phase_sparse(rng, seeded, num_docs, busy, pad, num_slots, reps):
     )
 
 
+def phase_rle_dense(rng, num_docs, entries, num_slots, seed_batches, reps):
+    """K2 alone at the bench's RLE shape: every row routed, rows seeded
+    with `seed_batches` batches of `num_slots` op slots (bench.py's
+    _measure_rle_microbatch), kernel and plain side by side."""
+    import torch
+
+    from hocuspocus_tpu_torch.tpu import integrate as ti
+    from hocuspocus_tpu_torch.tpu import kernels as tk
+    from hocuspocus_tpu_torch.tpu import kernels_rle as tr
+
+    dev = torch.device("cuda")
+    next_clock = np.zeros((2, num_docs), np.int64)
+    state = tr.make_empty_rle_state(num_docs, entries, dev)
+    reference = tr.make_empty_rle_state(num_docs, entries, dev)
+    for _ in range(seed_batches):
+        seed_ops = tk.ops_from_numpy(random_ops(rng, next_clock, num_slots), dev)
+        ti.integrate_op_slots_rle_fast(state, seed_ops)
+        tr.integrate_op_slots_rle(reference, seed_ops)
+    torch.cuda.synchronize()
+    check(states_equal(state, reference), "rle_dense seed: kernel and plain states differ")
+    del reference
+
+    ops = tk.ops_from_numpy(random_ops(rng, next_clock, num_slots), dev)
+    expected = clone_state(state)
+    runs = plain_rle_with_runs(expected, ops)
+    work = clone_state(state)
+    _, count = ti.integrate_op_slots_rle_fast(work, ops)
+    torch.cuda.synchronize()
+    check(int(count) == int(tk.op_count(ops)), "rle_dense: op counts differ")
+    check(states_equal(work, expected), "rle_dense: kernel and plain states differ")
+    err = max_abs_err(work, expected)
+    del work
+
+    scratch = {}
+
+    def reset():
+        scratch["s"] = clone_state(state)
+
+    kernel_ms = event_ms(lambda: ti.integrate_op_slots_rle_fast(scratch["s"], ops), reps, reset)
+    plain_ms = event_ms(lambda: tr.integrate_op_slots_rle(scratch["s"], ops), 2, reset)
+    bound_ms, bound_by, need = rle_bound(ops, runs, expected.num_runs, entries)
+    scratch.clear()
+    emit(
+        "rle_dense",
+        shape={"D": num_docs, "R": entries, "K": num_slots, "seed_batches": seed_batches},
+        arena_mb=round(sum(f.numel() * f.element_size() for f in state) / 1e6, 3),
+        bit_identical=True,
+        max_abs_err=err,
+        mean_num_runs=round(float(state.num_runs.float().mean()), 3),
+        max_num_runs=int(state.num_runs.max()),
+        overflow_rows=int(expected.overflow.sum()),
+        ms=kernel_ms,
+        plain_ms=plain_ms,
+        bound_ms=bound_ms,
+        bound_by=bound_by,
+        **need,
+    )
+    return state
+
+
+def phase_rle_sparse(rng, seeded, num_docs, entries, busy, pad, num_slots, reps):
+    """K2 at deployment scale: a `num_docs`-row resident RLE arena of
+    `entries` entries a row (the seeded rows tiled into it), `busy`
+    routed rows plus `pad` padding columns; unrouted rows must not
+    change."""
+    import torch
+
+    from hocuspocus_tpu_torch.tpu import integrate as ti
+    from hocuspocus_tpu_torch.tpu import kernels as tk
+    from hocuspocus_tpu_torch.tpu import kernels_rle as tr
+
+    dev = torch.device("cuda")
+    src_rows, src_entries = seeded.run_client.shape
+    tile = torch.arange(num_docs, device=dev) % src_rows
+    state = tr.make_empty_rle_state(num_docs, entries, dev)
+    for field, src in zip(state, seeded):
+        if field.dim() == 2:
+            field[:, :src_entries] = src.index_select(0, tile)
+        else:
+            field.copy_(src.index_select(0, tile))
+    arena_gb = sum(f.numel() * f.element_size() for f in state) / 1e9
+    cols = np.sort(rng.choice(num_docs, size=busy, replace=False)).astype(np.int32)
+    routed = torch.from_numpy(cols).to(dev).long()
+    # this run's clocks per (client, routed row) continue past the ids
+    # its tiled source row already holds
+    rows = tk.gather_doc_rows(state, routed)
+    idx = torch.arange(entries, device=dev)[None, :]
+    occupied = idx < rows.num_runs[:, None]
+    next_clock = np.zeros((2, busy), np.int64)
+    for ci, cid in enumerate(CLIENTS.view(np.int32)):
+        mine = occupied & (rows.run_client == int(cid))
+        ends = torch.where(mine, rows.run_clock + rows.run_len, 0)
+        next_clock[ci] = ends.amax(dim=1).cpu().numpy()
+    ops, slots = _routed_ops(random_ops(rng, next_clock, num_slots), busy, pad, num_docs, cols, dev)
+
+    expected = clone_state(rows)
+    runs = plain_rle_with_runs(expected, tk.OpBatch(*(f[:, :busy] for f in ops)))
+    checksum_before = _row_checksums(state)
+    _, count = ti.integrate_op_slots_rle_sparse_fast(state, ops, slots)
+    torch.cuda.synchronize()
+    check(int(count) == int(tk.op_count(ops)), "rle_sparse: op counts differ")
+    after = tk.gather_doc_rows(state, routed)
+    check(states_equal(after, expected), "rle_sparse: routed rows differ from the plain version")
+    unrouted = torch.ones(num_docs, dtype=torch.bool, device=dev)
+    unrouted[routed] = False
+    checksum_after = _row_checksums(state)
+    check(
+        torch.equal(checksum_before[unrouted], checksum_after[unrouted]),
+        "rle_sparse: an unrouted row changed",
+    )
+    err = max_abs_err(after, expected)
+
+    def restore():
+        tk.scatter_doc_rows(state, rows, routed)
+
+    kernel_ms = event_ms(lambda: ti.integrate_op_slots_rle_sparse_fast(state, ops, slots), reps, restore)
+    plain_ms = event_ms(lambda: tr.integrate_op_slots_rle_sparse(state, ops, slots), 2, restore)
+    restore()
+    bound_ms, bound_by, need = rle_bound(
+        tk.OpBatch(*(f[:, :busy] for f in ops)), runs, expected.num_runs, entries
+    )
+    emit(
+        "rle_sparse",
+        shape={"D": num_docs, "R": entries, "B": busy, "padding": pad, "K": num_slots},
+        arena_gb=round(arena_gb, 3),
+        bit_identical=True,
+        unrouted_rows_unchanged=True,
+        max_abs_err=err,
+        ms=kernel_ms,
+        plain_ms=plain_ms,
+        bound_ms=bound_ms,
+        bound_by=bound_by,
+        **need,
+    )
+
+
 # -- the plane end to end ----------------------------------------------------
 
 WORDS = ["alpha ", "béta ", "γ", "zz ", "e", "plane "]
@@ -406,13 +622,14 @@ class Recorder:
     one of its rows (the append path of the call's own drain writes
     other rows)."""
 
-    def __init__(self, module) -> None:
+    def __init__(self, module, dense_name: str, sparse_name: str) -> None:
         self.module = module
+        self.names = (dense_name, sparse_name)
         self.best = None
         self.before = None  # the arena as the current flush found it
         self.pending = None  # (ops, slots) of this flush's first call
-        self.dense = module.integrate_op_slots_fast
-        self.sparse = module.integrate_op_slots_sparse_fast
+        self.dense = getattr(module, dense_name)
+        self.sparse = getattr(module, sparse_name)
 
     def _keep(self, ops, slots):
         if self.pending is None:
@@ -434,27 +651,27 @@ class Recorder:
 
     def __enter__(self):
         def dense(state, ops):
-            if state.id_client.is_cuda:
+            if state[0].is_cuda:
                 self._keep(ops, None)
             return self.dense(state, ops)
 
         def sparse(state, ops, slots):
-            if state.id_client.is_cuda:
+            if state[0].is_cuda:
                 self._keep(ops, slots)
             return self.sparse(state, ops, slots)
 
-        self.module.integrate_op_slots_fast = dense
-        self.module.integrate_op_slots_sparse_fast = sparse
+        setattr(self.module, self.names[0], dense)
+        setattr(self.module, self.names[1], sparse)
         return self
 
     def __exit__(self, *exc):
-        self.module.integrate_op_slots_fast = self.dense
-        self.module.integrate_op_slots_sparse_fast = self.sparse
+        setattr(self.module, self.names[0], self.dense)
+        setattr(self.module, self.names[1], self.sparse)
 
 
-def run_plane(rng, devices, num_docs, capacity, clients, rounds, on_flush=None):
-    """Drive MergePlane + PlaneServing on each device in `devices` with
-    the same concurrent Yjs stream: `clients` replicas per doc, every
+def run_plane(rng, devices, num_docs, capacity, clients, rounds, on_flush=None, arena="unit"):
+    """Drive MergePlane(arena=...) + PlaneServing on each device in
+    `devices` with the same concurrent Yjs stream: `clients` replicas per doc, every
     editor edits its own replica before it sees the others' edits, and
     the updates reach the planes shuffled. After every flush, for every
     doc, the bytes TpuSyncSource serves cold and for a stale state
@@ -464,7 +681,9 @@ def run_plane(rng, devices, num_docs, capacity, clients, rounds, on_flush=None):
     from hocuspocus_tpu_torch.crdt import Doc, apply_update, encode_state_vector
     from hocuspocus_tpu_torch.tpu import MergePlane, PlaneServing, TpuSyncSource
 
-    planes = [MergePlane(num_docs=num_docs, capacity=capacity, device=d) for d in devices]
+    planes = [
+        MergePlane(num_docs=num_docs, capacity=capacity, device=d, arena=arena) for d in devices
+    ]
     servings = [PlaneServing(p) for p in planes]
     names = [f"doc-{i}" for i in range(num_docs)]
     replicas, outboxes, joiners = [], [], []
@@ -550,46 +769,77 @@ def run_plane(rng, devices, num_docs, capacity, clients, rounds, on_flush=None):
     return planes, flush_seconds, {"served_bytes": served_bytes}
 
 
-def phase_plane(rng, num_docs, capacity, clients, rounds):
-    import torch
+# per arena: the tag prefix, the plane's dispatch attributes the recorder
+# wraps, and the dispatchers whose launches the main path counts
+ARENAS = {
+    "unit": {
+        "tag": "",
+        "wrap": ("integrate_op_slots_fast", "integrate_op_slots_sparse_fast"),
+    },
+    "rle": {
+        "tag": "rle_",
+        "wrap": ("integrate_op_slots_rle_fast", "integrate_op_slots_rle_sparse_fast"),
+    },
+}
 
+
+def phase_plane(rng, arena, num_docs, capacity, clients, rounds):
+    """The main path over one arena: BASELINE config 2 through
+    MergePlane(arena=...) on the card, with a twin plane on the CPU.
+    The kernel's launch counts are set to 0 just before and read just
+    after."""
     from hocuspocus_tpu_torch.tpu import integrate as ti
     from hocuspocus_tpu_torch.tpu import merge_plane as mp
 
+    spec = ARENAS[arena]
+    tag = spec["tag"] + "plane"
+    dense_name, sparse_name = spec["wrap"]
     arena_checks = []
     stages = []
-    recorder = Recorder(mp)
+    peaks = {"num_runs": 0, "total_units": 0}
+    recorder = Recorder(mp, dense_name, sparse_name)
 
     def compare(planes):
         gpu, cpu = planes
         stages.append(dict(gpu.flush_stats))
-        check(states_equal(cpu.state, gpu.state), "plane: CUDA and CPU arenas differ")
+        check(states_equal(cpu.state, gpu.state), f"{tag}: CUDA and CPU arenas differ")
         arena_checks.append(True)
+        if arena == "rle":
+            peaks["num_runs"] = max(peaks["num_runs"], int(gpu.state.num_runs.max()))
+            peaks["total_units"] = max(peaks["total_units"], int(gpu.state.total_units.max()))
         recorder.after_flush(gpu.state)
 
+    dense_fn, sparse_fn = getattr(ti, dense_name), getattr(ti, sparse_name)
     started = time.perf_counter()
-    ti.reset_integrate_launches()
+    dense_fn.launches = sparse_fn.launches = 0
     with recorder:
         planes, flush_s, extra = run_plane(
-            rng, ["cuda", "cpu"], num_docs, capacity, clients, rounds, on_flush=compare
+            rng, ["cuda", "cpu"], num_docs, capacity, clients, rounds,
+            on_flush=compare, arena=arena,
         )
-    launches = {
-        "integrate_op_slots_fast": ti.integrate_op_slots_fast.launches,
-        "integrate_op_slots_sparse_fast": ti.integrate_op_slots_sparse_fast.launches,
-    }
+    launches = {dense_name: dense_fn.launches, sparse_name: sparse_fn.launches}
+    total_launches = sum(launches.values())
     gpu = planes[0]
     counters = gpu.counters
     retired = {k: v for k, v in counters.items() if k.startswith("docs_retired_")}
-    check(ti.integrate_launches() > 0, "plane: the integrate kernel never launched")
-    check(counters["flush_fast_ops"] > 0, "plane: no op took the append fast path")
-    check(counters["flush_slow_ops"] > 0, "plane: no op took the integrate path")
-    check(counters["cpu_fallbacks"] == 0, "plane: CPU fallbacks happened")
-    check(not any(retired.values()), f"plane: docs retired {retired}")
-    check(counters == planes[1].counters, "plane: CUDA and CPU counters differ")
+    check(total_launches > 0, f"{tag}: the integrate kernel never launched")
+    check(counters["flush_fast_ops"] > 0, f"{tag}: no op took the append fast path")
+    check(counters["flush_slow_ops"] > 0, f"{tag}: no op took the integrate path")
+    check(counters["cpu_fallbacks"] == 0, f"{tag}: CPU fallbacks happened")
+    check(not any(retired.values()), f"{tag}: docs retired {retired}")
+    check(counters == planes[1].counters, f"{tag}: CUDA and CPU counters differ")
     flush_ms = np.asarray(flush_s) * 1e3
+    if arena == "rle":
+        extra = {
+            "peak_num_runs": peaks["num_runs"],
+            "peak_total_units": peaks["total_units"],
+            "entries_per_unit": round(peaks["num_runs"] / max(peaks["total_units"], 1), 6),
+            **extra,
+        }
     emit(
-        "plane",
+        tag,
         config="BASELINE config 2: 1k Y.Text docs, 10 clients each, random-position insert/delete",
+        arena=arena,
         docs=num_docs,
         capacity=capacity,
         clients=clients,
@@ -604,6 +854,7 @@ def phase_plane(rng, num_docs, capacity, clients, rounds):
         cpu_fallbacks=counters["cpu_fallbacks"],
         docs_retired=retired,
         sync_serves=counters["sync_serves"],
+        flush_samples=len(flush_ms),
         flush_p50_ms=float(np.percentile(flush_ms, 50)),
         flush_p99_ms=float(np.percentile(flush_ms, 99)),
         flush_stage_p50_ms={
@@ -619,51 +870,65 @@ def phase_plane(rng, num_docs, capacity, clients, rounds):
         cuda_cpu_bytes_equal=True,
         **extra,
     )
-    return ti.integrate_launches(), recorder.best
+    return total_launches, recorder.best
 
 
-def phase_replay(recorded, reps):
+def phase_replay(recorded, arena, reps):
     """The integrate batch of the main path with the most ops, replayed:
     kernel vs plain on the same inputs at the plane's own shape."""
     import torch
 
     from hocuspocus_tpu_torch.tpu import integrate as ti
     from hocuspocus_tpu_torch.tpu import kernels as tk
+    from hocuspocus_tpu_torch.tpu import kernels_rle as tr
 
-    check(recorded is not None, "replay: no integrate batch was recorded")
+    tag = ARENAS[arena]["tag"] + "replay"
+    if arena == "rle":
+        launch, plain_dense, plain_sparse = (
+            ti.integrate_rle_rows_cuda, tr.integrate_op_slots_rle, tr.integrate_op_slots_rle_sparse
+        )
+    else:
+        launch, plain_dense, plain_sparse = (
+            ti.integrate_rows_cuda, tk.integrate_op_slots, tk.integrate_op_slots_sparse
+        )
+    check(recorded is not None, f"{tag}: no integrate batch was recorded")
     _count, state0, ops, slots = recorded
+    num_docs, width = state0[0].shape
     dense = slots is None
     if dense:
-        rows = torch.arange(state0.length.shape[0], device=state0.length.device)
+        rows = torch.arange(num_docs, device=state0[0].device)
         slots = rows.to(torch.int32)
     else:
-        rows = slots.long()[slots.long() < state0.length.shape[0]]
-    live = slots.long() < state0.length.shape[0]
+        rows = slots.long()[slots.long() < num_docs]
+    live = slots.long() < num_docs
     sub_ops = tk.OpBatch(*(f[:, live] for f in ops))
     expected = tk.gather_doc_rows(state0, rows)
-    lengths = plain_with_lengths(expected, sub_ops)
+    if arena == "rle":
+        stats = plain_rle_with_runs(expected, sub_ops)
+        bound = rle_bound(sub_ops, stats, expected.num_runs, width)
+    else:
+        stats = plain_with_lengths(expected, sub_ops)
+        bound = integrate_bound(sub_ops, stats, expected.length)
     work = clone_state(state0)
-    ti.integrate_rows_cuda(work, ops, slots)
+    launch(work, ops, slots)
     torch.cuda.synchronize()
     got = tk.gather_doc_rows(work, rows)
-    check(states_equal(got, expected), "replay: kernel and plain rows differ")
+    check(states_equal(got, expected), f"{tag}: kernel and plain rows differ")
     err = max_abs_err(got, expected)
     scratch = {}
 
     def reset():
         scratch["s"] = clone_state(state0)
 
-    kernel_ms = event_ms(lambda: ti.integrate_rows_cuda(scratch["s"], ops, slots), reps, reset)
+    kernel_ms = event_ms(lambda: launch(scratch["s"], ops, slots), reps, reset)
     if dense:
-        plain_ms = event_ms(lambda: tk.integrate_op_slots(scratch["s"], ops), 3, reset)
+        plain_ms = event_ms(lambda: plain_dense(scratch["s"], ops), 3, reset)
     else:
-        plain_ms = event_ms(
-            lambda: tk.integrate_op_slots_sparse(scratch["s"], ops, slots), 3, reset
-        )
-    bound_ms, bound_by, need = integrate_bound(sub_ops, lengths, expected.length)
+        plain_ms = event_ms(lambda: plain_sparse(scratch["s"], ops, slots), 3, reset)
+    bound_ms, bound_by, need = bound
     emit(
-        "replay",
-        shape={"D": state0.length.shape[0], "N": state0.id_client.shape[1],
+        tag,
+        shape={"D": num_docs, "N" if arena == "unit" else "R": width,
                "K": ops.kind.shape[0], "B": ops.kind.shape[1]},
         bit_identical=True,
         ms=kernel_ms,
@@ -701,33 +966,47 @@ def main(argv=None) -> int:
         phase_sparse(rng, seeded, num_docs=100_000, busy=1024, pad=32, num_slots=16, reps=5)
         del seeded
         torch.cuda.empty_cache()
-        launches, recorded = phase_plane(
-            # host work grows with the docs: 16 rounds took 200 s, 12 keep
-            # the phase near two minutes
-            rng, num_docs=1024, capacity=4096, clients=10, rounds=12
+        seeded = phase_rle_dense(
+            rng, num_docs=8192, entries=1024, num_slots=8, seed_batches=1024 // 3 // 8, reps=5
         )
-        replay = phase_replay(recorded, reps=10)
+        phase_rle_sparse(
+            rng, seeded, num_docs=100_000, entries=4096, busy=1024, pad=32, num_slots=16, reps=5
+        )
+        del seeded
+        torch.cuda.empty_cache()
+        results = {}
+        for arena, rounds in (("unit", UNIT_PLANE_ROUNDS), ("rle", RLE_PLANE_ROUNDS)):
+            launches, recorded = phase_plane(
+                rng, arena, num_docs=1024, capacity=4096, clients=10, rounds=rounds
+            )
+            results[arena] = {"launches": launches, **phase_replay(recorded, arena, reps=10)}
+            del recorded
         smi = nvidia_smi_line()
     except SmokeFailure as failure:
         print(f"chip_smoke: FAILED: {failure}", file=sys.stderr)
         return 1
     emit("total", seconds=round(time.perf_counter() - started, 3))
     print(smi, flush=True)
+    kernels = (
+        ("integrate_rows", "unit", "integrate.cu", "hocuspocus_tpu/tpu/pallas_kernels.py:34"),
+        ("integrate_rle_rows", "rle", "integrate_rle.cu", "hocuspocus_tpu/tpu/pallas_kernels_rle.py:35"),
+    )
     record = {
         "kernels": [
             {
-                "name": "integrate_rows",
+                "name": name,
                 "route": "cuda",
-                "source": "hocuspocus_tpu_torch/csrc/integrate.cu",
-                "replaces": "hocuspocus_tpu/tpu/pallas_kernels.py:34",
-                "launches": launches,
-                "max_abs_err": replay["max_abs_err"],
-                "ms": replay["ms"],
-                "plain_ms": replay["plain_ms"],
-                "bound_ms": replay["bound_ms"],
-                "bound_by": replay["bound_by"],
+                "source": f"hocuspocus_tpu_torch/csrc/{source}",
+                "replaces": replaces,
+                "launches": results[arena]["launches"],
+                "max_abs_err": results[arena]["max_abs_err"],
+                "ms": results[arena]["ms"],
+                "plain_ms": results[arena]["plain_ms"],
+                "bound_ms": results[arena]["bound_ms"],
+                "bound_by": results[arena]["bound_by"],
                 "library_ms": None,
             }
+            for name, arena, source, replaces in kernels
         ]
     }
     print(json.dumps(record), flush=True)

@@ -222,16 +222,16 @@ def integrate_op_slots(state: DocState, ops: OpBatch) -> tuple[DocState, torch.T
 
 
 def gather_doc_rows(state: DocState, slots: torch.Tensor) -> DocState:
-    """Gather the rows `slots` names from every field. Out-of-range
-    indices clip, as the JAX gather does."""
-    index = slots.long().clamp(0, state.length.shape[0] - 1)
-    return DocState(*(field.index_select(0, index) for field in state))
+    """Gather the rows `slots` names from every field of either arena's
+    state. Out-of-range indices clip, as the JAX gather does."""
+    index = slots.long().clamp(0, state[0].shape[0] - 1)
+    return type(state)(*(field.index_select(0, index) for field in state))
 
 
 def scatter_doc_rows(state: DocState, sub: DocState, slots: torch.Tensor) -> DocState:
     """Write gathered rows back in place; out-of-range indices drop."""
     index = slots.long()
-    keep = (index >= 0) & (index < state.length.shape[0])
+    keep = (index >= 0) & (index < state[0].shape[0])
     index = index[keep]
     for field, sub_field in zip(state, sub):
         field.index_copy_(0, index, sub_field[keep])

@@ -1,12 +1,14 @@
 """The merge plane on one device: cross-document update queue + batched
 integrate, in PyTorch.
 
-The counterpart of the JAX package's `tpu/merge_plane.py` for the unit
-arena on a single device. Updates from ALL documents are lowered to
-dense ops, queued per arena row, and each flush cycle dispatches them in
-(K slots, B rows) batches: chained tail appends go to the run-append
-fast path, concurrent edits to the integrate step, which on the card is
-the hand-written Hopper kernel (`integrate.py`).
+The counterpart of the JAX package's `tpu/merge_plane.py` on a single
+device, over either arena: the unit arena (one slot per UTF-16 unit,
+`kernels.py`) or the run-length arena (one entry per run, `kernels_rle.py`).
+Updates from ALL documents are lowered to dense ops, queued per arena
+row, and each flush cycle dispatches them in (K slots, B rows) batches:
+chained tail appends go to the run-append fast path, concurrent edits to
+the integrate step, which on the card is a hand-written Hopper kernel
+(`integrate.py`: K1 for the unit arena, K2 for the run-length arena).
 
 Arena rows are *sequences*, not documents: a plain text doc occupies one
 row; a tree doc occupies one row per element child-list. Map items are
@@ -30,8 +32,11 @@ import numpy as np
 import torch
 
 from .integrate import (
+    append_run_slots_rle_sparse_fast,
     append_run_slots_sparse_fast,
     integrate_op_slots_fast,
+    integrate_op_slots_rle_fast,
+    integrate_op_slots_rle_sparse_fast,
     integrate_op_slots_sparse_fast,
 )
 from .kernels import (
@@ -40,11 +45,11 @@ from .kernels import (
     NONE_CLIENT,
     NONE_CLIENT_I32,
     OpBatch,
-    _INF,
     extract_live_mask,
     make_empty_state,
     tail_probe,
 )
+from .kernels_rle import make_empty_rle_state, tail_probe_rle
 from .lowering import DenseOp, DocLowerer, units_to_text
 
 
@@ -134,6 +139,12 @@ _RUN_DEFAULTS = (0, 0, 0)
 class MergePlane:
     """Device-resident arenas for up to `num_docs` sequences on one device.
 
+    `arena` is "unit" (one arena slot per UTF-16 unit; capacity = units)
+    or "rle" (one entry per run of consecutively-typed units; capacity =
+    ENTRIES). The run-length arena's cost grows with ops and
+    fragmentation, not with cumulative units, so a churning document
+    stays on the plane where the unit arena would retire it.
+
     `device` defaults to the card: construction raises when CUDA is not
     available, unless the caller asks for the CPU (`device="cpu"`), in
     which case the plain PyTorch versions of every step run instead.
@@ -145,7 +156,10 @@ class MergePlane:
         capacity: int = 4096,
         max_slots_per_flush: int = 16,
         device="cuda",
+        arena: str = "unit",
     ) -> None:
+        if arena not in ("unit", "rle"):
+            raise ValueError(f"unknown arena {arena!r}")
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -153,6 +167,7 @@ class MergePlane:
                 "the plain PyTorch path on the CPU"
             )
         self.device = device
+        self.arena = arena
         self.num_docs = num_docs
         self.capacity = capacity
         self.max_slots_per_flush = max_slots_per_flush
@@ -163,7 +178,7 @@ class MergePlane:
         # the device step; synchronous readers acquire it. Reentrant so a
         # sync serve can hold it across its own flush()+reads sequence.
         self._step_lock = threading.RLock()
-        self.state = make_empty_state(num_docs, capacity, device)
+        self.state = self._make_empty(num_docs, capacity)
         self.docs: dict[str, PlaneDoc] = {}
         self.free: list[int] = list(range(num_docs - 1, -1, -1))
         self.slot_owner: dict[int, str] = {}  # slot -> doc name
@@ -255,6 +270,42 @@ class MergePlane:
         self._append_inflight: list = [None, None]
         self._append_batches = 0
 
+    # -- arena dispatch ----------------------------------------------------
+    # Each seam reads the module attribute at call time, so a caller may
+    # wrap a step (the smoke's recorder, a test's failure injection).
+
+    def _make_empty(self, num_docs: int, capacity: int):
+        if self.arena == "rle":
+            return make_empty_rle_state(num_docs, capacity, self.device)
+        return make_empty_state(num_docs, capacity, self.device)
+
+    def _step_fn(self):
+        """The dense integrate step: (state, (K, D) ops) -> (state, count)."""
+        if self.arena == "rle":
+            return integrate_op_slots_rle_fast
+        return integrate_op_slots_fast
+
+    def _sparse_step_fn(self):
+        """The sparse (busy-row) twin of _step_fn: takes (state, (K, B)
+        ops, (B,) slot routing)."""
+        if self.arena == "rle":
+            return integrate_op_slots_rle_sparse_fast
+        return integrate_op_slots_sparse_fast
+
+    def _append_step_fn(self):
+        """The run-append fast path: (state, (K, B) client, clock,
+        run_len, (B,) slot routing) -> (state, applied-run count)."""
+        if self.arena == "rle":
+            return append_run_slots_rle_sparse_fast
+        return append_run_slots_sparse_fast
+
+    def _tail_probe_fn(self):
+        """The rank-tail id readback: (state, (W,) slots) -> (2W,) int32
+        [clients..., clocks...]."""
+        if self.arena == "rle":
+            return tail_probe_rle
+        return tail_probe
+
     def enable_lane(self) -> bool:
         """The native C++ text lane is not part of the port: every doc
         takes the Python host path, as in the JAX package when its codec
@@ -338,19 +389,15 @@ class MergePlane:
             self.slot_gen[slot] += 1
 
     def _clear_slots(self, slots: "list[int]") -> None:
-        """Reset a batch of arena rows to empty in place (one indexed
-        write per field) and bump the flush epoch once."""
+        """Reset a batch of arena rows to their empty values in place (one
+        indexed write per field, either arena) and bump the flush epoch
+        once."""
         if not slots:
             return
         index = torch.as_tensor(slots, dtype=torch.long, device=self.device)
-        state = self.state
-        state.id_client[index] = NONE_CLIENT_I32
-        state.id_clock[index] = 0
-        state.rank[index] = _INF
-        state.origin_rank[index] = -1
-        state.deleted[index] = False
-        state.length[index] = 0
-        state.overflow[index] = False
+        empty = self._make_empty(1, self.capacity)
+        for field, empty_field in zip(self.state, empty):
+            field[index] = empty_field[0]
         for slot in slots:
             self._set_tail_empty(slot)
         self.flush_epoch += 1
@@ -389,10 +436,17 @@ class MergePlane:
                 return 0
             # host-side mirror of the device capacity check: inserts
             # succeed until the arena overflows, at which point the doc
-            # is CPU-only forever; stop queueing instead of leaking
-            projected = self.projected_len[slot] + sum(
-                op.run_len for op in ops if op.kind == KIND_INSERT
-            )
+            # is CPU-only forever; stop queueing instead of leaking.
+            # Unit arena: exact (capacity = units). RLE arena: a neutral
+            # 1 per op (a run-aligned delete costs no entry, a mid-run
+            # split up to 2), so the device overflow flag is the
+            # authority there
+            if self.arena == "rle":
+                projected = self.projected_len[slot] + len(ops)
+            else:
+                projected = self.projected_len[slot] + sum(
+                    op.run_len for op in ops if op.kind == KIND_INSERT
+                )
             if projected > self.capacity:
                 self.retire_doc(name, "capacity")
                 return 0
@@ -518,7 +572,7 @@ class MergePlane:
                 self._append_inflight[index] = self._record_upload()
                 self._append_batches += 1
                 t2 = time.perf_counter()
-                self.state, _count = append_run_slots_sparse_fast(
+                self.state, _count = self._append_step_fn()(
                     self.state, fields_f[0], fields_f[1], fields_f[2], slots_f
                 )
                 t_dispatch = time.perf_counter()
@@ -561,10 +615,10 @@ class MergePlane:
                 # in the OTHER staging buffer; _sync_health below is the
                 # cycle's single completion barrier
                 if slot_view is None:
-                    self.state, _count = integrate_op_slots_fast(self.state, ops)
+                    self.state, _count = self._step_fn()(self.state, ops)
                     self.counters["flush_batches_dense"] += 1
                 else:
-                    self.state, _count = integrate_op_slots_sparse_fast(
+                    self.state, _count = self._sparse_step_fn()(
                         self.state, ops, slots_dev
                     )
                     self.counters["flush_batches_sparse"] += 1
@@ -644,7 +698,7 @@ class MergePlane:
             padded = np.zeros(probe_width, np.int32)
             padded[: probe_slots.size] = probe_slots  # pad: re-read slot 0
             slots = torch.from_numpy(padded).to(self.device)
-            parts.append(tail_probe(self.state, slots))
+            parts.append(self._tail_probe_fn()(self.state, slots))
         combined = torch.cat(parts).cpu().numpy()
         lengths = combined[: self.num_docs].astype(np.int64)
         self.last_lengths = lengths
@@ -955,20 +1009,28 @@ class MergePlane:
                 return None
             slot = doc.seqs[roots[0]]
             log = self.unit_logs[slot]
-            live = extract_live_mask(self.state)[slot].cpu().numpy()
-            occupied = np.nonzero(live)[0]
-            ranks_all = self.state.rank[slot].cpu().numpy()[occupied]
-            order = np.argsort(ranks_all)
-            sel = occupied[order]
-            ranks = ranks_all[order]
-            clients = self.state.id_client[slot].cpu().numpy().view(np.uint32)[sel]
-            clocks = self.state.id_clock[slot].cpu().numpy()[sel]
-            entries = [log[i] for i in sel]
+            if self.arena == "rle":
+                expanded = self._rle_live_units(doc, slot, log)
+                if expanded is None:
+                    return None
+                clients, clocks, ranks, entries = expanded
+            else:
+                live = extract_live_mask(self.state)[slot].cpu().numpy()
+                occupied = np.nonzero(live)[0]
+                ranks_all = self.state.rank[slot].cpu().numpy()[occupied]
+                order = np.argsort(ranks_all)
+                sel = occupied[order]
+                ranks = ranks_all[order]
+                clients = self.state.id_client[slot].cpu().numpy().view(np.uint32)[sel]
+                clocks = self.state.id_clock[slot].cpu().numpy()[sel]
+                entries = [log[i] for i in sel]
         out: list[int] = []
         i = 0
         count = len(entries)
         while i < count:
             entry = entries[i]
+            if entry is None:
+                return None  # RLE: payload not locatable in the unit log
             if not isinstance(entry, int):
                 if isinstance(entry, ContentFormat):
                     i += 1  # zero-width formatting boundary
@@ -995,3 +1057,69 @@ class MergePlane:
                 out.append(c)
             i += 1
         return units_to_text(out)
+
+    def unit_off_index(self, doc: PlaneDoc, slot: int) -> "dict[int, list]":
+        """client -> clock-sorted [(clock, unit_off, run_len)] intervals
+        of the slot's insert records: maps a (client, clock) id to its
+        payload position in the slot's unit log. The RLE arena stores
+        runs, not per-unit arrival indices, so payload lookup goes
+        through the serve log (written at enqueue time, in dispatch
+        order)."""
+        index: dict[int, list] = {}
+        for rec in doc.serve_log:
+            op = rec.op
+            if rec.slot != slot or op.kind != KIND_INSERT:
+                continue
+            # every sequence insert logs exactly run_len unit-log
+            # entries, so the intervals tile the log densely
+            index.setdefault(op.client, []).append((op.clock, rec.unit_off, op.run_len))
+        for intervals in index.values():
+            intervals.sort()
+        return index
+
+    def _rle_live_units(self, doc: PlaneDoc, slot: int, log: list):
+        """The slot's live RLE entries, rank-ordered, expanded to
+        per-unit lists (clients, clocks, ranks, entries) matching the
+        unit-arena extraction, payloads resolved via unit_off_index. An
+        entry of None means the unit's payload was not found."""
+        from bisect import bisect_right
+
+        num = int(self.state.num_runs[slot])
+        rcl = self.state.run_client[slot][:num].cpu().numpy().view(np.uint32)
+        rck = self.state.run_clock[slot][:num].cpu().numpy()
+        rln = self.state.run_len[slot][:num].cpu().numpy()
+        rrk = self.state.run_rank[slot][:num].cpu().numpy()
+        rdl = self.state.run_deleted[slot][:num].cpu().numpy()
+        keep = (rln > 0) & ~rdl
+        kcl, kck, kln, krk = rcl[keep], rck[keep], rln[keep], rrk[keep]
+        index = self.unit_off_index(doc, slot)
+        clients: list[int] = []
+        clocks: list[int] = []
+        ranks: list[int] = []
+        entries: list = []
+        for i in np.argsort(krk):
+            client, clk, remaining, rnk = int(kcl[i]), int(kck[i]), int(kln[i]), int(krk[i])
+            intervals = index.get(client)
+            if not intervals:
+                return None
+            # one entry's units may span SEVERAL insert records: the
+            # append fast path EXTENDS the rank-tail entry with a later
+            # op's units, so walk the clock range across the intervals
+            while remaining > 0:
+                pos = bisect_right(intervals, (clk, 0x7FFFFFFF, 0)) - 1
+                if pos < 0:
+                    return None
+                iv_clock, iv_off, iv_len = intervals[pos]
+                if not iv_clock <= clk < iv_clock + iv_len:
+                    return None
+                take = min(remaining, iv_clock + iv_len - clk)
+                start = iv_off + (clk - iv_clock)
+                for u in range(take):
+                    clients.append(client)
+                    clocks.append(clk + u)
+                    ranks.append(rnk + u)
+                    entries.append(log[start + u] if start + u < len(log) else None)
+                clk += take
+                rnk += take
+                remaining -= take
+        return clients, clocks, ranks, entries

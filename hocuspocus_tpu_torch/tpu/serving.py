@@ -35,6 +35,7 @@ from ..crdt.ids import ID
 from ..crdt.structs import GC, Item
 from ..crdt.update import _write_structs, decode_state_vector
 from .kernels import KIND_DELETE, KIND_INSERT, NONE_CLIENT, catchup_pack, state_vector_diff
+from .kernels_rle import catchup_pack_rle
 from .lowering import units_to_text
 from .merge_plane import LogRec, MergePlane, PlaneDoc
 
@@ -283,21 +284,22 @@ class PlaneServing:
         return [slots[pos : pos + biggest] for pos in range(0, len(slots), biggest)]
 
     def _gather_rows(self, slot_indices: "list[int]") -> np.ndarray:
-        """One fused device read of the tombstone-relevant rows: (3, B, N)
-        [deleted, id_client, id_clock]. Caller holds the step lock."""
+        """One fused device read of the tombstone-relevant rows. Unit
+        arena: (3, B, N) [deleted, id_client, id_clock]. RLE arena:
+        (4, B, R) [deleted, run_client, run_clock, run_len]: ranges come
+        straight from deleted entries. Caller holds the step lock."""
         state = self.plane.state
         idx = torch.as_tensor(slot_indices, dtype=torch.long, device=self.plane.device)
-        return (
-            torch.stack(
-                [
-                    state.deleted[idx].to(torch.int32),
-                    state.id_client[idx],
-                    state.id_clock[idx],
-                ]
-            )
-            .cpu()
-            .numpy()
-        )
+        if self.plane.arena == "rle":
+            planes = [
+                state.run_deleted[idx].to(torch.int32),
+                state.run_client[idx],
+                state.run_clock[idx],
+                state.run_len[idx],
+            ]
+        else:
+            planes = [state.deleted[idx].to(torch.int32), state.id_client[idx], state.id_clock[idx]]
+        return torch.stack(planes).cpu().numpy()
 
     @staticmethod
     def _merge_ranges(
@@ -313,8 +315,9 @@ class PlaneServing:
         return ranges
 
     def _pack_width(self) -> int:
-        """Tombstone-pack width: one static value per plane."""
-        return min(128, int(self.plane.state.id_client.shape[1]))
+        """Tombstone-pack width: one static value per plane (the arena's
+        row width, capped at 128)."""
+        return min(128, int(self.plane.state[0].shape[1]))
 
     def _fetch_slot_rows(self, chunk: "list[int]", epoch: int) -> None:
         """Fill the tombstone cache for a slot chunk: the packed device
@@ -334,12 +337,14 @@ class PlaneServing:
         width = next(w for w in self._gather_widths() if w >= len(chunk))
         pack_w = self._pack_width()
         padded = chunk + [chunk[0]] * (width - len(chunk))
+        rle = plane.arena == "rle"
+        pack = catchup_pack_rle if rle else catchup_pack
         with plane._step_lock:
             slots_dev = torch.as_tensor(padded, dtype=torch.int32, device=plane.device)
-            fused = catchup_pack(plane.state, slots_dev, pack_w).cpu().numpy().view(np.uint32)
+            fused = pack(plane.state, slots_dev, pack_w).cpu().numpy().view(np.uint32)
             gens = [int(plane.slot_gen[slot]) for slot in chunk]
         counts = fused[:width]
-        body = fused[width:].reshape(2, width, pack_w)
+        body = fused[width:].reshape(3 if rle else 2, width, pack_w)
         overflow: list[int] = []
         for i, slot in enumerate(chunk):
             count = int(counts[i])
@@ -348,9 +353,13 @@ class PlaneServing:
                 continue
             clients = body[0, i, :count]
             clocks = body[1, i, :count].astype(np.int64)
-            raw = [
-                (c, k, 1) for c, k in sorted(zip(clients.tolist(), clocks.tolist()))
-            ]
+            if rle:
+                lens = body[2, i, :count].astype(np.int64)
+                raw = sorted(zip(clients.tolist(), clocks.tolist(), lens.tolist()))
+            else:
+                raw = [
+                    (c, k, 1) for c, k in sorted(zip(clients.tolist(), clocks.tolist()))
+                ]
             self._tombstone_cache[slot] = ((gens[i], epoch), self._merge_ranges(raw))
         plane.counters["sync_encode_device"] += len(chunk) - len(overflow)
         return overflow
@@ -361,11 +370,20 @@ class PlaneServing:
         with plane._step_lock:
             fused = self._gather_rows(chunk + [chunk[0]] * (width - len(chunk)))
             gens = [int(plane.slot_gen[slot]) for slot in chunk]
+        rle = plane.arena == "rle"
         for i, slot in enumerate(chunk):
             sel = np.nonzero(fused[0, i])[0]
             clients = fused[1, i][sel].view(np.uint32)
             clocks = fused[2, i][sel]
-            raw = [(c, k, 1) for c, k in sorted(zip(clients.tolist(), clocks.tolist()))]
+            if rle:
+                lens = fused[3, i][sel]
+                raw = sorted(
+                    (c, k, l)
+                    for c, k, l in zip(clients.tolist(), clocks.tolist(), lens.tolist())
+                    if l > 0
+                )
+            else:
+                raw = [(c, k, 1) for c, k in sorted(zip(clients.tolist(), clocks.tolist()))]
             self._tombstone_cache[slot] = ((gens[i], epoch), self._merge_ranges(raw))
         plane.counters["sync_encode_host"] += len(chunk)
 

@@ -27,12 +27,13 @@ print("LEAKED", leaked)
 
 NO_CUDA = """
 from hocuspocus_tpu_torch.tpu import MergePlane
-try:
-    MergePlane()
-except RuntimeError as error:
-    print("RAISED", error)
-plane = MergePlane(num_docs=2, capacity=8, device="cpu")
-print("CPU", plane.state.id_client.device)
+for arena in ("unit", "rle"):
+    try:
+        MergePlane(arena=arena)
+    except RuntimeError as error:
+        print("RAISED", arena, error)
+    plane = MergePlane(num_docs=2, capacity=8, device="cpu", arena=arena)
+    print("CPU", arena, type(plane.state).__name__, plane.state[0].device)
 """
 
 
@@ -56,8 +57,10 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
 
 def test_merge_plane_raises_without_cuda_unless_asked_for_the_cpu():
     out = _run(NO_CUDA, CUDA_VISIBLE_DEVICES="")
-    assert "RAISED MergePlane needs a CUDA device" in out, out
-    assert "CPU cpu" in out, out
+    assert "RAISED unit MergePlane needs a CUDA device" in out, out
+    assert "RAISED rle MergePlane needs a CUDA device" in out, out
+    assert "CPU unit DocState cpu" in out, out
+    assert "CPU rle RleState cpu" in out, out
 
 
 def test_chip_smoke_refuses_to_run_without_cuda():

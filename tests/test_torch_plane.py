@@ -3,9 +3,10 @@
 A twin of test_plane_fuzz_concurrent_editors_converge: two editors
 (the JAX package's CRDT engine, in the test) mutate independent replicas
 with mixed content; the shuffled stream of their updates goes to the JAX
-MergePlane + PlaneServing and to the port's, on the CPU. After every
-flush the arena tensors must be equal element for element, and the
-SyncStep2 and broadcast bytes equal byte for byte.
+MergePlane + PlaneServing and to the port's, on the CPU, over the unit
+arena and over the run-length arena. After every flush the arena tensors
+must be equal element for element, and the SyncStep2 and broadcast bytes
+equal byte for byte.
 """
 
 import numpy as np
@@ -16,6 +17,7 @@ from hocuspocus_tpu.tpu.merge_plane import MergePlane as JaxPlane
 from hocuspocus_tpu.tpu.serving import PlaneServing as JaxServing
 from hocuspocus_tpu_torch.tpu import MergePlane, PlaneServing, TpuSyncSource
 from hocuspocus_tpu_torch.tpu.kernels import doc_state_to_numpy
+from hocuspocus_tpu_torch.tpu.kernels_rle import rle_state_to_numpy
 from tests.tpu.test_plane_fuzz import _doc_fingerprint, _random_edit
 
 NAME = "conc"
@@ -35,7 +37,9 @@ COUNTERS = (
 
 
 def assert_planes_equal(jax_plane, plane):
-    ours = doc_state_to_numpy(plane.state)
+    to_numpy = rle_state_to_numpy if plane.arena == "rle" else doc_state_to_numpy
+    ours = to_numpy(plane.state)
+    assert type(jax_plane.state).__name__ == type(ours).__name__
     for name, a, b in zip(ours._fields, jax_plane.state, ours):
         np.testing.assert_array_equal(np.asarray(a), b, err_msg=name)
     for key in COUNTERS:
@@ -44,15 +48,16 @@ def assert_planes_equal(jax_plane, plane):
 
 @pytest.mark.parametrize("run_merge", [True, False])
 @pytest.mark.parametrize("seed", [3, 11])
-def test_plane_twin_concurrent_editors(seed, run_merge):
+@pytest.mark.parametrize("arena", ["unit", "rle"])
+def test_plane_twin_concurrent_editors(arena, seed, run_merge):
     rng = np.random.default_rng(seed)
     a, b = Doc(), Doc()
     out_a, out_b = [], []
     a.on("update", lambda update, *rest: out_a.append(update))
     b.on("update", lambda update, *rest: out_b.append(update))
 
-    jax_plane = JaxPlane(num_docs=32, capacity=1024)
-    plane = MergePlane(num_docs=32, capacity=1024, device="cpu")
+    jax_plane = JaxPlane(num_docs=32, capacity=1024, arena=arena)
+    plane = MergePlane(num_docs=32, capacity=1024, device="cpu", arena=arena)
     jax_plane.run_merge_enabled = run_merge
     plane.run_merge_enabled = run_merge
     jax_serving, serving = JaxServing(jax_plane), PlaneServing(plane)
@@ -209,3 +214,82 @@ def test_device_step_failure_propagates_instead_of_serving_the_cpu(monkeypatch, 
         else:
             source.encode_state_as_update(None)
     assert plane.counters["cpu_fallbacks"] == 0
+
+
+def _churn_planes(arena):
+    """30 cycles of "type a 16-unit burst at the end, delete it" at
+    capacity 256, flushing every 4 cycles, into the JAX plane and the
+    port's: the live text stays empty while cumulative units reach 480."""
+    editor = Doc()
+    updates = []
+    editor.on("update", lambda update, *rest: updates.append(update))
+    jax_plane = JaxPlane(num_docs=8, capacity=256, arena=arena)
+    plane = MergePlane(num_docs=8, capacity=256, device="cpu", arena=arena)
+    text = editor.get_text("body")
+    for cycle in range(30):
+        base = len(text)
+        text.insert(base, "x" * 16)
+        text.delete(base, 16)
+        for update in updates:
+            assert jax_plane.enqueue_update("churny", update) == plane.enqueue_update(
+                "churny", update
+            )
+        updates.clear()
+        if cycle % 4 == 3:
+            assert jax_plane.flush() == plane.flush()
+            if plane.is_supported("churny"):
+                assert_planes_equal(jax_plane, plane)
+    jax_plane.flush()
+    plane.flush()
+    return jax_plane, plane
+
+
+@pytest.mark.parametrize("arena", ["unit", "rle"])
+def test_churn_retires_the_unit_arena_but_not_the_rle_arena(arena):
+    jax_plane, plane = _churn_planes(arena)
+    for key in COUNTERS:
+        assert jax_plane.counters[key] == plane.counters[key], key
+    if arena == "unit":
+        assert plane.counters["docs_retired_capacity"] > 0
+        assert not plane.is_supported("churny")
+        return
+    assert_planes_equal(jax_plane, plane)
+    retired = {k: v for k, v in plane.counters.items() if k.startswith("docs_retired_")}
+    assert not any(retired.values()), retired
+    assert plane.is_supported("churny")
+    assert plane.text("churny") == jax_plane.text("churny") == ""
+    assert int(plane.state.total_units.max()) == 480  # rank space: every unit ever typed
+    assert int(plane.state.num_runs.max()) < 256
+
+
+def test_rle_text_walks_an_extended_tail_entry():
+    """One typist's later runs EXTEND the rank-tail entry on the append
+    fast path, so one entry's units span several insert records; text()
+    walks them, and a concurrent insert splitting it reads back too."""
+    jax_plane = JaxPlane(num_docs=4, capacity=64, arena="rle")
+    plane = MergePlane(num_docs=4, capacity=64, device="cpu", arena="rle")
+    editor = Doc()
+    updates = []
+    editor.on("update", lambda update, *rest: updates.append(update))
+    text = editor.get_text("t")
+
+    def ship():
+        for update in updates:
+            jax_plane.enqueue_update("d", update)
+            plane.enqueue_update("d", update)
+        updates.clear()
+        assert jax_plane.flush() == plane.flush()
+        assert_planes_equal(jax_plane, plane)
+
+    for word in ("hello", " wor", "ld", " \U0001F600!"):
+        text.insert(len(text), word)
+        ship()
+    slot = plane.docs["d"].seqs[("root", "t")]
+    assert int(plane.state.num_runs[slot]) == 1  # one entry, extended three times
+    assert plane.counters["flush_fast_ops"] == 4
+    assert plane.text("d") == jax_plane.text("d") == text.to_string()
+    text.insert(3, "XY")
+    text.delete(0, 1)
+    ship()
+    assert int(plane.state.num_runs[slot]) > 1
+    assert plane.text("d") == jax_plane.text("d") == text.to_string()

@@ -54,3 +54,23 @@ def test_random_ops_stream_is_causal():
             elif kind[k, d] == 2:
                 assert 0 <= clock[k, d] and clock[k, d] + run[k, d] <= made[ci, d]
     np.testing.assert_array_equal(made, next_clock)
+
+
+def test_rle_bound_counts_each_op_kind_over_occupied_entries():
+    smoke = _smoke()
+    # one row of 16 entries holding 4: an insert that adds 2 entries, a
+    # delete that fits and splits twice, an insert dropped for a missing
+    # origin, a noop, and a delete that does not fit (15 + 2 > 16)
+    kind = torch.tensor([[1], [2], [1], [0], [2]], dtype=torch.int32)
+    zeros = torch.zeros_like(kind)
+    ops = OpBatch(kind, zeros, zeros, zeros, zeros, zeros, zeros, zeros)
+    runs = torch.tensor([[4], [6], [8], [8], [15]], dtype=torch.int32)
+    _ms, by, need = smoke.rle_bound(ops, runs, torch.tensor([15], dtype=torch.int32), 16)
+    assert need["int32_ops"] == (
+        4 * smoke.OPS_RLE_INSERT
+        + 6 * 2 * smoke.OPS_RLE_BOUND
+        + 8 * smoke.OPS_RLE_COVER
+        + 8 * smoke.OPS_RLE_ORIGINS
+    )
+    assert need["bytes"] == 21 * (4 + 15) + 8 * 4 * 5 + 4 + 18
+    assert by in ("bytes", "operations")
