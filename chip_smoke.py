@@ -12,8 +12,15 @@ bit) at the bench shape and at deployment scale, then drives the merge
 plane + serving path (`MergePlane` on the card, `PlaneServing`,
 `TpuSyncSource`) over each arena with concurrent Yjs editors and checks
 every served byte against a second plane on the CPU. Each phase prints
-one line; any failure exits nonzero. The last two lines are the kernels'
-JSON record and the device line. Without a CUDA device, or outside a
+one line; any failure exits nonzero. A kernel phase's `ms` is the
+kernels' device time per launch: the launch entry (`integrate_rows_cuda`
+/ `integrate_rle_rows_cuda`) is timed with CUDA events, 8 launches back
+to back on copies of the input (one on the 100k-row arenas), while the
+card spins through the wrappers' host work, so the window holds only the
+launches. The replay lines add `wrapper_us`, the host time of one
+dispatcher call, and `window_check`, the event time beside
+torch.profiler's kernel time. The last two lines are the kernels' JSON
+record and the device line. Without a CUDA device, or outside a
 checkout, it exits nonzero and prints no result.
 """
 
@@ -49,15 +56,16 @@ OPS_INSERT = OPS_ORIGINS + OPS_CONFLICT + OPS_SKIPPED + OPS_BUMP
 # per newly filled unit: off, clock + off, ins + off, off == 0, ins + off - 1, select
 OPS_FILL = 7
 ROW_BYTES_PER_UNIT = 17  # 4 int32 fields + a bool
-# int32 operations per occupied ENTRY, counted the same way from the loop
-# bodies of hocuspocus_tpu_torch/csrc/integrate_rle.cu (line numbers):
-OPS_RLE_ORIGINS = 11  # :209 pass 1: end add; per origin ==, >=, <, two ands
-OPS_RLE_CONFLICT = 16  # :229 pass 2: client_ge; head 4 compares, 3 ands, or; successor add, 3 compares, 3 ands
-OPS_RLE_SPLIT = 4  # :243 pass 3, straddle test: <, add, <, and
-OPS_RLE_BUMP = 6  # :257 pass 4: straddle test (4), two >=
+# int32 operations per occupied ENTRY, counted the same way, per pass of
+# the plain version, hocuspocus_tpu_torch/tpu/kernels_rle.py::
+# _integrate_rle_rows (line numbers), which every kernel design is held to:
+OPS_RLE_ORIGINS = 11  # :135-141 origin ranks: end add; per origin ==, >=, <, two ands
+OPS_RLE_CONFLICT = 16  # :145-159 conflict scan: client_ge; head 4 compares, 3 ands, or; successor add, 3 compares, 3 ands
+OPS_RLE_SPLIT = 4  # :167-168 straddle test: <, add, <, and
+OPS_RLE_BUMP = 6  # :174-189 shorten the straddled run (4), bump rank and orank: two >=
 OPS_RLE_INSERT = OPS_RLE_ORIGINS + OPS_RLE_CONFLICT + OPS_RLE_SPLIT + OPS_RLE_BUMP
-OPS_RLE_BOUND = 6  # :288 each id bound's scan: ==, <, add, <, two ands
-OPS_RLE_COVER = 6  # :312 tombstone pass: ==, >=, add, <=, two ands
+OPS_RLE_BOUND = 6  # :207-215 each id bound's scan: ==, <, add, <, two ands
+OPS_RLE_COVER = 6  # :224-230 tombstone pass: ==, >=, add, <=, two ands
 RLE_BYTES_PER_ENTRY = 21  # 5 int32 fields + a bool
 # plane rounds per arena: the host work of a round grows with the docs,
 # and the whole script keeps to about five minutes on the card
@@ -147,8 +155,10 @@ def max_abs_err(a, b) -> int:
 
 
 def event_ms(fn, reps: int, setup=None) -> float:
-    """Median device time of fn() over `reps` runs, CUDA events around
-    the call only; setup() runs before each (untimed)."""
+    """Median time of fn() over `reps` runs, CUDA events around the call
+    (host work inside it included: for the plain versions, whose many
+    small launches keep the host busy); setup() runs before each
+    (untimed)."""
     import torch
 
     times = []
@@ -163,6 +173,117 @@ def event_ms(fn, reps: int, setup=None) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+# A spin kernel queued before a kernel's start event: about 1 ms of the
+# card's clock per timed launch, far longer than a wrapper's host work,
+# so the launches are already queued when the event fires.
+SLEEP_CYCLES = 2_000_000
+# Launches timed back to back in one window, each on its own copy of the
+# input, where the phase's state is small enough to copy: a lone launch's
+# window also holds about 5 µs of the card's own between the start event
+# and the kernel, a quarter of a 20 µs kernel; over 8 launches what stays
+# is the gap between launches (about 1.6 µs on the H100). The 100k-row
+# phases time one launch (a copy is 9 GB).
+LAUNCHES_PER_WINDOW = 8
+
+
+def kernel_times(fn, reps: int, setup=None, launches: int = 1) -> list[float]:
+    """Device time in ms of one kernel launch, once per run: setup()
+    (untimed) prepares `launches` independent inputs, the card spins
+    while the host runs fn(0) .. fn(launches - 1), and the CUDA events
+    bracket only their launches, back to back; the window over the
+    count."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        if setup is not None:
+            setup()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES * launches)
+        start.record()
+        for i in range(launches):
+            fn(i)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return times
+
+
+def kernel_ms(fn, reps: int, setup=None, launches: int = 1) -> float:
+    """Median device time of one of fn(i)'s kernel launches (kernel_times)."""
+    return float(np.median(kernel_times(fn, reps, setup, launches)))
+
+
+def window_check(fn, reps: int, setup=None, launches: int = 1, name: str = "integrate") -> dict:
+    """The window check: kernel_times' mean beside torch.profiler's mean
+    device time per launch of the kernels whose names contain `name`,
+    over the same runs (None when the profiler records no device time).
+    One untimed run first, so a first launch's one-time cost stays out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if setup is not None:
+        setup()
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        times = kernel_times(fn, reps, setup, launches)
+    device_us = 0.0
+    for event in prof.key_averages():
+        if name in event.key:
+            us = getattr(event, "device_time_total", None)
+            device_us += us if us is not None else getattr(event, "cuda_time_total", 0)
+    event_mean = float(np.mean(times))
+    profiled = device_us / 1e3 / (reps * launches) if device_us else None
+    return {
+        "event_ms_mean": event_mean,
+        "profiler_ms_mean": profiled,
+        "within_10pct": None if profiled is None else abs(event_mean - profiled) <= 0.1 * profiled,
+    }
+
+
+class Copies:
+    """`count` copies of a state for kernel_times' back-to-back launches;
+    reset() (untimed) sets every copy back to the state."""
+
+    def __init__(self, state, count: int) -> None:
+        self.state = state
+        self.count = count
+        self.items = []
+
+    def reset(self) -> None:
+        if not self.items:
+            self.items = [clone_state(self.state) for _ in range(self.count)]
+        for copy in self.items:
+            for dst, src in zip(copy, self.state):
+                dst.copy_(src)
+
+    def __getitem__(self, i: int):
+        return self.items[i]
+
+    def clear(self) -> None:
+        self.items = []
+
+
+def wrapper_us(fn, reps: int, setup=None) -> float:
+    """Median host time in µs of one call of fn() (a dispatcher: checks,
+    pointers, the ctypes call, its own launches), the card idle before
+    each call and no synchronize inside the window."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        if setup is not None:
+            setup()
+        torch.cuda.synchronize()
+        started = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - started)
+    torch.cuda.synchronize()
+    return float(np.median(times)) * 1e6
 
 
 def plain_by_slot(state, ops, integrate, field: str):
@@ -329,22 +450,21 @@ def phase_dense(rng, num_docs, capacity, num_slots, reps):
     err = max_abs_err(work, expected)
     del work
 
-    scratch = {}
-
-    def reset():
-        scratch["s"] = clone_state(state)
-
-    kernel_ms = event_ms(lambda: ti.integrate_op_slots_fast(scratch["s"], ops), reps, reset)
-    plain_ms = event_ms(lambda: tk.integrate_op_slots(scratch["s"], ops), 2, reset)
+    copies = Copies(state, LAUNCHES_PER_WINDOW)
+    slots = torch.arange(num_docs, dtype=torch.int32, device=dev)
+    ms = kernel_ms(
+        lambda i: ti.integrate_rows_cuda(copies[i], ops, slots), reps, copies.reset, copies.count
+    )
+    plain_ms = event_ms(lambda: tk.integrate_op_slots(copies[0], ops), 2, copies.reset)
     bound_ms, bound_by, need = integrate_bound(ops, lengths, expected.length)
-    scratch.clear()
+    copies.clear()
     emit(
         "dense",
         shape={"D": num_docs, "N": capacity, "K": num_slots},
         bit_identical=True,
         max_abs_err=err,
         mean_occupancy=round(float(state.length.float().mean()) / capacity, 4),
-        ms=kernel_ms,
+        ms=ms,
         plain_ms=plain_ms,
         bound_ms=bound_ms,
         bound_by=bound_by,
@@ -436,7 +556,7 @@ def phase_sparse(rng, seeded, num_docs, busy, pad, num_slots, reps):
     def restore():
         tk.scatter_doc_rows(state, before, routed)
 
-    kernel_ms = event_ms(lambda: ti.integrate_op_slots_sparse_fast(state, ops, slots), reps, restore)
+    ms = kernel_ms(lambda _i: ti.integrate_rows_cuda(state, ops, slots), reps, restore)
     plain_ms = event_ms(lambda: tk.integrate_op_slots_sparse(state, ops, slots), 2, restore)
     restore()
     bound_ms, bound_by, need = integrate_bound(
@@ -449,7 +569,7 @@ def phase_sparse(rng, seeded, num_docs, busy, pad, num_slots, reps):
         bit_identical=True,
         unrouted_rows_unchanged=True,
         max_abs_err=err,
-        ms=kernel_ms,
+        ms=ms,
         plain_ms=plain_ms,
         bound_ms=bound_ms,
         bound_by=bound_by,
@@ -490,15 +610,14 @@ def phase_rle_dense(rng, num_docs, entries, num_slots, seed_batches, reps):
     err = max_abs_err(work, expected)
     del work
 
-    scratch = {}
-
-    def reset():
-        scratch["s"] = clone_state(state)
-
-    kernel_ms = event_ms(lambda: ti.integrate_op_slots_rle_fast(scratch["s"], ops), reps, reset)
-    plain_ms = event_ms(lambda: tr.integrate_op_slots_rle(scratch["s"], ops), 2, reset)
+    copies = Copies(state, LAUNCHES_PER_WINDOW)
+    slots = torch.arange(num_docs, dtype=torch.int32, device=dev)
+    ms = kernel_ms(
+        lambda i: ti.integrate_rle_rows_cuda(copies[i], ops, slots), reps, copies.reset, copies.count
+    )
+    plain_ms = event_ms(lambda: tr.integrate_op_slots_rle(copies[0], ops), 2, copies.reset)
     bound_ms, bound_by, need = rle_bound(ops, runs, expected.num_runs, entries)
-    scratch.clear()
+    copies.clear()
     emit(
         "rle_dense",
         shape={"D": num_docs, "R": entries, "K": num_slots, "seed_batches": seed_batches},
@@ -508,7 +627,7 @@ def phase_rle_dense(rng, num_docs, entries, num_slots, seed_batches, reps):
         mean_num_runs=round(float(state.num_runs.float().mean()), 3),
         max_num_runs=int(state.num_runs.max()),
         overflow_rows=int(expected.overflow.sum()),
-        ms=kernel_ms,
+        ms=ms,
         plain_ms=plain_ms,
         bound_ms=bound_ms,
         bound_by=bound_by,
@@ -572,7 +691,7 @@ def phase_rle_sparse(rng, seeded, num_docs, entries, busy, pad, num_slots, reps)
     def restore():
         tk.scatter_doc_rows(state, rows, routed)
 
-    kernel_ms = event_ms(lambda: ti.integrate_op_slots_rle_sparse_fast(state, ops, slots), reps, restore)
+    ms = kernel_ms(lambda _i: ti.integrate_rle_rows_cuda(state, ops, slots), reps, restore)
     plain_ms = event_ms(lambda: tr.integrate_op_slots_rle_sparse(state, ops, slots), 2, restore)
     restore()
     bound_ms, bound_by, need = rle_bound(
@@ -585,7 +704,7 @@ def phase_rle_sparse(rng, seeded, num_docs, entries, busy, pad, num_slots, reps)
         bit_identical=True,
         unrouted_rows_unchanged=True,
         max_abs_err=err,
-        ms=kernel_ms,
+        ms=ms,
         plain_ms=plain_ms,
         bound_ms=bound_ms,
         bound_by=bound_by,
@@ -915,29 +1034,45 @@ def phase_replay(recorded, arena, reps):
     got = tk.gather_doc_rows(work, rows)
     check(states_equal(got, expected), f"{tag}: kernel and plain rows differ")
     err = max_abs_err(got, expected)
-    scratch = {}
+    copies = Copies(state0, LAUNCHES_PER_WINDOW)
 
-    def reset():
-        scratch["s"] = clone_state(state0)
+    def run(i):
+        launch(copies[i], ops, slots)
 
-    kernel_ms = event_ms(lambda: launch(scratch["s"], ops, slots), reps, reset)
+    ms = kernel_ms(run, reps, copies.reset, copies.count)
+    window = window_check(run, reps, copies.reset, copies.count)
+    # the same window around a one-element PyTorch kernel: what the
+    # events add to a launch's own duration
+    one = torch.zeros(1, dtype=torch.int32, device="cuda")
+    window_reference = window_check(
+        lambda _i: one.fill_(1), reps, launches=copies.count, name="FillFunctor"
+    )
+    dense_name, sparse_name = ARENAS[arena]["wrap"]
     if dense:
-        plain_ms = event_ms(lambda: plain_dense(scratch["s"], ops), 3, reset)
+        dispatch = getattr(ti, dense_name)
+        host_us = wrapper_us(lambda: dispatch(copies[0], ops), reps, copies.reset)
+        plain_ms = event_ms(lambda: plain_dense(copies[0], ops), 3, copies.reset)
     else:
-        plain_ms = event_ms(lambda: plain_sparse(scratch["s"], ops, slots), 3, reset)
+        dispatch = getattr(ti, sparse_name)
+        host_us = wrapper_us(lambda: dispatch(copies[0], ops, slots), reps, copies.reset)
+        plain_ms = event_ms(lambda: plain_sparse(copies[0], ops, slots), 3, copies.reset)
+    copies.clear()
     bound_ms, bound_by, need = bound
     emit(
         tag,
         shape={"D": num_docs, "N" if arena == "unit" else "R": width,
                "K": ops.kind.shape[0], "B": ops.kind.shape[1]},
         bit_identical=True,
-        ms=kernel_ms,
+        ms=ms,
+        wrapper_us=host_us,
+        window_check=window,
+        window_reference=window_reference,
         plain_ms=plain_ms,
         bound_ms=bound_ms,
         bound_by=bound_by,
         **need,
     )
-    return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 

@@ -120,15 +120,31 @@ class KernelLibrary:
 
 
 _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
-# state fields, (num_docs, width), 8 op fields, (num_slots, batch), slots, stream
-LIBRARY = KernelLibrary(
-    "integrate.cu", "hp_integrate_rows", [_PTR] * 7 + [_I32] * 2 + [_PTR] * 8 + [_I32] * 2 + [_PTR] * 2
-)
+# state fields, (num_docs, width), 8 op fields, (num_slots, batch), slots,
+# window, done, stream
+_TAIL = [_PTR] * 8 + [_I32] * 2 + [_PTR] + [_I32] + [_PTR] * 2
+LIBRARY = KernelLibrary("integrate.cu", "hp_integrate_rows", [_PTR] * 7 + [_I32] * 2 + _TAIL)
 RLE_LIBRARY = KernelLibrary(
-    "integrate_rle.cu",
-    "hp_integrate_rle_rows",
-    [_PTR] * 9 + [_I32] * 2 + [_PTR] * 8 + [_I32] * 2 + [_PTR] * 2,
+    "integrate_rle.cu", "hp_integrate_rle_rows", [_PTR] * 9 + [_I32] * 2 + _TAIL
 )
+
+# The widest window, in units (K1) or entries (K2), that a warp-path row
+# gets in shared memory. At 512, a CTA of 8 warps takes 8 * 512 * 21 B =
+# 86 KB (K2) or 8 * 512 * 17 B = 70 KB (K1), so two CTAs fit an SM's
+# 227 KB and the plane's 1,024 routed rows (128 CTAs) are resident in
+# one wave on the H100's 132 SMs. The plane's rows (about 100 entries,
+# about 200 units, plus what K = 16 ops add) and the RLE bench's (about
+# 260 entries) fit with room to spare, and 8 windows hold a whole row of
+# the plane's width 4096, so a row that outgrows its window still runs in
+# the same launch, on the CTA path.
+WARP_WINDOW = 512
+
+
+def _warp_window(width: int) -> int:
+    """The warp path's window for rows `width` wide: the whole row when
+    it is narrow, else WARP_WINDOW. A row whose ops can reach past it
+    runs on the CTA path."""
+    return min(width, WARP_WINDOW)
 
 
 def _check(tensor: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -163,7 +179,14 @@ def _check_launch(state, row_fields, bool_fields, scalar_fields, ops, slots) -> 
 
 
 def _launch(library: KernelLibrary, state, ops, slots, shape) -> None:
+    """Launch a row kernel: the warp path with a `_warp_window` window,
+    and the CTA path for the rows that do not fit it. `done` is the
+    per-column scratch through which a second launch learns which rows
+    the first took (allocated only when the window is narrower than the
+    row; the C side decides whether it needs the second launch)."""
     num_docs, width, num_slots, batch = shape
+    window = _warp_window(width)
+    done = torch.empty(batch, dtype=torch.uint8, device=slots.device) if window < width else None
     library.launch(
         *(field.data_ptr() for field in state),
         num_docs,
@@ -172,6 +195,8 @@ def _launch(library: KernelLibrary, state, ops, slots, shape) -> None:
         num_slots,
         batch,
         slots.data_ptr(),
+        window,
+        None if done is None else done.data_ptr(),
         torch.cuda.current_stream(slots.device).cuda_stream,
     )
 

@@ -33,7 +33,9 @@ def assert_same(gpu_state, cpu_state):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("capacity", [256, 20_000])  # shared-memory row, global-memory row
+# a row that is one warp window; short rows in a wide row (the warp path
+# beside a CTA launch that finds every column done)
+@pytest.mark.parametrize("capacity", [256, 20_000])
 def test_dense_kernel_matches_plain_version(cuda, capacity):
     rng = np.random.default_rng(31)
     num_docs, num_slots = 48, 12
@@ -107,7 +109,8 @@ def padded_ops(live, width):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("entries", [256, 12_000])  # shared-memory row, global-memory row
+# a row that is one warp window; short rows in a wide row
+@pytest.mark.parametrize("entries", [256, 12_000])
 def test_rle_dense_kernel_matches_plain_version(cuda, entries):
     rng = np.random.default_rng(37)
     num_docs, num_slots = 48, 12
@@ -192,12 +195,14 @@ def test_rle_kernel_wrapper_refuses_bad_tensors(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("entries", [64, 12_000])
+@pytest.mark.parametrize("entries", [64, 1024, 12_000])
 def test_rle_kernel_matches_plain_version_when_ids_repeat(cuda, entries):
     """Random ops with no causal order: ids repeat, runs may be empty or
     negative, origins may be missing, unknown kinds appear. Several
     entries can then match one split, and the kernel must still extract
-    the split fields as the plain version's masked sums do."""
+    the split fields as the plain version's masked sums do. Every row
+    here takes the warp path (R = 64 is one window; at 1024 and 12,000
+    the rows stay far inside theirs)."""
     rng = np.random.default_rng(41)
     num_docs, num_slots = 96, 16
     pool = np.asarray([7, 0x9000_0001, 0xFFFF_FFFF], np.uint32)
@@ -219,3 +224,143 @@ def test_rle_kernel_matches_plain_version_when_ids_repeat(cuda, entries):
         ti.integrate_op_slots_rle_fast(state_c, tk.ops_from_numpy(fields, CPU))
     torch.cuda.synchronize()
     assert_same_rle(state_g, state_c)
+
+
+# -- the warp path and the CTA path, both kernels --------------------------------
+
+ARENAS = {
+    "unit": (tk.make_empty_state, ti.integrate_op_slots_fast, ti.integrate_op_slots_sparse_fast),
+    "rle": (
+        tr.make_empty_rle_state,
+        ti.integrate_op_slots_rle_fast,
+        ti.integrate_op_slots_rle_sparse_fast,
+    ),
+}
+WINDOW = ti.WARP_WINDOW
+
+
+def typed_rows(arena, sizes, width):
+    """CPU rows of sizes[i] units (unit arena) or one-unit entries (RLE
+    arena) typed in order by client 7: ids 7:0.., ranks 0.., each one's
+    origin its predecessor. Returns the state and next_clock (2, D)."""
+    make = ARENAS[arena][0]
+    state = make(len(sizes), width, CPU)
+    for d, n in enumerate(sizes):
+        ids = torch.arange(n, dtype=torch.int32)
+        if arena == "unit":
+            state.id_client[d, :n] = 7
+            state.id_clock[d, :n] = ids
+            state.rank[d, :n] = ids
+            state.origin_rank[d, :n] = ids - 1
+            state.length[d] = n
+        else:
+            state.run_client[d, :n] = 7
+            state.run_clock[d, :n] = ids
+            state.run_len[d, :n] = 1
+            state.run_rank[d, :n] = ids
+            state.run_orank[d, :n] = ids - 1
+            state.num_runs[d] = n
+            state.total_units[d] = n
+    next_clock = np.zeros((2, len(sizes)), np.int64)
+    next_clock[0] = sizes
+    return state, next_clock
+
+
+def assert_dispatch_matches(arena, cuda, state_c, fields, slots=None):
+    """One dispatcher call on the card and on the CPU, from the same
+    state; every field equal."""
+    _make, dense, sparse = ARENAS[arena]
+    state_g = type(state_c)(*(f.to(cuda) for f in state_c))
+    if slots is None:
+        dense(state_g, tk.ops_from_numpy(fields, cuda))
+        dense(state_c, tk.ops_from_numpy(fields, CPU))
+    else:
+        sparse(state_g, tk.ops_from_numpy(fields, cuda), torch.from_numpy(slots).to(cuda))
+        sparse(state_c, tk.ops_from_numpy(fields, CPU), torch.from_numpy(slots))
+    torch.cuda.synchronize()
+    for name, g, c in zip(state_c._fields, state_g, state_c):
+        assert torch.equal(g.cpu(), c), name
+
+
+def edge_sizes(arena, num_slots):
+    """Row sizes whose need is the window and one past it: a unit row
+    grows by the K run-1 inserts, an RLE row by up to 2K entries."""
+    grow = num_slots if arena == "unit" else 2 * num_slots
+    return [WINDOW - grow, WINDOW - grow + 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arena", ["unit", "rle"])
+# CTA rows in the same launch; in a second launch, in shared / global memory
+@pytest.mark.parametrize("width", [1024, 6000, "global"])
+def test_one_launch_mixes_warp_rows_and_cta_rows(cuda, arena, width):
+    width = width if width != "global" else (20_000 if arena == "unit" else 12_000)
+    rng = np.random.default_rng(43)
+    num_slots = 8
+    sizes = [0, 3, 100, *edge_sizes(arena, num_slots), 700, 40, 900, 10, 250, 600]
+    state, next_clock = typed_rows(arena, sizes, width)
+    fields = random_ops(rng, next_clock, num_slots, insert_only=True, run_range=(1, 2))
+    before = ARENAS[arena][1].launches
+    assert_dispatch_matches(arena, cuda, state, fields)
+    assert ARENAS[arena][1].launches - before == 1
+    fields = random_ops(rng, next_clock, num_slots)  # inserts, deletes, noops
+    assert_dispatch_matches(arena, cuda, state, fields)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arena", ["unit", "rle"])
+@pytest.mark.parametrize("past", [0, 1])  # need = window, window + 1
+def test_rows_at_the_window_edge(cuda, arena, past):
+    rng = np.random.default_rng(47 + past)
+    num_slots = 8
+    size = edge_sizes(arena, num_slots)[past]
+    state, next_clock = typed_rows(arena, [size] * 9, 4096)
+    fields = random_ops(rng, next_clock, num_slots, insert_only=True, run_range=(1, 2))
+    assert_dispatch_matches(arena, cuda, state, fields)
+    grown = state.length if arena == "unit" else state.num_runs
+    assert int(grown.min()) > size  # every row took its inserts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arena", ["unit", "rle"])
+def test_sixty_four_op_slots_span_two_prefetch_lanes(cuda, arena):
+    rng = np.random.default_rng(53)
+    state, next_clock = typed_rows(arena, [0, 5, 60, 130, 20, 0, 7, 90, 33], 1024)
+    for _ in range(2):
+        assert_dispatch_matches(arena, cuda, state, random_ops(rng, next_clock, 64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arena", ["unit", "rle"])
+def test_padding_columns_beside_live_warps(cuda, arena):
+    """13 routed columns (not a multiple of 8 warps), padding in the
+    middle of a CTA whose other warps are live, rows on both paths."""
+    rng = np.random.default_rng(59)
+    num_docs = 16
+    sizes = [int(x) for x in rng.integers(0, 200, num_docs)]
+    sizes[3], sizes[11] = 800, 700  # CTA-path rows
+    state, next_clock = typed_rows(arena, sizes, 1024)
+    slots = np.asarray([3, num_docs, 5, 7, -1, 9, 11, 0, num_docs, 14, 2, 8, 1], np.int32)
+    live = slots[(slots >= 0) & (slots < num_docs)]
+    for _ in range(2):
+        sub_clock = next_clock[:, live].copy()
+        ops = random_ops(rng, sub_clock, 8)
+        next_clock[:, live] = sub_clock
+        fields = []
+        for value, default in zip(ops, (0, 0, 0, 0, 0xFFFFFFFF, 0, 0xFFFFFFFF, 0)):
+            full = np.full((8, len(slots)), default, value.dtype)
+            full[:, (slots >= 0) & (slots < num_docs)] = value
+            fields.append(full)
+        assert_dispatch_matches(arena, cuda, state, fields, slots)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arena", ["unit", "rle"])
+def test_launch_setup_grows_its_shared_memory_in_one_process(cuda, arena):
+    """Narrow rows (a window under 48 KB), then wide rows whose warp
+    window and CTA row each need more: every launch in this process
+    succeeds and matches the plain version."""
+    rng = np.random.default_rng(61)
+    for width, sizes in ((64, [0, 10, 30]), (1024, [5, 300, 900]), (4096, [50, 2000, 3000])):
+        state, next_clock = typed_rows(arena, sizes, width)
+        assert_dispatch_matches(arena, cuda, state, random_ops(rng, next_clock, 4))
