@@ -11,7 +11,12 @@ started together), holds each against its plain PyTorch version (bit for
 bit) at the bench shape and at deployment scale, then drives the merge
 plane + serving path (`MergePlane` on the card, `PlaneServing`,
 `TpuSyncSource`) over each arena with concurrent Yjs editors and checks
-every served byte against a second plane on the CPU. Each phase prints
+every served byte against a second plane on the CPU, and last drives the
+served path over each arena: the port's Hocuspocus core with
+`TpuMergeExtension(serve=True)` and 10,240 in-process providers editing
+1,024 docs, then two join waves (phases `server`, `rle_server`), each
+path's biggest integrate batch replayed through the kernel and the
+plain version (`server_replay`, `rle_server_replay`). Each phase prints
 one line; any failure exits nonzero. A kernel phase's `ms` is the
 kernels' device time per launch: the launch entry (`integrate_rows_cuda`
 / `integrate_rle_rows_cuda`) is timed with CUDA events, 8 launches back
@@ -71,6 +76,12 @@ RLE_BYTES_PER_ENTRY = 21  # 5 int32 fields + a bool
 # and the whole script keeps to about five minutes on the card
 UNIT_PLANE_ROUNDS = 12
 RLE_PLANE_ROUNDS = 12
+# the served path (phases server, rle_server): BASELINE config 2's 1,024
+# docs x 10 clients at capacity 4,096, uncut; only the rounds are cut
+# (each round is 10,240 edits through the server core on one host thread)
+SERVER_CLIENTS = 10
+SERVER_ROUNDS = 6
+SERVER_CUTS = {"rounds": "6 rounds of one edit per provider"}
 
 CLIENTS = np.asarray([7, 0x9000_0001], np.uint32)
 NONE = 0xFFFFFFFF
@@ -1076,6 +1087,453 @@ def phase_replay(recorded, arena, reps):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def phase_served_replay(recorded, arena):
+    """The served path's integrate batch with the most ops, replayed
+    through the dispatcher the plane calls (the kernel) and through the
+    plain version, each on its own copy of the same arena snapshot: the
+    whole arena must agree element for element."""
+    import torch
+
+    from hocuspocus_tpu_torch.tpu import integrate as ti
+    from hocuspocus_tpu_torch.tpu import kernels as tk
+    from hocuspocus_tpu_torch.tpu import kernels_rle as tr
+
+    tag = ARENAS[arena]["tag"] + "server_replay"
+    check(recorded is not None, f"{tag}: no integrate batch was recorded")
+    count, state0, ops, slots = recorded
+    dense_name, sparse_name = ARENAS[arena]["wrap"]
+    if arena == "rle":
+        plain_dense, plain_sparse = tr.integrate_op_slots_rle, tr.integrate_op_slots_rle_sparse
+    else:
+        plain_dense, plain_sparse = tk.integrate_op_slots, tk.integrate_op_slots_sparse
+    kernel, plain = clone_state(state0), clone_state(state0)
+    if slots is None:
+        kernel, _ = getattr(ti, dense_name)(kernel, ops)
+        plain, _ = plain_dense(plain, ops)
+    else:
+        kernel, _ = getattr(ti, sparse_name)(kernel, ops, slots)
+        plain, _ = plain_sparse(plain, ops, slots)
+    torch.cuda.synchronize()
+    err = max_abs_err(kernel, plain)
+    check(states_equal(kernel, plain) and err == 0, f"{tag}: kernel and plain arenas differ")
+    num_docs, width = state0[0].shape
+    emit(
+        tag,
+        shape={"D": num_docs, "N" if arena == "unit" else "R": width,
+               "K": ops.kind.shape[0], "B": ops.kind.shape[1]},
+        layout="dense" if slots is None else "sparse",
+        ops=count,
+        bit_identical=True,
+        max_abs_err=err,
+    )
+    return err
+
+
+# -- the served path: the port's server with TpuMergeExtension --------------
+
+
+def percentiles_ms(seconds) -> dict:
+    values = np.asarray(seconds, np.float64) * 1e3
+    if not values.size:
+        return {"n": 0, "p50_ms": None, "p99_ms": None}
+    return {
+        "n": int(values.size),
+        "p50_ms": float(np.percentile(values, 50)),
+        "p99_ms": float(np.percentile(values, 99)),
+    }
+
+
+def _server_edit(rng, text) -> bool:
+    """One random-position edit of `text` (a delete a third of the time
+    once it holds some text); True when it inserted."""
+    length = len(text)
+    if length > 8 and rng.random() < 0.35:
+        pos = int(rng.integers(0, length - 1))
+        text.delete(pos, min(int(rng.integers(1, 4)), length - pos))
+        return False
+    text.insert(int(rng.integers(0, length + 1)), WORDS[rng.integers(0, len(WORDS))])
+    return True
+
+
+class EditClock:
+    """Edit -> observe latency on the providers' clocks: an insert by one
+    provider of a doc is observed when another provider of the same doc
+    (the doc's first provider, or its second for the first's own edits)
+    holds the insert's last clock."""
+
+    def __init__(self, idle) -> None:
+        self.pending: dict = {}  # observer provider -> [(client, clock, t_edit)]
+        self.waiting = 0
+        self.samples: list = []
+        self.idle = idle  # an asyncio.Event, set while nothing is pending
+        idle.set()
+
+    def watch(self, provider) -> None:
+        self.pending[provider] = []
+        provider.document.on("update", lambda *_args, p=provider: self._check(p))
+
+    def expect(self, observer, editor) -> None:
+        doc = editor.document
+        clock = doc.store.get_state_vector()[doc.client_id]
+        self.pending[observer].append((doc.client_id, clock, time.perf_counter()))
+        self.waiting += 1
+        self.idle.clear()
+
+    def _check(self, observer) -> None:
+        waiting = self.pending.get(observer)
+        if not waiting:
+            return
+        now = time.perf_counter()
+        sv = observer.document.store.get_state_vector()
+        keep = []
+        for client, clock, t_edit in waiting:
+            if sv.get(client, 0) >= clock:
+                self.samples.append(now - t_edit)
+            else:
+                keep.append((client, clock, t_edit))
+        self.waiting -= len(waiting) - len(keep)
+        self.pending[observer] = keep
+        if not self.waiting:
+            self.idle.set()
+
+
+async def _converge(pairs, deadline: float, what: str) -> None:
+    """Wait until every (provider, server Document) pair holds one text."""
+    import asyncio
+
+    left = list(pairs)
+    while left:
+        left = [
+            (p, doc) for p, doc in left
+            if p.document.get_text("t").to_string() != doc.get_text("t").to_string()
+        ]
+        if not left:
+            return
+        check(time.perf_counter() < deadline, f"{what}: {len(left)} providers never converged")
+        await asyncio.sleep(0.02)
+
+
+async def run_server(rng, arena, num_docs, capacity, clients, rounds, device="cuda",
+                     profile_kernels=False, recorder=None):
+    """The served path over one arena: the port's Hocuspocus core with
+    TpuMergeExtension(serve=True, every scheduling knob at its default)
+    and `clients` HocuspocusProviders per doc, each on an in-process
+    socket of its own (one browser tab each). Each round every
+    provider makes one random-position edit, all of a doc's edits before
+    any is delivered, and the round waits until every doc has converged.
+    Then two waves of one late joiner per doc, each on a socket of its
+    own: the first is served from device state, the second from the
+    sync cache. A `recorder` (Recorder) keeps the traffic's biggest
+    integrate batch. Last, one more edit per doc is flushed on the loop
+    thread with the loop held (`idle_flush`). Returns (the extension, the
+    phase's numbers)."""
+    import contextlib
+    import asyncio
+
+    from hocuspocus_tpu_torch.crdt import Doc, apply_update, encode_state_vector
+    from hocuspocus_tpu_torch.provider import HocuspocusProvider, InProcessProviderSocket
+    from hocuspocus_tpu_torch.server import Configuration, Hocuspocus
+    from hocuspocus_tpu_torch.server.types import Payload
+    from hocuspocus_tpu_torch.tpu import TpuMergeExtension
+    from hocuspocus_tpu_torch.tpu import integrate as ti
+    from hocuspocus_tpu_torch.tpu.scheduler import reset_device_lane
+
+    reset_device_lane()
+    started = time.perf_counter()
+    ext = TpuMergeExtension(
+        num_docs=num_docs, capacity=capacity, serve=True, arena=arena, device=device
+    )
+    core = Hocuspocus(Configuration(quiet=True, extensions=[ext]))
+    await core.ensure_configured()
+    await core.hooks("on_listen", Payload(instance=core, configuration=core.configuration, port=None))
+    await ext.warmup_task
+    check(ext.plane.compile_watch.warmed, f"{arena} server: the warm grid did not finish")
+    warm_seconds = time.perf_counter() - started
+
+    plane = ext.plane
+    cycles = []  # (seconds, flush_stats) of every flush that integrated ops
+    real_flush = plane.flush
+
+    def timed_flush(max_batches=None):
+        t0 = time.perf_counter()
+        count = real_flush(max_batches)
+        if count:
+            cycles.append((time.perf_counter() - t0, dict(plane.flush_stats)))
+        if recorder is not None:
+            recorder.after_flush(plane.state)
+        return count
+
+    plane.flush = timed_flush
+    names = [f"doc-{i}" for i in range(num_docs)]
+    groups = []
+    for name in names:
+        group = []
+        for _client in range(clients):
+            provider = HocuspocusProvider(
+                name=name, websocket_provider=InProcessProviderSocket(core)
+            )
+            provider.attach()
+            group.append(provider)
+        groups.append(group)
+    everyone = [p for group in groups for p in group]
+    await asyncio.wait_for(_all_synced(everyone), 600)
+    setup_seconds = time.perf_counter() - started
+
+    dense_name, sparse_name = ARENAS[arena]["wrap"]
+    dense_fn, sparse_fn = getattr(ti, dense_name), getattr(ti, sparse_name)
+    clock = EditClock(asyncio.Event())
+    for group in groups:
+        clock.watch(group[0])
+        clock.watch(group[1])
+    base = {key: plane.counters[key] for key in ("flush_fast_ops", "flush_slow_ops")}
+    if recorder is not None:
+        recorder.before = clone_state(plane.state)
+    dense_fn.launches = sparse_fn.launches = 0
+    traffic_started = time.perf_counter()
+    profiler = None
+    if profile_kernels:
+        from torch.profiler import ProfilerActivity, profile
+
+        profiler = profile(activities=[ProfilerActivity.CUDA])
+        profiler.__enter__()
+    recording = recorder if recorder is not None else contextlib.nullcontext()
+    try:
+        with recording:
+            for _round in range(rounds):
+                for d, group in enumerate(groups):
+                    for j, provider in enumerate(group):
+                        if _server_edit(rng, provider.document.get_text("t")):
+                            clock.expect(group[1] if j == 0 else group[0], provider)
+                    if d % 16 == 15:
+                        await asyncio.sleep(0)
+                await asyncio.wait_for(clock.idle.wait(), 300)
+                await _converge(
+                    [(p, core.documents[p.name]) for p in everyone],
+                    time.perf_counter() + 120, f"{arena} server",
+                )
+            # the traffic ends when the card has integrated all of it: nothing
+            # queued and no flush cycle in flight (its counters grow per batch)
+            deadline = time.perf_counter() + 120
+            while plane.pending_ops() > 0 or ext._flush_inflight:
+                check(time.perf_counter() < deadline, f"{arena} server: the queues never drained")
+                await asyncio.sleep(0.005)
+            traffic_seconds = time.perf_counter() - traffic_started
+            integrated = sum(plane.counters[key] - base[key] for key in base)
+            joins, joiners = await _join_waves(core, names, plane)
+    finally:
+        if profiler is not None:
+            profiler.__exit__(None, None, None)
+    profiled_seconds = time.perf_counter() - traffic_started
+    launches = {dense_name: dense_fn.launches, sparse_name: sparse_fn.launches}
+    idle_flush = await _idle_flush(ext, core, groups, rng, real_flush)
+
+    # every provider, joiners included, holds its server document's text
+    await _converge(
+        [(p, core.documents[p.name]) for p in everyone + joiners],
+        time.perf_counter() + 120, f"{arena} server",
+    )
+    # the bytes served for an empty state vector rebuild every doc
+    for name in names:
+        document = core.documents[name]
+        served = await document.sync_source.encode_state_as_update_async(None)
+        check(served is not None, f"{arena} server: {name} was not served from the plane")
+        rebuilt = Doc()
+        apply_update(rebuilt, served)
+        check(
+            rebuilt.get_text("t").to_string() == document.get_text("t").to_string(),
+            f"{arena} server: {name}: served bytes rebuild another text",
+        )
+        check(
+            encode_state_vector(rebuilt) == encode_state_vector(document),
+            f"{arena} server: {name}: served bytes rebuild another state vector",
+        )
+    kernel_ms = None
+    if profiler is not None:
+        kernel_us = sum(
+            getattr(event, "device_time_total", 0) or 0
+            for event in profiler.key_averages()
+            if "integrate" in event.key and "kernel" in event.key
+        )
+        kernel_ms = kernel_us / 1e3 if kernel_us else None
+    counters = dict(plane.counters)
+    served_docs = sum(name in ext._docs for name in names)
+    lane = ext.lane.snapshot()["counters"] if ext.lane is not None else None
+    governor = ext.governor.snapshot()["counters"] if ext.governor is not None else None
+    warm = plane.compile_watch
+    for p in everyone + joiners:
+        p.destroy()
+        p.websocket_provider.destroy()
+    await core.hooks("on_destroy", Payload(instance=core))
+    stats = [s for _t, s in cycles]
+    return ext, {
+        "warm_seconds": round(warm_seconds, 3),
+        "setup_seconds": round(setup_seconds, 3),
+        "traffic_seconds": round(traffic_seconds, 3),
+        "seconds": round(time.perf_counter() - started, 3),
+        "edit_observe": percentiles_ms(clock.samples),
+        "join_waves": joins,
+        "flush_cycles": percentiles_ms([t for t, _s in cycles]),
+        "flush_stage_p50_ms": {
+            key: float(np.median([s[key] for s in stats])) if stats else None
+            for key in ("build_ms", "upload_ms", "dispatch_ms", "device_sync_ms")
+        },
+        "flush_stage_p99_ms": {
+            key: float(np.percentile([s[key] for s in stats], 99)) if stats else None
+            for key in ("build_ms", "upload_ms", "dispatch_ms", "device_sync_ms")
+        },
+        "ops_integrated": integrated,
+        "ops_per_s": integrated / traffic_seconds if traffic_seconds else None,
+        "integrate_launches": launches,
+        "profiled_seconds": round(profiled_seconds, 3),
+        "kernel_device_ms": kernel_ms,
+        "kernel_device_share": None if kernel_ms is None else kernel_ms / 1e3 / profiled_seconds,
+        "idle_flush": idle_flush,
+        "peak_resident_providers": len(everyone) + len(joiners),
+        "served_docs": served_docs,
+        "counters": counters,
+        "lane": lane,
+        "governor": governor,
+        "warm_launches": {"first": warm.first_launches, "unwarmed": warm.unwarmed_launches},
+    }
+
+
+async def _idle_flush(ext, core, groups, rng, flush) -> dict:
+    """One more edit by one provider of every doc, held in the plane's
+    queues (holding `flush_lock` keeps every flush cycle off them), then
+    flushed on the loop thread while the loop waits for it: the served
+    path's flush engine on a batch the size of a served cycle's, with no
+    other Python thread wanting the interpreter lock. Its stages set
+    beside the served cycles' tell the engine's own time from the time
+    it waits for the loop thread."""
+    import asyncio
+
+    plane = ext.plane
+    editors = [group[-1] for group in groups]
+    async with plane.flush_lock:
+        for d, provider in enumerate(editors):
+            _server_edit(rng, provider.document.get_text("t"))
+            if d % 16 == 15:
+                await asyncio.sleep(0)
+        await _converge(
+            [(p, core.documents[p.name]) for p in editors],
+            time.perf_counter() + 120, "idle flush",
+        )
+        queued = plane.pending_ops()
+        started = time.perf_counter()
+        flush(None)
+        seconds = time.perf_counter() - started
+        stats = dict(plane.flush_stats)
+        ext.serving.refresh()
+        ext._validate_served()
+    return {
+        "ops": queued,
+        "ms": seconds * 1e3,
+        "batches": stats["batches"],
+        "stages_ms": {
+            key: stats[key] for key in ("build_ms", "upload_ms", "dispatch_ms", "device_sync_ms")
+        },
+    }
+
+
+async def _join_waves(core, names, plane):
+    """Two waves of one late joiner per doc, each on a socket of its own:
+    (per-wave join -> synced numbers, the joiners)."""
+    import asyncio
+
+    from hocuspocus_tpu_torch.provider import HocuspocusProvider, InProcessProviderSocket
+
+    joins = []
+    joiners = []
+    for wave in range(2):
+        serves_before = plane.counters["sync_serves"]
+        hits_before = plane.counters["sync_cache_hits"]
+        synced_at = {}
+        wave_joiners = []
+        t_join = time.perf_counter()
+        for name in names:
+            provider = HocuspocusProvider(name=name, websocket_provider=InProcessProviderSocket(core))
+            provider.on(
+                "synced",
+                lambda payload, p=provider: payload.get("state")
+                and synced_at.setdefault(p, time.perf_counter()),
+            )
+            provider.attach()
+            wave_joiners.append(provider)
+        await asyncio.wait_for(_all_synced(wave_joiners), 300)
+        joins.append(
+            {
+                "wave": wave + 1,
+                **percentiles_ms([synced_at[p] - t_join for p in wave_joiners]),
+                "sync_serves": plane.counters["sync_serves"] - serves_before,
+                "sync_cache_hits": plane.counters["sync_cache_hits"] - hits_before,
+            }
+        )
+        joiners += wave_joiners
+    return joins, joiners
+
+
+async def _all_synced(providers) -> None:
+    from hocuspocus_tpu_torch.aio import await_synced
+
+    await await_synced(providers, timeout=600, what="providers")
+
+
+def phase_server(rng, arena, num_docs, capacity, clients, rounds, cuts):
+    """The served path on the card over one arena (run_server), with the
+    checks that hold it: every provider converged, the served bytes
+    rebuild every doc, broadcasts went through the plane, every join was
+    served from it, nothing fell back to the CPU or retired, every doc is
+    still served, and the arena's kernel launched from this path. Then
+    the path's biggest integrate batch is replayed through the kernel
+    and the plain version (phase_served_replay). Returns (launches,
+    max_abs_err of the replay)."""
+    import asyncio
+
+    from hocuspocus_tpu_torch.tpu import merge_plane as mp
+
+    tag = ARENAS[arena]["tag"] + "server"
+    recorder = Recorder(mp, *ARENAS[arena]["wrap"])
+    _ext, out = asyncio.run(
+        run_server(
+            rng, arena, num_docs, capacity, clients, rounds,
+            profile_kernels=True, recorder=recorder,
+        )
+    )
+    counters = out["counters"]
+    retired = {k: v for k, v in counters.items() if k.startswith("docs_retired_")}
+    joins = 2 * num_docs
+    launches = sum(out["integrate_launches"].values())
+    check(counters["plane_broadcasts"] > 0, f"{tag}: no broadcast went through the plane")
+    check(counters["sync_serves"] >= joins, f"{tag}: {counters['sync_serves']} sync serves for {joins} joins")
+    check(counters["cpu_fallbacks"] == 0, f"{tag}: {counters['cpu_fallbacks']} CPU fallbacks")
+    check(not any(retired.values()), f"{tag}: docs retired {retired}")
+    check(out["served_docs"] == num_docs, f"{tag}: {out['served_docs']} of {num_docs} docs still served")
+    check(launches > 0, f"{tag}: the integrate kernel never launched from the server path")
+    emit(
+        tag,
+        gpu=nvidia_smi_line(),
+        config="BASELINE config 2: 1k Y.Text docs, 10 clients each, random-position insert/delete",
+        arena=arena,
+        docs=num_docs,
+        capacity=capacity,
+        clients=clients,
+        rounds=rounds,
+        cuts=cuts,
+        joins=joins,
+        docs_retired=retired,
+        **{k: v for k, v in out.items() if k != "counters"},
+        sync_serves=counters["sync_serves"],
+        sync_cache_hits=counters["sync_cache_hits"],
+        plane_broadcasts=counters["plane_broadcasts"],
+        cpu_fallbacks=counters["cpu_fallbacks"],
+        flush_fast_ops=counters["flush_fast_ops"],
+        flush_slow_ops=counters["flush_slow_ops"],
+    )
+    err = phase_served_replay(recorder.best, arena)
+    recorder.best = recorder.before = None
+    return launches, err
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=7)
@@ -1095,6 +1553,7 @@ def main(argv=None) -> int:
     started = time.perf_counter()
     random.seed(args.seed)  # the CRDT engine draws replacement client ids here
     rng = np.random.default_rng(args.seed)
+    results = {"unit": {}, "rle": {}}
     try:
         phase_build()
         seeded = phase_dense(rng, num_docs=8192, capacity=5632, num_slots=64, reps=5)
@@ -1109,13 +1568,18 @@ def main(argv=None) -> int:
         )
         del seeded
         torch.cuda.empty_cache()
-        results = {}
         for arena, rounds in (("unit", UNIT_PLANE_ROUNDS), ("rle", RLE_PLANE_ROUNDS)):
             launches, recorded = phase_plane(
                 rng, arena, num_docs=1024, capacity=4096, clients=10, rounds=rounds
             )
-            results[arena] = {"launches": launches, **phase_replay(recorded, arena, reps=10)}
+            results[arena]["plane"] = launches
+            results[arena].update(phase_replay(recorded, arena, reps=10))
             del recorded
+        for arena in ("unit", "rle"):
+            results[arena]["server"], results[arena]["server_err"] = phase_server(
+                rng, arena, num_docs=1024, capacity=4096, clients=SERVER_CLIENTS,
+                rounds=SERVER_ROUNDS, cuts=SERVER_CUTS,
+            )
         smi = nvidia_smi_line()
     except SmokeFailure as failure:
         print(f"chip_smoke: FAILED: {failure}", file=sys.stderr)
@@ -1133,8 +1597,12 @@ def main(argv=None) -> int:
                 "route": "cuda",
                 "source": f"hocuspocus_tpu_torch/csrc/{source}",
                 "replaces": replaces,
-                "launches": results[arena]["launches"],
-                "max_abs_err": results[arena]["max_abs_err"],
+                "launches": results[arena]["plane"] + results[arena]["server"],
+                "launches_by_path": {
+                    "plane": results[arena]["plane"],
+                    "server": results[arena]["server"],
+                },
+                "max_abs_err": max(results[arena]["max_abs_err"], results[arena]["server_err"]),
                 "ms": results[arena]["ms"],
                 "plain_ms": results[arena]["plain_ms"],
                 "bound_ms": results[arena]["bound_ms"],

@@ -1,0 +1,274 @@
+"""Per-frame cost ledger + wire-saturation headroom model.
+
+Cheap ``perf_counter_ns`` counters at the host codec choke points —
+the sites ROADMAP 2(a) says to "profile and crush". Each instrumented
+seam pays one ``ledger.enabled`` attribute read when the ledger is off
+(the same contract as WireTelemetry), and three dict increments when
+on. Keyed by ``(site, MessageType name)`` and exposed as
+
+    hocuspocus_profile_frame_cost_ns{site=,type=}
+    hocuspocus_profile_frames_total{site=,type=}
+    hocuspocus_profile_frame_bytes_total{site=,type=}
+
+plus the derived gauge ``hocuspocus_profile_headroom_frames_per_s``.
+
+Site catalogue (docs/guides/observability.md "profiling & cost attribution"):
+
+- ``frame_decode``   loop  — full inbound dispatch (decode -> handlers
+                             done), same window + byte count as
+                             ``hocuspocus_wire_handle_seconds`` /
+                             ``bytes_in`` (server/message_receiver.py)
+- ``frame_encode``   loop  — broadcast frame build (protocol/frames.py)
+- ``coalesce``       loop  — per-tick update merge (server/fanout.py)
+- ``fanout_tick``    loop  — one broadcast tick's socket writes
+- ``varint_header``  detail— header parse inside frame_decode
+- ``apply_update``   detail— CRDT apply inside frame_decode
+- ``envelope_decode`` detail— relay envelope decode (edge gateway/cell
+                             loops — separate processes, so kept out of
+                             the server headroom sum)
+- ``wal_append``     off   — WAL group commit (executor thread)
+
+**Batch amortization** (``record_batch``): a batched codec call (one
+Python->C++ crossing for N frames — parse_frame_headers_batch,
+build_update_frames_batch, native coalesce) records its TOTAL ns once
+with ``count=N``, so the per-(site,type) ``frames`` counter advances by
+N and every derived ns/frame figure is the *amortized* per-frame cost.
+The headroom model needs no special casing: loop-site totals are summed
+and divided by ingress frames exactly as before, which is precisely the
+amortized accounting a batched wire path should report.
+
+**Headroom model**: sustainable frames/s per process =
+1 / Σ(per-frame cost on the event-loop thread). Only the non-
+overlapping ``loop`` sites enter the sum (``detail`` sites re-measure
+slices *inside* frame_decode; ``wal_append`` runs off-loop), each
+normalized per *ingress* frame so egress-side work (fan-out, encode)
+is charged back to the frame that caused it. The number rides on
+fleet digests (observability/fleet.py) so ``/debug/fleet`` shows
+per-node headroom, and the ``wire_saturation`` bench pass checks it
+against measured saturation (within 2x).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+from .metrics import Counter, Gauge
+
+# non-overlapping event-loop-thread sites: these sum to the per-frame
+# loop cost the headroom model divides into
+LOOP_SITES = ("frame_decode", "frame_encode", "coalesce", "fanout_tick")
+# attribution detail measured INSIDE frame_decode (excluded from the
+# headroom sum — counting them again would double-charge the frame);
+# envelope_decode runs on edge gateway/cell loops (separate processes)
+DETAIL_SITES = ("varint_header", "apply_update", "envelope_decode")
+# off-loop work (executor threads): visible in the table, not in headroom
+OFF_LOOP_SITES = ("wal_append",)
+SITES = LOOP_SITES + DETAIL_SITES + OFF_LOOP_SITES
+
+
+class CostLedger:
+    """Process-global per-frame cost accounting (get_cost_ledger()).
+
+    Disabled by default: library users pay one attr read per seam.
+    The Metrics extension enables it at configure time.
+    """
+
+    def __init__(self) -> None:
+        self.enabled = False
+        self.cost_ns = Counter(
+            "hocuspocus_profile_frame_cost_ns",
+            "Cumulative ns spent per codec site, by site and MessageType",
+        )
+        self.frames = Counter(
+            "hocuspocus_profile_frames_total",
+            "Frames accounted per codec site, by site and MessageType",
+        )
+        self.bytes = Counter(
+            "hocuspocus_profile_frame_bytes_total",
+            "Payload bytes accounted per codec site, by site and MessageType",
+        )
+        self.headroom_gauge = Gauge(
+            "hocuspocus_profile_headroom_frames_per_s",
+            "Modeled sustainable frames/s: 1 / sum(per-frame loop-thread cost)",
+            fn=self.headroom_frames_per_s,
+        )
+
+    def enable(self) -> "CostLedger":
+        self.enabled = True
+        return self
+
+    def disable(self) -> None:
+        self.enabled = False
+
+    def reset(self) -> None:
+        self.cost_ns._values.clear()
+        self.frames._values.clear()
+        self.bytes._values.clear()
+
+    # -- hot path ------------------------------------------------------------
+
+    def record(self, site: str, type_name: str, ns: int, nbytes: int = 0) -> None:
+        self.cost_ns.inc(ns, site=site, type=type_name)
+        self.frames.inc(site=site, type=type_name)
+        if nbytes:
+            self.bytes.inc(nbytes, site=site, type=type_name)
+
+    def record_batch(
+        self, site: str, type_name: str, ns: int, count: int, nbytes: int = 0
+    ) -> None:
+        """One batched codec call covering ``count`` frames: total ``ns``
+        recorded once, frame counter advanced by ``count`` so every
+        derived ns/frame figure is the amortized per-frame cost."""
+        if count <= 0:
+            return
+        self.cost_ns.inc(ns, site=site, type=type_name)
+        self.frames.inc(count, site=site, type=type_name)
+        if nbytes:
+            self.bytes.inc(nbytes, site=site, type=type_name)
+
+    # -- aggregation ---------------------------------------------------------
+
+    def _site_totals(self) -> dict:
+        """{site: {"ns": total_ns, "frames": n, "bytes": b}} across types."""
+        out: dict[str, dict] = {}
+        for key, ns in self.cost_ns._values.items():
+            labels = dict(key)
+            site = labels.get("site", "?")
+            agg = out.setdefault(site, {"ns": 0.0, "frames": 0.0, "bytes": 0.0})
+            agg["ns"] += ns
+        for key, count in self.frames._values.items():
+            site = dict(key).get("site", "?")
+            out.setdefault(site, {"ns": 0.0, "frames": 0.0, "bytes": 0.0})[
+                "frames"
+            ] += count
+        for key, nbytes in self.bytes._values.items():
+            site = dict(key).get("site", "?")
+            out.setdefault(site, {"ns": 0.0, "frames": 0.0, "bytes": 0.0})[
+                "bytes"
+            ] += nbytes
+        return out
+
+    def ingress_frames(self) -> int:
+        return int(
+            sum(
+                count
+                for key, count in self.frames._values.items()
+                if dict(key).get("site") == "frame_decode"
+            )
+        )
+
+    def loop_ns_per_frame(self) -> float:
+        """Σ(loop-site ns) normalized per ingress frame; 0.0 = no data."""
+        ingress = self.ingress_frames()
+        if ingress <= 0:
+            return 0.0
+        totals = self._site_totals()
+        loop_ns = sum(totals.get(site, {}).get("ns", 0.0) for site in LOOP_SITES)
+        return loop_ns / ingress
+
+    def headroom_frames_per_s(self) -> float:
+        per_frame = self.loop_ns_per_frame()
+        if per_frame <= 0:
+            return 0.0
+        return 1e9 / per_frame
+
+    def top_costs(self, n: int = 5) -> list[dict]:
+        """Top-N (site, type) cells by total ns — the ranked hit-list
+        the next host-path perf PR starts from."""
+        totals = sum(self.cost_ns._values.values())
+        cells = []
+        for key, ns in self.cost_ns._values.items():
+            labels = dict(key)
+            frames = self.frames._values.get(key, 0.0)
+            cells.append(
+                {
+                    "site": labels.get("site", "?"),
+                    "type": labels.get("type", "?"),
+                    "total_ns": int(ns),
+                    "frames": int(frames),
+                    "ns_per_frame": round(ns / frames, 1) if frames else 0.0,
+                    "share": round(ns / totals, 4) if totals else 0.0,
+                }
+            )
+        cells.sort(key=lambda c: (-c["total_ns"], c["site"], c["type"]))
+        return cells[:n]
+
+    def table(self, wire=None) -> dict:
+        """The /debug/costs payload: per-(site,type) ns/frame and
+        bytes/frame, each site's share of accounted wall, the headroom
+        model's inputs and output, and (when wire telemetry has data)
+        the measured handle p50/p99 per type — quantiles guarded on
+        ``series_count`` so an empty label set never leaks the 0.0
+        sentinel into the table."""
+        site_totals = self._site_totals()
+        wall_ns = sum(agg["ns"] for agg in site_totals.values()) or 0.0
+        rows = []
+        for key in sorted(self.cost_ns._values):
+            labels = dict(key)
+            site, type_name = labels.get("site", "?"), labels.get("type", "?")
+            ns = self.cost_ns._values[key]
+            frames = self.frames._values.get(key, 0.0)
+            nbytes = self.bytes._values.get(key, 0.0)
+            rows.append(
+                {
+                    "site": site,
+                    "type": type_name,
+                    "frames": int(frames),
+                    "total_ms": round(ns / 1e6, 3),
+                    "ns_per_frame": round(ns / frames, 1) if frames else 0.0,
+                    "bytes_per_frame": round(nbytes / frames, 1) if frames else 0.0,
+                    "share_of_wall": round(ns / wall_ns, 4) if wall_ns else 0.0,
+                }
+            )
+        handle_quantiles = {}
+        if wire is None:
+            try:
+                from .wire import get_wire_telemetry
+
+                wire = get_wire_telemetry()
+            except Exception:
+                wire = None
+        if wire is not None:
+            hist = getattr(wire, "handle_seconds", None)
+            if hist is not None:
+                types = {dict(key).get("type") for key in self.frames._values}
+                for type_name in sorted(t for t in types if t):
+                    # empty-labelset sentinel guard: quantile() returns
+                    # 0.0 for a series that was never observed
+                    if not hist.series_count(type=type_name):
+                        continue
+                    handle_quantiles[type_name] = {
+                        "p50_ms": round(hist.quantile(0.5, type=type_name) * 1e3, 3),
+                        "p99_ms": round(hist.quantile(0.99, type=type_name) * 1e3, 3),
+                    }
+        return {
+            "enabled": self.enabled,
+            "rows": rows,
+            "sites": {
+                "loop": list(LOOP_SITES),
+                "detail": list(DETAIL_SITES),
+                "off_loop": list(OFF_LOOP_SITES),
+            },
+            "ingress_frames": self.ingress_frames(),
+            "loop_ns_per_frame": round(self.loop_ns_per_frame(), 1),
+            "headroom_frames_per_s": round(self.headroom_frames_per_s(), 1),
+            "wire_handle_quantiles_ms": handle_quantiles,
+            "top_costs": self.top_costs(),
+        }
+
+    def metrics(self) -> tuple:
+        return (self.cost_ns, self.frames, self.bytes, self.headroom_gauge)
+
+
+_default = CostLedger()
+
+
+def get_cost_ledger() -> CostLedger:
+    """Process-wide cost-ledger singleton (same pattern as
+    get_wire_telemetry)."""
+    return _default
+
+
+def now_ns() -> int:
+    return time.perf_counter_ns()

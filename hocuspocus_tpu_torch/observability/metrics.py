@@ -1,0 +1,289 @@
+"""Metrics primitives + Prometheus text exposition.
+
+The reference exposes only ad-hoc counters (`getDocumentsCount`,
+`getConnectionsCount` — reference `packages/server/src/Hocuspocus.ts:138-160`)
+and has "No Prometheus/OTel" (SURVEY.md §5.5). This registry is the
+framework-native replacement: counters, gauges and fixed-bucket
+histograms rendered in the Prometheus text format, served by the
+`Metrics` extension at `/metrics`.
+
+Everything runs on the asyncio event-loop thread; increments are plain
+float adds (no locks needed under the GIL).
+"""
+
+from __future__ import annotations
+
+import math
+from bisect import bisect_left
+from typing import Callable, Iterable, Optional, Sequence
+
+
+def _escape_label_value(value: str) -> str:
+    return (
+        str(value).replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+    )
+
+
+def _fmt_labels(labels: dict[str, str]) -> str:
+    if not labels:
+        return ""
+    inner = ",".join(
+        f'{k}="{_escape_label_value(v)}"' for k, v in sorted(labels.items())
+    )
+    return "{" + inner + "}"
+
+
+def _fmt_value(value: float) -> str:
+    if value == math.inf:
+        return "+Inf"
+    if value == -math.inf:
+        return "-Inf"
+    value = float(value)
+    if value != value:
+        return "NaN"
+    if value.is_integer() and abs(value) < 1e17:
+        return str(int(value))
+    # shortest round-trip decimal: the smallest %g precision whose
+    # output parses back to the same double (repr-style, but without
+    # repr's exponent/format quirks leaking into the exposition —
+    # float32-ish inputs like 0.30000000000000004 keep every digit they
+    # genuinely need and nothing more)
+    for precision in range(1, 18):
+        text = format(value, f".{precision}g")
+        if float(text) == value:
+            return text
+    return format(value, ".17g")
+
+
+class Counter:
+    """Monotonically increasing counter, optionally labelled."""
+
+    def __init__(self, name: str, help: str) -> None:
+        self.name = name
+        self.help = help
+        self._values: dict[tuple, float] = {}
+
+    def inc(self, amount: float = 1.0, **labels: str) -> None:
+        key = tuple(sorted(labels.items()))
+        self._values[key] = self._values.get(key, 0.0) + amount
+
+    def value(self, **labels: str) -> float:
+        return self._values.get(tuple(sorted(labels.items())), 0.0)
+
+    def expose(self) -> Iterable[str]:
+        yield f"# HELP {self.name} {self.help}"
+        yield f"# TYPE {self.name} counter"
+        if not self._values:
+            yield f"{self.name} 0"
+            return
+        for key, value in sorted(self._values.items()):
+            yield f"{self.name}{_fmt_labels(dict(key))} {_fmt_value(value)}"
+
+
+class Gauge:
+    """Settable value; can also track a live callable (e.g. connection
+    counts read straight off the instance at scrape time). Optionally
+    labelled: `set(1.0, slo="e2e", window="5m")` keeps one series per
+    label set, exposed in sorted label order (deterministic scrapes)."""
+
+    def __init__(
+        self, name: str, help: str, fn: Optional[Callable[[], float]] = None
+    ) -> None:
+        self.name = name
+        self.help = help
+        self._fn = fn
+        self._series: dict[tuple, float] = {}
+
+    def set(self, value: float, **labels: str) -> None:
+        self._series[tuple(sorted(labels.items()))] = float(value)
+
+    def inc(self, amount: float = 1.0, **labels: str) -> None:
+        key = tuple(sorted(labels.items()))
+        self._series[key] = self._series.get(key, 0.0) + amount
+
+    def dec(self, amount: float = 1.0, **labels: str) -> None:
+        self.inc(-amount, **labels)
+
+    def value(self, **labels: str) -> float:
+        if self._fn is not None and not labels:
+            return float(self._fn())
+        return self._series.get(tuple(sorted(labels.items())), 0.0)
+
+    def clear(self) -> None:
+        """Drop every labelled series (for gauges whose label VALUES
+        change over time — e.g. build_info's backend label once the
+        runtime attaches — so stale series don't linger)."""
+        self._series.clear()
+
+    def expose(self) -> Iterable[str]:
+        yield f"# HELP {self.name} {self.help}"
+        yield f"# TYPE {self.name} gauge"
+        if self._fn is not None:
+            yield f"{self.name} {_fmt_value(float(self._fn()))}"
+            return
+        if not self._series:
+            yield f"{self.name} 0"
+            return
+        for key, value in sorted(self._series.items()):
+            yield f"{self.name}{_fmt_labels(dict(key))} {_fmt_value(value)}"
+
+
+DEFAULT_BUCKETS = (
+    0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
+)
+
+
+class Histogram:
+    """Fixed-bucket histogram (seconds by convention, like Prometheus),
+    optionally labelled: `observe(value, stage="build")` keeps one
+    bucket series per label set, exposed with the labels merged into
+    each `_bucket`/`_sum`/`_count` sample. Bucket lookup is a `bisect`
+    over the sorted bounds — this sits on the per-update hot path once
+    the e2e lifecycle histograms are wired in."""
+
+    def __init__(
+        self, name: str, help: str, buckets: Sequence[float] = DEFAULT_BUCKETS
+    ) -> None:
+        self.name = name
+        self.help = help
+        self.buckets = tuple(sorted(buckets))
+        # labels key -> [bucket counts (+1 for +Inf), sum, total]
+        self._series: dict[tuple, list] = {}
+
+    def _series_for(self, labels: dict) -> list:
+        key = tuple(sorted(labels.items()))
+        series = self._series.get(key)
+        if series is None:
+            series = self._series[key] = [
+                [0] * (len(self.buckets) + 1),
+                0.0,
+                0,
+            ]
+        return series
+
+    def observe(self, value: float, **labels: str) -> None:
+        series = self._series_for(labels)
+        # first bucket whose bound >= value (le semantics); past the
+        # end = the +Inf bucket
+        series[0][bisect_left(self.buckets, value)] += 1
+        series[1] += value
+        series[2] += 1
+
+    @property
+    def count(self) -> int:
+        return sum(series[2] for series in self._series.values())
+
+    @property
+    def sum(self) -> float:
+        return sum(series[1] for series in self._series.values())
+
+    def series_count(self, **labels: str) -> int:
+        series = self._series.get(tuple(sorted(labels.items())))
+        return 0 if series is None else series[2]
+
+    def quantile(self, q: float, **labels: str) -> float:
+        """Estimated q-quantile for one label set (linear interpolation
+        within the landing bucket, like PromQL's histogram_quantile).
+
+        Degenerate label sets return the documented sentinel **0.0**:
+        a missing series, a series with zero observations, or a
+        histogram built with no finite buckets (where every observation
+        lands in +Inf and no bound can localize the quantile). Callers
+        that must distinguish "no data" from "fast" should guard on
+        `series_count(**labels)` first — rollups (e.g. FleetView) skip
+        empty series rather than averaging sentinel zeros in."""
+        series = self._series.get(tuple(sorted(labels.items())))
+        if series is None or series[2] == 0 or not self.buckets:
+            return 0.0
+        target = q * series[2]
+        cumulative = 0
+        for i, bound in enumerate(self.buckets):
+            prev = cumulative
+            cumulative += series[0][i]
+            if cumulative >= target:
+                lower = self.buckets[i - 1] if i > 0 else 0.0
+                in_bucket = series[0][i]
+                frac = (target - prev) / in_bucket if in_bucket else 0.0
+                return lower + (bound - lower) * frac
+        # every counted observation sits past the last finite bound
+        # (the +Inf bucket): report the last bound, the best the
+        # bucket resolution can say
+        return self.buckets[-1]
+
+    def expose(self) -> Iterable[str]:
+        yield f"# HELP {self.name} {self.help}"
+        yield f"# TYPE {self.name} histogram"
+        series = self._series or {(): [[0] * (len(self.buckets) + 1), 0.0, 0]}
+        for key in sorted(series):
+            counts, total_sum, total = series[key]
+            labels = dict(key)
+            cumulative = 0
+            for bound, count in zip(self.buckets, counts):
+                cumulative += count
+                yield (
+                    f"{self.name}_bucket"
+                    f"{_fmt_labels({**labels, 'le': _fmt_value(bound)})} {cumulative}"
+                )
+            cumulative += counts[-1]
+            yield (
+                f"{self.name}_bucket"
+                f"{_fmt_labels({**labels, 'le': '+Inf'})} {cumulative}"
+            )
+            yield f"{self.name}_sum{_fmt_labels(labels)} {_fmt_value(total_sum)}"
+            yield f"{self.name}_count{_fmt_labels(labels)} {total}"
+
+
+class MetricsRegistry:
+    """Holds metrics and renders the exposition document."""
+
+    def __init__(self) -> None:
+        self._metrics: dict[str, object] = {}
+
+    def counter(self, name: str, help: str = "") -> Counter:
+        metric = self._metrics.get(name)
+        if metric is None:
+            metric = Counter(name, help)
+            self._metrics[name] = metric
+        if not isinstance(metric, Counter):
+            raise TypeError(f"metric {name!r} already registered as {type(metric).__name__}")
+        return metric
+
+    def gauge(
+        self, name: str, help: str = "", fn: Optional[Callable[[], float]] = None
+    ) -> Gauge:
+        metric = self._metrics.get(name)
+        if metric is None:
+            metric = Gauge(name, help, fn)
+            self._metrics[name] = metric
+        if not isinstance(metric, Gauge):
+            raise TypeError(f"metric {name!r} already registered as {type(metric).__name__}")
+        if fn is not None:
+            metric._fn = fn
+        return metric
+
+    def histogram(
+        self, name: str, help: str = "", buckets: Sequence[float] = DEFAULT_BUCKETS
+    ) -> Histogram:
+        metric = self._metrics.get(name)
+        if metric is None:
+            metric = Histogram(name, help, buckets)
+            self._metrics[name] = metric
+        if not isinstance(metric, Histogram):
+            raise TypeError(f"metric {name!r} already registered as {type(metric).__name__}")
+        return metric
+
+    def register(self, metric) -> None:
+        """Adopt a pre-built metric object (Counter/Gauge/Histogram) into
+        this registry's exposition — how process-global collectors (the
+        wire telemetry singleton, the compile tracker) surface on one
+        server's /metrics without being constructed by it."""
+        existing = self._metrics.get(metric.name)
+        if existing is not None and existing is not metric:
+            raise ValueError(f"metric {metric.name!r} already registered")
+        self._metrics[metric.name] = metric
+
+    def expose(self) -> str:
+        lines: list[str] = []
+        for name in sorted(self._metrics):
+            lines.extend(self._metrics[name].expose())  # type: ignore[attr-defined]
+        return "\n".join(lines) + "\n"

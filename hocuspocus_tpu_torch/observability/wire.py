@@ -1,0 +1,489 @@
+"""Wire-path telemetry: the websocket edge of the observation boundary.
+
+The update traces light the merge path from the capture seam to
+broadcast; this module lights the other half of the request path — the
+socket edge. One
+process-global collector (same singleton pattern as `get_tracer` /
+`get_flight_recorder`) that the hot-path seams write into:
+
+- per-`MessageType` ingress/egress message + byte counters and
+  handle-latency histograms (`Connection.handle_message` →
+  `MessageReceiver`),
+- sync-step latency by step (step1/step2/update) and auth
+  (Auth-frame → hook chain complete) latency,
+- per-connection send-queue depth (summed live gauge), the high-water
+  mark, and backpressure-watermark crossings
+  (`CallbackWebSocketTransport`),
+- socket churn: sockets opened/closed and close-code counters
+  (`ClientConnection` / the websocket host),
+- mini_redis pub/sub fan-out counters (publishes, deliveries, injected
+  drops) so the cross-instance path is countable in tests and dev.
+
+Disabled by default: every instrumentation site costs one attribute
+read + truth test until the `Metrics` extension (or a test) calls
+`enable()`. The metric objects are the plain primitives from
+`metrics.py`; `Metrics` adopts them into its registry via
+`MetricsRegistry.register`, so they render on `/metrics` with the rest
+of the exposition. Errors feed the SLO engine's error-rate objective
+(`observability/slo.py`).
+"""
+
+from __future__ import annotations
+
+import weakref
+from typing import Iterable, Optional
+
+from ..protocol.message import MessageType
+from .metrics import Counter, Gauge, Histogram
+
+# var-uint sync submessage ids (protocol/sync.py) -> label values
+_SYNC_STEP_NAMES = {0: "step1", 1: "step2", 2: "update"}
+
+# queue depth at/above which a send() counts as a backpressure event
+# (per crossing, not per queued frame: the counter increments when a
+# connection's queue climbs past the watermark, and re-arms once it
+# drains below)
+DEFAULT_BACKPRESSURE_WATERMARK = 64
+
+
+def message_type_name(message_type: int) -> str:
+    try:
+        return MessageType(message_type).name
+    except ValueError:
+        return f"unknown_{int(message_type)}"
+
+
+class WireTelemetry:
+    """Socket-edge counters/gauges/histograms, shared process-wide."""
+
+    def __init__(self, backpressure_watermark: int = DEFAULT_BACKPRESSURE_WATERMARK) -> None:
+        self.enabled = False
+        self.backpressure_watermark = backpressure_watermark
+        self.messages_in = Counter(
+            "hocuspocus_wire_messages_in_total",
+            "Inbound websocket messages handled, by MessageType",
+        )
+        self.messages_out = Counter(
+            "hocuspocus_wire_messages_out_total",
+            "Outbound websocket messages sent, by MessageType",
+        )
+        self.bytes_in = Counter(
+            "hocuspocus_wire_bytes_in_total",
+            "Inbound websocket payload bytes, by MessageType",
+        )
+        self.bytes_out = Counter(
+            "hocuspocus_wire_bytes_out_total",
+            "Outbound websocket payload bytes, by MessageType",
+        )
+        self.handle_seconds = Histogram(
+            "hocuspocus_wire_handle_seconds",
+            "Inbound message handle latency (decode -> dispatch done), by MessageType",
+        )
+        self.sync_step_seconds = Histogram(
+            "hocuspocus_wire_sync_step_seconds",
+            "Sync submessage handle latency by step (step1/step2/update)",
+        )
+        self.auth_seconds = Histogram(
+            "hocuspocus_wire_auth_seconds",
+            "Auth frame arrival -> onConnect/onAuthenticate hook chain complete",
+        )
+        self.errors = Counter(
+            "hocuspocus_wire_errors_total",
+            "Message-handling failures that closed a document channel, by kind",
+        )
+        self.sockets_opened = Counter(
+            "hocuspocus_wire_sockets_opened_total",
+            "Client sockets (ClientConnection sessions) opened",
+        )
+        self.sockets_closed = Counter(
+            "hocuspocus_wire_sockets_closed_total",
+            "Client sockets closed, by websocket close code",
+        )
+        self.channel_closes = Counter(
+            "hocuspocus_wire_channel_closes_total",
+            "Per-document channel closes, by close code",
+        )
+        self.send_queue_depth = Gauge(
+            "hocuspocus_wire_send_queue_depth",
+            "Frames queued across live transports (summed)",
+            fn=self._total_queue_depth,
+        )
+        self.send_queue_peak = Gauge(
+            "hocuspocus_wire_send_queue_peak",
+            "Deepest single-transport send queue observed since start",
+        )
+        self.backpressure_events = Counter(
+            "hocuspocus_wire_backpressure_total",
+            "Send-queue watermark crossings (queue climbed past the watermark)",
+        )
+        self.fanout_coalesced = Histogram(
+            "hocuspocus_wire_fanout_coalesced_updates",
+            "Updates merged into one broadcast frame per document tick",
+            buckets=(1, 2, 4, 8, 16, 32, 64, 128),  # counts, not seconds
+        )
+        self.fanout_sends_elided = Counter(
+            "hocuspocus_wire_fanout_sends_elided_total",
+            "Per-connection sends avoided by the fan-out engine, by reason "
+            "(coalesce: burst merged into one frame; catchup: frame dropped "
+            "for a connection in catch-up tier)",
+        )
+        self.catchup_tier_transitions = Counter(
+            "hocuspocus_wire_catchup_tier_total",
+            "Slow-consumer catch-up tier transitions (enter/exit)",
+        )
+        self.sync_cache_events = Counter(
+            "hocuspocus_wire_sync_cache_total",
+            "Join-storm sync cache lookups by result (hit/miss/eviction)"
+            " and encode path (device/host)",
+        )
+        self.send_queue_overflows = Counter(
+            "hocuspocus_wire_send_queue_overflow_total",
+            "Transports closed because their send queue hit the bound",
+        )
+        self.pubsub_publishes = Counter(
+            "hocuspocus_wire_pubsub_publishes_total",
+            "mini_redis PUBLISH commands handled",
+        )
+        self.pubsub_deliveries = Counter(
+            "hocuspocus_wire_pubsub_deliveries_total",
+            "mini_redis messages fanned out to subscribers",
+        )
+        self.pubsub_dropped = Counter(
+            "hocuspocus_wire_pubsub_dropped_total",
+            "mini_redis publish deliveries dropped, by reason (injected "
+            "fault / slow-subscriber disconnect)",
+        )
+        # -- cross-instance replication lane (net/resp.py pipelined
+        # client + extensions/redis.py publish coalescing / inbound
+        # inbox) ------------------------------------------------------
+        self.redis_pipeline_depth = Gauge(
+            "hocuspocus_redis_pipeline_depth",
+            "Commands buffered or awaiting their ack across live "
+            "pipelined Redis clients (summed)",
+            fn=self._total_pipeline_depth,
+        )
+        self.redis_flush_batch = Histogram(
+            "hocuspocus_redis_flush_batch_commands",
+            "Commands shipped per pipelined flush (one write+drain)",
+            buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512),  # counts
+        )
+        self.redis_publish_flush_seconds = Histogram(
+            "hocuspocus_redis_publish_flush_seconds",
+            "Oldest-command wait from enqueue to its flush write",
+        )
+        self.redis_reply_errors = Counter(
+            "hocuspocus_redis_reply_errors_total",
+            "Error replies consumed by the pipelined reply reader",
+        )
+        self.redis_inbox_depth = Gauge(
+            "hocuspocus_redis_inbox_depth",
+            "Inbound replication frames queued across per-doc inboxes "
+            "(summed over live Redis extensions)",
+            fn=self._total_inbox_depth,
+        )
+        self.redis_inbox_drained = Histogram(
+            "hocuspocus_redis_inbox_drained_frames",
+            "Inbound frames consumed per doc per inbox drain",
+            buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256),  # counts
+        )
+        self.redis_inbox_overflows = Counter(
+            "hocuspocus_redis_inbox_overflow_total",
+            "Inbound frames dropped by a full per-doc inbox (each "
+            "triggers an anti-entropy SyncStep1 exchange)",
+        )
+        self.redis_frames_saved = Counter(
+            "hocuspocus_redis_frames_saved_total",
+            "Cross-instance publishes avoided by per-tick replication "
+            "coalescing, by direction (publish/apply)",
+        )
+        # live transports (weak: an abandoned transport must not leak
+        # through the gauge); per-transport watermark armed state rides
+        # in the map value
+        self._transports: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+        # live pipelined redis clients (expose `.pending`) and Redis
+        # extensions (expose `.inbox_depth()`), weakly held for the
+        # depth gauges — closed/collected instances fall out on their own
+        self._redis_pipelines: "weakref.WeakSet" = weakref.WeakSet()
+        self._redis_inbox_sources: "weakref.WeakSet" = weakref.WeakSet()
+        # egress header-parse cache (see record_egress_frame): identity
+        # of the last frame parsed + its type (strong ref on purpose —
+        # object identity is only trustworthy while the object lives)
+        self._egress_last_frame: Optional[bytes] = None
+        self._egress_last_type: int = -1
+
+    def enable(self) -> "WireTelemetry":
+        self.enabled = True
+        return self
+
+    def disable(self) -> None:
+        self.enabled = False
+
+    # -- ingress / egress ----------------------------------------------------
+
+    def record_ingress(self, message_type: int, nbytes: int, seconds: float) -> None:
+        name = message_type_name(message_type)
+        self.messages_in.inc(type=name)
+        self.bytes_in.inc(nbytes, type=name)
+        self.handle_seconds.observe(seconds, type=name)
+
+    def record_egress(self, message_type: int, nbytes: int) -> None:
+        name = message_type_name(message_type)
+        self.messages_out.inc(type=name)
+        self.bytes_out.inc(nbytes, type=name)
+
+    def record_egress_frame(self, data: bytes) -> None:
+        """Egress accounting from a raw frame. Broadcasts send ONE frame
+        object to N connections, so the header parse is cached by
+        object identity — a 10k-subscriber fan-out parses once, not
+        10k times."""
+        if data is self._egress_last_frame:
+            message_type = self._egress_last_type
+        else:
+            try:
+                from ..protocol.frames import parse_frame_header
+
+                _name, message_type, _offset = parse_frame_header(data)
+            except Exception:
+                return
+            self._egress_last_frame = data
+            self._egress_last_type = message_type
+        self.record_egress(message_type, len(data))
+
+    # -- broadcast fan-out engine (server/fanout.py) -------------------------
+
+    def record_fanout_frame(self, coalesced: int, sends_saved: int) -> None:
+        """One broadcast tick shipped `coalesced` merged updates as one
+        frame, saving `sends_saved` per-connection sends vs per-update
+        fan-out."""
+        self.fanout_coalesced.observe(float(coalesced))
+        if sends_saved > 0:
+            self.fanout_sends_elided.inc(sends_saved, reason="coalesce")
+
+    def record_catchup_elided(self, count: int = 1) -> None:
+        self.fanout_sends_elided.inc(count, reason="catchup")
+
+    def record_tier(self, transition: str) -> None:
+        self.catchup_tier_transitions.inc(transition=transition)
+
+    def record_sync_cache(
+        self, result: str, count: int = 1, path: str = "host"
+    ) -> None:
+        """path labels the serve's delete-set read route: "device" when
+        the packed on-device catch-up encode is active for the doc,
+        "host" for the full-row gather (pack disabled or degraded)."""
+        self.sync_cache_events.inc(count, result=result, path=path)
+
+    def _sync_cache_total(self, result: str) -> float:
+        """Sum one result across path labels (device/host)."""
+        return sum(
+            value
+            for key, value in self.sync_cache_events._values.items()
+            if dict(key).get("result") == result
+        )
+
+    def record_queue_overflow(self) -> None:
+        self.send_queue_overflows.inc()
+
+    def record_sync_step(self, sync_type: int, seconds: float) -> None:
+        step = _SYNC_STEP_NAMES.get(int(sync_type), f"unknown_{int(sync_type)}")
+        self.sync_step_seconds.observe(seconds, step=step)
+
+    def record_auth(self, seconds: float, ok: bool) -> None:
+        self.auth_seconds.observe(seconds, outcome="ok" if ok else "denied")
+
+    def record_error(self, kind: str) -> None:
+        self.errors.inc(kind=kind)
+
+    # -- connection churn ----------------------------------------------------
+
+    def record_socket_opened(self) -> None:
+        self.sockets_opened.inc()
+
+    def record_socket_closed(self, code: int) -> None:
+        self.sockets_closed.inc(code=str(int(code)))
+
+    def record_channel_close(self, code: Optional[int]) -> None:
+        self.channel_closes.inc(code=str(int(code)) if code is not None else "none")
+
+    # -- send queues ---------------------------------------------------------
+
+    def track_transport(self, transport) -> None:
+        """Register a live transport whose `queue.qsize()` feeds the
+        depth gauge. Weakly held — GC'd transports fall out on their
+        own; `untrack_transport` drops them eagerly at close."""
+        self._transports[transport] = {"armed": True}
+
+    def untrack_transport(self, transport) -> None:
+        self._transports.pop(transport, None)
+
+    def note_send_queued(self, transport) -> None:
+        """Called after a frame is queued: updates the peak gauge and
+        counts watermark crossings (once per excursion)."""
+        try:
+            depth = transport.queue.qsize()
+        except Exception:
+            return
+        if depth > self.send_queue_peak.value():
+            self.send_queue_peak.set(depth)
+        entry = self._transports.get(transport)
+        if entry is None:
+            return
+        if depth >= self.backpressure_watermark:
+            if entry["armed"]:
+                entry["armed"] = False
+                self.backpressure_events.inc()
+        elif depth <= self.backpressure_watermark // 2:
+            entry["armed"] = True
+
+    def _total_queue_depth(self) -> int:
+        total = 0
+        for transport in list(self._transports):
+            try:
+                total += transport.queue.qsize()
+            except Exception:
+                continue
+        return total
+
+    # -- overload-controller signal reads (server/overload.py) ---------------
+
+    def queue_depth_total(self) -> int:
+        """Summed live send-queue depth (the overload ladder's
+        send_queue_depth signal; same read as the gauge)."""
+        return self._total_queue_depth()
+
+    def inbox_depth_total(self) -> int:
+        """Summed inbound replication inbox depth."""
+        return self._total_inbox_depth()
+
+    def backpressure_total(self) -> float:
+        """Cumulative watermark crossings (the ladder differentiates
+        this into a rate)."""
+        return float(sum(self.backpressure_events._values.values()))
+
+    # -- pub/sub -------------------------------------------------------------
+
+    def record_publish(self, delivered: int, dropped: bool = False) -> None:
+        if dropped:
+            self.pubsub_dropped.inc()
+            return
+        self.pubsub_publishes.inc()
+        if delivered:
+            self.pubsub_deliveries.inc(delivered)
+
+    # -- cross-instance replication lane -------------------------------------
+
+    def track_redis_pipeline(self, client) -> None:
+        """Register a pipelined client whose `.pending` feeds the depth
+        gauge (weakly held)."""
+        self._redis_pipelines.add(client)
+
+    def track_redis_inbox(self, source) -> None:
+        """Register an inbox owner whose `.inbox_depth()` feeds the
+        inbound depth gauge (weakly held)."""
+        self._redis_inbox_sources.add(source)
+
+    def record_redis_flush(self, batch_size: int, oldest_wait_seconds: float) -> None:
+        self.redis_flush_batch.observe(float(batch_size))
+        self.redis_publish_flush_seconds.observe(oldest_wait_seconds)
+
+    def record_redis_reply_error(self) -> None:
+        self.redis_reply_errors.inc()
+
+    def record_redis_inbox_drain(self, frames: int) -> None:
+        self.redis_inbox_drained.observe(float(frames))
+
+    def record_redis_inbox_overflow(self, count: int = 1) -> None:
+        self.redis_inbox_overflows.inc(count)
+
+    def record_redis_frames_saved(self, count: int, direction: str = "publish") -> None:
+        if count > 0:
+            self.redis_frames_saved.inc(count, direction=direction)
+
+    def _total_pipeline_depth(self) -> int:
+        total = 0
+        for client in list(self._redis_pipelines):
+            try:
+                total += client.pending
+            except Exception:
+                continue
+        return total
+
+    def _total_inbox_depth(self) -> int:
+        total = 0
+        for source in list(self._redis_inbox_sources):
+            try:
+                total += source.inbox_depth()
+            except Exception:
+                continue
+        return total
+
+    # -- registry binding ----------------------------------------------------
+
+    def metrics(self) -> Iterable:
+        """Every metric object, for MetricsRegistry.register adoption."""
+        return (
+            self.messages_in,
+            self.messages_out,
+            self.bytes_in,
+            self.bytes_out,
+            self.handle_seconds,
+            self.sync_step_seconds,
+            self.auth_seconds,
+            self.errors,
+            self.sockets_opened,
+            self.sockets_closed,
+            self.channel_closes,
+            self.send_queue_depth,
+            self.send_queue_peak,
+            self.backpressure_events,
+            self.fanout_coalesced,
+            self.fanout_sends_elided,
+            self.catchup_tier_transitions,
+            self.sync_cache_events,
+            self.send_queue_overflows,
+            self.pubsub_publishes,
+            self.pubsub_deliveries,
+            self.pubsub_dropped,
+            self.redis_pipeline_depth,
+            self.redis_flush_batch,
+            self.redis_publish_flush_seconds,
+            self.redis_reply_errors,
+            self.redis_inbox_depth,
+            self.redis_inbox_drained,
+            self.redis_inbox_overflows,
+            self.redis_frames_saved,
+        )
+
+    # -- reading (bench / tests) ---------------------------------------------
+
+    def totals(self) -> dict:
+        """Aggregate snapshot for the bench's wire_load pass."""
+        return {
+            "messages_in": sum(self.messages_in._values.values()),
+            "messages_out": sum(self.messages_out._values.values()),
+            "bytes_in": sum(self.bytes_in._values.values()),
+            "bytes_out": sum(self.bytes_out._values.values()),
+            "send_queue_peak": self.send_queue_peak.value(),
+            "backpressure_events": sum(self.backpressure_events._values.values()),
+            "errors": sum(self.errors._values.values()),
+            "sends_elided_coalesce": self.fanout_sends_elided.value(reason="coalesce"),
+            "sends_elided_catchup": self.fanout_sends_elided.value(reason="catchup"),
+            "tier_entries": self.catchup_tier_transitions.value(transition="enter"),
+            "tier_exits": self.catchup_tier_transitions.value(transition="exit"),
+            "sync_cache_hits": self._sync_cache_total("hit"),
+            "sync_cache_misses": self._sync_cache_total("miss"),
+            "queue_overflows": sum(self.send_queue_overflows._values.values()),
+            "pubsub_publishes": sum(self.pubsub_publishes._values.values()),
+            "pubsub_deliveries": sum(self.pubsub_deliveries._values.values()),
+            "pubsub_dropped": sum(self.pubsub_dropped._values.values()),
+            "redis_reply_errors": sum(self.redis_reply_errors._values.values()),
+            "redis_inbox_overflows": sum(self.redis_inbox_overflows._values.values()),
+            "redis_frames_saved": sum(self.redis_frames_saved._values.values()),
+        }
+
+
+_default = WireTelemetry()
+
+
+def get_wire_telemetry() -> WireTelemetry:
+    return _default

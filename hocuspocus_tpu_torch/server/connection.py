@@ -1,0 +1,232 @@
+"""Per-(socket, document) channel (reference `Connection.ts` equivalent)."""
+
+from __future__ import annotations
+
+import asyncio
+import time
+from typing import Any, Callable, Optional
+
+from ..observability.tracing import get_tracer
+from ..observability.wire import get_wire_telemetry
+from ..protocol.close_events import (
+    CloseError,
+    CloseEvent,
+    RESET_CONNECTION,
+    TRY_AGAIN_LATER,
+)
+from ..protocol.frames import parse_frame_header
+from ..protocol.message import IncomingMessage, OutgoingMessage
+from . import logger
+from .document import Document
+from .fanout import CatchupTier
+from .message_receiver import MessageReceiver
+from .overload import RED, get_overload_controller, resolve_tenant
+
+
+async def _default_async_callback(*args: Any) -> None:
+    return None
+
+
+class Connection:
+    """One document channel on a (possibly multiplexed) websocket."""
+
+    def __init__(
+        self,
+        transport,
+        request,
+        document: Document,
+        socket_id: str,
+        context: Any,
+        read_only: bool = False,
+    ) -> None:
+        self.transport = transport
+        self.request = request
+        self.document = document
+        self.socket_id = socket_id
+        self.context = context
+        self.read_only = read_only
+        self.callbacks: dict[str, Any] = {
+            "on_close": [],
+            "before_handle_message": _default_async_callback,
+            "before_sync": _default_async_callback,
+            "stateless": _default_async_callback,
+        }
+        # slow-consumer catch-up tier (server/fanout.py): the broadcast
+        # tick elides frames for this channel while its transport queue
+        # is past the backpressure watermark, then heals it with one
+        # SV-diff frame at drain time
+        self.catchup = CatchupTier(self)
+        # admission identity (server/overload.py): resolved once — the
+        # auth hook chain has already merged its context additions by
+        # the time a Connection exists. Edge-relayed sessions (context
+        # stamped by the cell ingress) already paid ingress admission
+        # at the door — charging per frame again would double-bill
+        # every tenant once per tier.
+        self.tenant = resolve_tenant(request=request, context=context)
+        self.relayed_from_edge = isinstance(context, dict) and bool(
+            context.get("edge")
+        )
+        self._quota_heal_handle: Optional[object] = None
+        self.document.add_connection(self)
+        self.send_current_awareness()
+
+    def on_close(self, callback: Callable) -> "Connection":
+        self.callbacks["on_close"].append(callback)
+        return self
+
+    def on_stateless_callback(self, callback: Callable) -> "Connection":
+        self.callbacks["stateless"] = callback
+        return self
+
+    def before_handle_message(self, callback: Callable) -> "Connection":
+        self.callbacks["before_handle_message"] = callback
+        return self
+
+    def before_sync(self, callback: Callable) -> "Connection":
+        self.callbacks["before_sync"] = callback
+        return self
+
+    def send(self, message: bytes) -> None:
+        if self.transport.is_closed:
+            self.close()
+            return
+        try:
+            self.transport.send(message)
+        except Exception:
+            self.close()
+            return
+        wire = get_wire_telemetry()
+        if wire.enabled:
+            # identity-cached header parse: a broadcast fans the SAME
+            # frame object to every connection, paying one parse total
+            wire.record_egress_frame(message)
+
+    def send_stateless(self, payload: str) -> None:
+        message = OutgoingMessage(self.document.name).write_stateless(payload)
+        self.send(message.to_bytes())
+
+    def close(self, event: Optional[CloseEvent] = None) -> None:
+        """Graceful close of this document channel (socket stays open —
+        other documents may be multiplexed on it)."""
+        if self.document.has_connection(self):
+            wire = get_wire_telemetry()
+            if wire.enabled:
+                wire.record_channel_close(
+                    event.code if event is not None else None
+                )
+            # a catch-up tier mid-excursion must not fire its drain
+            # exit into a closing channel
+            self.catchup.deactivate()
+            if self._quota_heal_handle is not None:
+                self._quota_heal_handle.cancel()
+                self._quota_heal_handle = None
+            self.document.remove_connection(self)
+            for callback in self.callbacks["on_close"]:
+                callback(self.document, event)
+            close_message = OutgoingMessage(self.document.name).write_close_message(
+                event.reason if event is not None else "Server closed the connection"
+            )
+            self.send(close_message.to_bytes())
+
+    def _send_quota_heal(self) -> None:
+        """Deferred quota-drop heal: one SyncStep1 after the bucket's
+        refill window, so the client's Step2 reply can actually pass."""
+        self._quota_heal_handle = None
+        if self.transport.is_closed or not self.document.has_connection(self):
+            return
+        try:
+            heal = (
+                OutgoingMessage(self.document.name)
+                .create_sync_message()
+                .write_first_sync_step_for(self.document)
+            )
+            self.send(heal.to_bytes())
+        except Exception:
+            pass
+
+    def send_current_awareness(self) -> None:
+        if not self.document.has_awareness_states():
+            return
+        message = OutgoingMessage(self.document.name).create_awareness_update_message(
+            self.document.awareness
+        )
+        self.send(message.to_bytes())
+
+    async def handle_message(self, data: bytes) -> None:
+        overload = get_overload_controller()
+        if (
+            overload.enabled
+            and not self.relayed_from_edge
+            and not overload.admit_message(self.tenant)
+        ):
+            # ingress over quota: counted always; enforcement is
+            # rung-gated — at RED the channel closes 1013 (Try Again
+            # Later) so a runaway client stops feeding the event loop
+            if overload.rung >= RED:
+                self.close(TRY_AGAIN_LATER)
+                return
+            # below RED the frame is dropped, but never SILENTLY: a
+            # dropped Update would otherwise diverge forever (the
+            # client believes itself synced and never retransmits).
+            # Schedule ONE SyncStep1 for after the refill window — sent
+            # now, the client's Step2 answer would land in the same
+            # empty bucket and die with everything else; sent after
+            # refill, the Step2 re-offers everything the drops lost
+            # (state-based sync makes the re-delivery lossless, and a
+            # reply dropped anyway just re-arms the heal)
+            if self._quota_heal_handle is None:
+                try:
+                    loop = asyncio.get_running_loop()
+                except RuntimeError:
+                    loop = None
+                if loop is not None:
+                    self._quota_heal_handle = loop.call_later(
+                        1.0, self._send_quota_heal
+                    )
+            return
+        # native header parse: one C++ call replaces the two Python
+        # varint/string reads (frames.parse_frame_header falls back to
+        # the Python decoder without the toolchain); the pre-read type
+        # is handed to MessageReceiver so it is never decoded twice
+        document_name, message_type, payload_off = parse_frame_header(data)
+        if document_name != self.document.name:
+            return
+        message = IncomingMessage(data)
+        message.decoder.pos = payload_off
+        message.write_var_string(document_name)
+        wire = get_wire_telemetry()
+        tracer = get_tracer()
+        mark = None
+        if tracer.enabled:
+            # ingress mark: a lifecycle trace stamped during this
+            # dispatch (capture seam, same call stack) opens at the
+            # frame receive — the update.ingress stage covers ws
+            # receive -> decode -> apply -> capture (cleared in the
+            # finally so a later non-websocket stamp can't adopt it)
+            mark = tracer.ingress_mark = time.perf_counter()
+        try:
+            await self.callbacks["before_handle_message"](self, data)
+            await MessageReceiver(message).apply(
+                self.document, self, message_type=message_type
+            )
+        except CloseError as error:
+            if wire.enabled:
+                wire.record_error("close_error")
+            logger.log_error(
+                f"closing connection {self.socket_id} (while handling "
+                f"{document_name}): {error.event.reason}"
+            )
+            self.close(error.event)
+        except Exception as error:
+            code = getattr(error, "code", RESET_CONNECTION.code)
+            reason = getattr(error, "reason", RESET_CONNECTION.reason)
+            if wire.enabled:
+                wire.record_error("exception")
+            logger.log_error(
+                f"closing connection {self.socket_id} (while handling "
+                f"{document_name}) because of exception: {error!r}"
+            )
+            self.close(CloseEvent(code, reason))
+        finally:
+            if mark is not None:
+                tracer.ingress_mark = None

@@ -1,0 +1,256 @@
+"""Server-side Document: CRDT doc + awareness + connection registry.
+
+Capability parity with reference `packages/server/src/Document.ts`:
+per-socket connection registry with awareness client tracking, update
+broadcast fan-out, stateless broadcast, store mutex.
+"""
+
+from __future__ import annotations
+
+import asyncio
+from typing import Any, Callable, Iterable, Optional
+
+from ..crdt import Doc, apply_update, encode_state_as_update
+from ..protocol.awareness import (
+    Awareness,
+    apply_awareness_update,
+    remove_awareness_states,
+)
+from ..protocol.frames import build_update_frame
+from ..protocol.message import OutgoingMessage
+from .fanout import DocumentFanout
+from .types import REDIS_ORIGIN, REPLICA_ORIGIN
+
+
+class Document(Doc):
+    def __init__(self, name: str, ydoc_options: Optional[dict] = None) -> None:
+        opts = dict(ydoc_options or {})
+        super().__init__(gc=opts.get("gc", True), gc_filter=opts.get("gc_filter", lambda item: True))
+        self.name = name
+        self.awareness = Awareness(self)
+        self.awareness.set_local_state(None)
+        self.is_loading = True
+        self.is_destroyed = False
+        self.save_mutex = asyncio.Lock()
+        # transport (socket object) -> {"clients": set, "connection": Connection}
+        self.connections: dict[Any, dict] = {}
+        self.direct_connections_count = 0
+        self.callbacks: dict[str, Callable] = {
+            "on_update": lambda document, connection, update: None,
+            "before_broadcast_stateless": lambda document, stateless: None,
+        }
+        # TPU merge-plane serving seams (tpu/merge_plane.TpuMergeExtension):
+        # sync_source serves SyncStep2 payloads from device state;
+        # broadcast_source claims updates for batched device broadcast
+        self.sync_source = None
+        self.broadcast_source = None
+        # broadcast fan-out engine (server/fanout.py): per-tick frame
+        # coalescing, one audience snapshot per tick, catch-up tiering
+        # for slow consumers — updates AND awareness share the tick
+        self.fanout = DocumentFanout(self)
+        # durability capture seam (storage/extension.py): when attached,
+        # every update is appended to the write-ahead log BEFORE any
+        # broadcast, and the fan-out tick gates on the group-commit
+        # future the sink returns — no client sees an update before its
+        # commit COMPLETES. A commit that completes with a disk error
+        # still releases the gate (availability over durability: the
+        # error is counted, /healthz degrades, and the store pipeline
+        # remains the doc's durability floor). wal_checkpoint folds
+        # full-state snapshots (eviction, tpu/residency.py) into the
+        # log.
+        self.wal_sink = None
+        self.wal_checkpoint = None
+        self._wal_gate = None
+        self.awareness.on("update", self._handle_awareness_update)
+        self.on("update", self._handle_update)
+
+    # -- registry ----------------------------------------------------------
+
+    def add_connection(self, connection) -> "Document":
+        self.connections[connection.transport] = {"clients": set(), "connection": connection}
+        return self
+
+    def has_connection(self, connection) -> bool:
+        return connection.transport in self.connections
+
+    def remove_connection(self, connection) -> "Document":
+        remove_awareness_states(
+            self.awareness, list(self.get_clients(connection.transport)), None
+        )
+        self.connections.pop(connection.transport, None)
+        return self
+
+    def add_direct_connection(self) -> "Document":
+        self.direct_connections_count += 1
+        return self
+
+    def remove_direct_connection(self) -> "Document":
+        if self.direct_connections_count > 0:
+            self.direct_connections_count -= 1
+        return self
+
+    def get_connections_count(self) -> int:
+        return len(self.connections) + self.direct_connections_count
+
+    def get_connections(self) -> list:
+        return [entry["connection"] for entry in self.connections.values()]
+
+    def get_clients(self, transport) -> set:
+        entry = self.connections.get(transport)
+        return entry["clients"] if entry else set()
+
+    # -- content -----------------------------------------------------------
+
+    def is_empty(self, field_name: str) -> bool:
+        ytype = self.get(field_name)
+        return ytype._start is None and not ytype._map
+
+    def merge(self, documents) -> "Document":
+        for document in documents if isinstance(documents, (list, tuple)) else [documents]:
+            apply_update(self, encode_state_as_update(document))
+        return self
+
+    # -- callbacks ---------------------------------------------------------
+
+    def on_update(self, callback: Callable) -> "Document":
+        self.callbacks["on_update"] = callback
+        return self
+
+    def before_broadcast_stateless(self, callback: Callable) -> "Document":
+        self.callbacks["before_broadcast_stateless"] = callback
+        return self
+
+    # -- awareness ---------------------------------------------------------
+
+    def has_awareness_states(self) -> bool:
+        return len(self.awareness.get_states()) > 0
+
+    def apply_awareness_update(self, connection, update: bytes) -> "Document":
+        apply_awareness_update(self.awareness, update, connection.transport)
+        return self
+
+    def _handle_awareness_update(self, changes: dict, origin: Any) -> None:
+        changed_clients = changes["added"] + changes["updated"] + changes["removed"]
+        if origin is not None and origin in self.connections:
+            entry = self.connections[origin]
+            for client_id in changes["added"]:
+                entry["clients"].add(client_id)
+            for client_id in changes["removed"]:
+                entry["clients"].discard(client_id)
+        # coalesce bursts within one event-loop iteration: awareness is
+        # per-client LWW state, so N updates in a tick collapse into ONE
+        # frame carrying each changed client's CURRENT state — same
+        # latency (call_soon, no timer), 1/N the fan-out encodes+sends
+        # the reference pays (`packages/server/src/Document.ts:199-226`
+        # re-encodes and fans out per update)
+        self.fanout.queue_awareness(changed_clients)
+
+    # -- updates -----------------------------------------------------------
+
+    def _handle_update(self, update: bytes, origin: Any, doc, transaction) -> None:
+        self.callbacks["on_update"](self, origin, update)
+        sink = self.wal_sink
+        gate = None
+        if sink is not None:
+            try:
+                gate = sink(update, origin)
+            except Exception:
+                from . import logger as _logger_mod
+
+                _logger_mod.log_error(
+                    f"WAL append failed for {self.name!r}; broadcasting anyway"
+                )
+            # plane windows broadcast later (queue_broadcast) — they
+            # gate on the newest append's commit future
+            self._wal_gate = gate
+        source = self.broadcast_source
+        if source is not None:
+            try:
+                if source.try_capture(self, update, origin):
+                    # plane-served doc: one merged broadcast per device
+                    # flush replaces the per-update fan-out below
+                    return
+            except Exception:
+                from . import logger as _logger_mod
+
+                _logger_mod.log_error(
+                    f"plane capture failed for {self.name!r}; broadcasting via CPU"
+                )
+        # broadcast fan-out (reference Document.ts:228-240 fans out per
+        # update; here bursts within one event-loop iteration coalesce
+        # into ONE merged frame — same latency via call_soon, 1/N the
+        # frame builds + websocket sends + receiver applies). Updates
+        # applied FROM the redis bus or the hot-doc replica stream are
+        # flagged non-replicable so the tick's replication seams can't
+        # echo them back across instances (or between owner/followers).
+        self.fanout.queue_update(
+            update,
+            replicate=origin not in (REDIS_ORIGIN, REPLICA_ORIGIN),
+            gate=gate,
+        )
+
+    async def wait_wal_durable(self, max_rounds: int = 16) -> None:
+        """Wait until every update currently applied to this doc has a
+        completed WAL commit — the sync-serving seam's durability gate:
+        a joiner's SyncStep2 must not show state the log could still
+        lose (the broadcast tick has the same gate). Re-checks after
+        each wait because new updates open a new gate; bounded so
+        relentless write pressure degrades to best-effort instead of
+        parking the join forever."""
+        for _ in range(max_rounds):
+            gate = self._wal_gate
+            if gate is None:
+                return
+            if gate.done():
+                self._wal_gate = None
+                return
+            try:
+                await gate
+            except Exception:
+                return  # commit errors are counted elsewhere; serve
+
+    def queue_broadcast(self, update: bytes, on_complete=None) -> None:
+        """Enqueue a ready update payload onto the current broadcast
+        tick (the plane's window broadcasts ride this). `on_complete`
+        is invoked with the last-socket-enqueue timestamp once the
+        tick's fan-out finished — where the lifecycle trace's fan-out
+        stage closes. Plane windows carry local AND remote-origin ops,
+        so they are never replicated from here — the plane publishes a
+        remote-op-stripped `cross_update` via `on_plane_broadcast`."""
+        gate = self._wal_gate
+        if gate is not None and gate.done():
+            self._wal_gate = gate = None
+        self.fanout.queue_update(update, on_complete, replicate=False, gate=gate)
+
+    def broadcast_update_frame(self, update: bytes) -> None:
+        """Immediate (tickless) fan-out of one update — the degrade
+        paths' full-state broadcasts. Shares one frame across the
+        audience and still honors catch-up tiering."""
+        data = build_update_frame(self.name, update)
+        elided = self.fanout.deliver(self.get_connections(), data)
+        if elided:
+            from ..observability.wire import get_wire_telemetry
+
+            wire = get_wire_telemetry()
+            if wire.enabled:
+                wire.record_catchup_elided(elided)
+
+    def broadcast_stateless(self, payload: str, filter: Optional[Callable] = None) -> None:
+        self.callbacks["before_broadcast_stateless"](self, payload)
+        connections = self.get_connections()
+        if filter is not None:
+            connections = [c for c in connections if filter(c)]
+        if not connections:
+            return
+        # ONE frame, shared immutably by the whole audience (the
+        # per-connection send_stateless re-encoded the same payload
+        # once per socket). Stateless frames are app-level messages
+        # with no CRDT recovery path, so they bypass catch-up tiering.
+        data = OutgoingMessage(self.name).write_stateless(payload).to_bytes()
+        self.fanout.deliver(connections, data, tierable=False)
+
+    def destroy(self) -> None:
+        self.fanout.close()
+        self.awareness.destroy()
+        super().destroy()
+        self.is_destroyed = True

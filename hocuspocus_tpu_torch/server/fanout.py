@@ -1,0 +1,551 @@
+"""Broadcast fan-out engine: per-tick frame coalescing + slow-consumer
+catch-up tiering.
+
+The wire side of a merged update used to be O(updates x connections):
+every update fanned out as its own frame build plus a per-connection
+Python `send()` loop (reference `packages/server/src/Document.ts:228-240`
+does exactly that). This module makes it O(ticks x audiences):
+
+- **Tick model.** Each document owns a `DocumentFanout`. Updates and
+  awareness changes queue into the CURRENT tick; the tick flushes via
+  `loop.call_soon` (same latency as the old per-update path — no timer,
+  just the end of the current loop iteration; with no running loop the
+  flush is immediate, for direct/test use). One flush merges every
+  captured update into ONE Y-update (`protocol.sync.coalesce_updates`),
+  builds ONE wire frame, snapshots the audience ONCE, and enqueues the
+  same immutable bytes object to every connection — update pass and
+  awareness pass share the snapshot.
+
+- **Catch-up tiering.** A connection whose transport send queue crosses
+  the backpressure watermark (`WireTelemetry.backpressure_watermark`,
+  the wire telemetry signal) is switched from per-frame streaming to catch-up
+  mode: subsequent update/awareness frames are elided for that
+  connection (counted), and when the transport reports its queue
+  drained the tier exits — streaming resumes at once and ONE catch-up
+  frame (an empty-baseline state diff: see `CatchupTier` for why any
+  doc-derived entry snapshot would be unsafe) is computed
+  asynchronously, served from the plane via the batched
+  `document.sync_source` path — where the join-storm cache makes it
+  one encode per epoch — with the CPU document as fallback, plus one
+  full awareness frame. A slow socket therefore costs O(1) queued
+  frames per drain cycle instead of O(updates), and can never stall
+  the tick: the tick never awaits any transport.
+
+- **Replication seam.** The tick is also where updates cross the
+  INSTANCE boundary: when the Redis extension registers
+  `replicate_updates`/`replicate_awareness`, the flush hands its
+  local-origin updates (and, when the whole tick was local, the
+  already-built wire frame plus the tick's awareness frame) to the
+  per-tick publish lane (`extensions/redis.py`) — one coalesce and one
+  encode serve both the local audience and every peer instance.
+  Remote-origin updates are flagged `replicate=False` at enqueue and
+  never re-cross the boundary.
+
+- **Trace closure.** Plane broadcasts pass an `on_complete` callback
+  (`Document.queue_broadcast`); the tick invokes it with the
+  last-socket-enqueue timestamp, which is where the update lifecycle
+  trace's fan-out stage closes — the span-sum invariant (stages sum
+  exactly to the e2e latency) holds with the tick in the path.
+
+Delivery-order guarantee: frames for one connection are enqueued in
+document order on the event loop thread and the transport writer drains
+in order, so coalescing never reorders a client's view. Catch-up exits
+are CRDT-safe by construction: the diff-since-entry-SV is a superset of
+every elided update, and re-delivery is idempotent.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import time
+from typing import Any, Callable, Iterable, Optional
+
+from ..crdt import encode_state_as_update
+from ..observability.costs import get_cost_ledger
+from ..observability.wire import get_wire_telemetry
+from ..protocol.frames import build_update_frame, build_update_frames_batch
+from ..protocol.message import OutgoingMessage
+from ..protocol.sync import coalesce_updates
+from .overload import get_overload_controller
+
+
+class CatchupTier:
+    """Per-(socket, document) slow-consumer state machine.
+
+    States: STREAMING (default; every broadcast frame is enqueued) and
+    CATCH_UP (broadcast update/awareness frames are elided). Entry:
+    transport queue depth at/above the watermark right after a frame
+    enqueue. Exit: the transport's drain notification — streaming
+    resumes immediately and ONE catch-up frame is computed
+    asynchronously and enqueued when ready. Only queue-backed
+    transports that expose `add_drain_listener` participate; anything
+    else streams forever (never elided).
+
+    Why the catch-up frame carries FULL state (an empty-baseline
+    SV-diff) rather than a diff from an entry-time snapshot: updates
+    are applied to the CPU document the moment they arrive, but their
+    broadcast frames can trail — plane-captured updates fan out on the
+    flush/broadcast timers, ticks defer to call_soon — so ANY state
+    vector read off the document can include updates whose frames were
+    never enqueued to this connection, and a diff from it would omit
+    them forever. The empty baseline is unconditionally a lower bound
+    of the client's state, re-delivery is idempotent, and the
+    join-storm sync cache (tpu/serving.py) makes the encode O(1) per
+    (doc, epoch) — the cold payload is the cache's hottest entry.
+    Ordering is safe too: frames streamed between drain and the async
+    encode resolving may reference structs the client hasn't seen, and
+    the CRDT's pending-structs machinery holds them until the catch-up
+    frame lands.
+    """
+
+    __slots__ = ("connection", "active", "_exit_task", "_retry_handle")
+
+    def __init__(self, connection) -> None:
+        self.connection = connection
+        self.active = False
+        self._exit_task = None
+        self._retry_handle = None
+
+    def maybe_enter(self) -> bool:
+        """Called right AFTER a frame was enqueued to this connection —
+        depth at/above the watermark flips the channel to catch-up."""
+        if self.active:
+            return False
+        transport = self.connection.transport
+        add_listener = getattr(transport, "add_drain_listener", None)
+        queue = getattr(transport, "queue", None)
+        if add_listener is None or queue is None:
+            return False
+        try:
+            depth = queue.qsize()
+        except Exception:
+            return False
+        wire = get_wire_telemetry()
+        if depth < wire.backpressure_watermark:
+            return False
+        self.active = True
+        add_listener(self._on_drain)
+        if wire.enabled:
+            wire.record_tier("enter")
+        return True
+
+    def deactivate(self) -> None:
+        """Forget tier state (connection/channel closing). A drain
+        listener still registered fires into the inactive check below
+        and no-ops; an in-flight exit task sees the dead channel and
+        drops its payload."""
+        self.active = False
+        if self._retry_handle is not None:
+            self._retry_handle.cancel()
+            self._retry_handle = None
+
+    def _retry_drain(self) -> None:
+        self._retry_handle = None
+        self._on_drain()
+
+    def _on_drain(self) -> None:
+        if not self.active:
+            return
+        overload = get_overload_controller()
+        if overload.enabled and overload.defer_catchup():
+            # BROWNOUT-2: serving the full-state catch-up frame is
+            # exactly the expensive encode the ladder exists to shed —
+            # stay in the tier (frames keep eliding, queue stays O(1))
+            # and re-check once pressure may have eased
+            try:
+                loop = asyncio.get_running_loop()
+            except RuntimeError:
+                pass  # sync context: proceed with the exit below
+            else:
+                overload.shed("catchup_deferred")
+                if self._retry_handle is None:
+                    self._retry_handle = loop.call_later(
+                        overload.catchup_retry_s, self._retry_drain
+                    )
+                return
+        # resume streaming NOW: frames from here on are enqueued in
+        # order, and anything they might depend on arrives in the
+        # catch-up frame (pending-structs buffering client-side)
+        self.active = False
+        wire = get_wire_telemetry()
+        if wire.enabled:
+            wire.record_tier("exit")
+        connection = self.connection
+        document = connection.document
+        if (
+            connection.transport.is_closed
+            or document.is_destroyed
+            or not document.has_connection(connection)
+        ):
+            return
+        try:
+            asyncio.get_running_loop()
+        except RuntimeError:
+            self._send_catchup(self._encode_sync())
+            return
+        # strong ref: a GC'd task would silently drop the catch-up
+        self._exit_task = asyncio.ensure_future(self._exit_async())
+
+    async def _exit_async(self) -> None:
+        document = self.connection.document
+        update = None
+        source = getattr(document, "sync_source", None)
+        batched = getattr(source, "encode_state_as_update_async", None)
+        if batched is not None:
+            # plane-served catch-up OFF the event loop: the batched
+            # serve runs its device flush in the executor and shares
+            # one state-vector-diff triage with any concurrent joiners
+            try:
+                update = await batched(None)
+            except Exception:
+                update = None
+        if update is None:
+            update = self._encode_sync()
+        self._send_catchup(update)
+        self._exit_task = None
+
+    def _encode_sync(self):
+        """Host-side full-state encode (CPU document): the no-loop and
+        plane-degraded fallback."""
+        try:
+            return encode_state_as_update(self.connection.document)
+        except Exception:
+            return None  # client heals via its next sync handshake
+
+    def _send_catchup(self, update) -> None:
+        connection = self.connection
+        document = connection.document
+        if (
+            update is None
+            or connection.transport.is_closed
+            or document.is_destroyed
+            or not document.has_connection(connection)
+        ):
+            return
+        connection.send(build_update_frame(document.name, update))
+        # elided awareness frames carried per-client LWW state: one full
+        # awareness snapshot reconverges presence
+        if document.has_awareness_states():
+            message = OutgoingMessage(document.name).create_awareness_update_message(
+                document.awareness
+            )
+            connection.send(message.to_bytes())
+
+
+class DocumentFanout:
+    """One document's broadcast tick: pending update payloads, pending
+    awareness clients, and the completion callbacks that close
+    lifecycle traces at last-socket-enqueue."""
+
+    def __init__(self, document) -> None:
+        self.document = document
+        self._pending_updates: list[bytes] = []
+        self._pending_replicate: list[bool] = []
+        self._pending_awareness: set[int] = set()
+        self._on_complete: list[Callable[[float], Any]] = []
+        self._scheduled = False
+        # BROWNOUT-1 awareness stretch (server/overload.py): an
+        # awareness-only tick may be parked on a call_later instead of
+        # call_soon; an update arriving meanwhile upgrades it back to
+        # immediate (updates never wait on the stretch)
+        self._delay_handle: Optional[asyncio.TimerHandle] = None
+        # cross-instance replication seam (extensions/redis.py): when
+        # set, the tick hands its LOCAL-origin updates — and, when the
+        # whole tick is local, the already-built wire frame — to the
+        # replication lane, so the instance boundary reuses the tick's
+        # coalescing and encode instead of re-paying both per update.
+        # Remote-origin updates (replicate=False) never re-cross the
+        # boundary: republishing them would echo between instances.
+        self.replicate_updates: Optional[Callable[[Optional[bytes], list], Any]] = None
+        self.replicate_awareness: Optional[Callable[[bytes], Any]] = None
+        # hot-doc replication seam (edge/replica.py): same contract as
+        # replicate_updates — the tick's replicable (local-origin)
+        # updates, coalesced. At an OWNER the sink streams them as a
+        # seq-numbered REPLICA_TICK to every follower; at a FOLLOWER it
+        # forwards locally-written updates up to the owner
+        # (REPLICA_PUSH). Tick-applied updates carry REPLICA_ORIGIN and
+        # are non-replicable, so the seam never echoes.
+        self.replica_sink: Optional[Callable[[list], Any]] = None
+        # durability gates (storage/extension.py): group-commit futures
+        # the tick must wait out before DELIVERING — an update is never
+        # shown to a client while the WAL write that covers it is still
+        # in flight (a commit that FAILS still releases the gate: the
+        # error is counted and health degrades; halting fan-out on a
+        # sick disk would trade availability for nothing, since the
+        # store pipeline still provides the durability floor).
+        # Coalescing and frame building stay synchronous (and overlap
+        # the commit on the executor); only the socket enqueue defers
+        # to the gate.
+        self._gates: list = []
+        self._gate_tasks: set = set()
+
+    # -- enqueue -----------------------------------------------------------
+
+    def queue_update(
+        self,
+        update: bytes,
+        on_complete: Optional[Callable[[float], Any]] = None,
+        replicate: bool = True,
+        gate: Any = None,
+    ) -> None:
+        self._pending_updates.append(update)
+        self._pending_replicate.append(replicate)
+        if on_complete is not None:
+            self._on_complete.append(on_complete)
+        if gate is not None and not gate.done():
+            self._gates.append(gate)
+        self._schedule()
+
+    def queue_awareness(self, changed_clients: Iterable[int]) -> None:
+        self._pending_awareness.update(changed_clients)
+        delay = 0.0
+        if not self._pending_updates:
+            # awareness-only tick: the overload ladder may stretch its
+            # cadence (presence is ephemeral — a late frame is merely
+            # stale, and the LWW encode happens at delivery time anyway)
+            delay = get_overload_controller().awareness_delay_s()
+        self._schedule(delay)
+
+    def _schedule(self, delay_s: float = 0.0) -> None:
+        if self._scheduled:
+            if delay_s == 0.0 and self._delay_handle is not None:
+                # an update landed while an awareness-stretch timer was
+                # parked: upgrade to an immediate tick
+                self._delay_handle.cancel()
+                self._delay_handle = None
+                try:
+                    loop = asyncio.get_running_loop()
+                except RuntimeError:
+                    self._scheduled = False
+                    self.flush()
+                    return
+                loop.call_soon(self.flush)
+            return
+        try:
+            loop = asyncio.get_running_loop()
+        except RuntimeError:
+            self.flush()  # no loop (direct/test use): immediate
+            return
+        self._scheduled = True
+        if delay_s > 0.0:
+            get_overload_controller().shed("awareness_stretched")
+            self._delay_handle = loop.call_later(delay_s, self.flush)
+        else:
+            loop.call_soon(self.flush)
+
+    # -- the tick ----------------------------------------------------------
+
+    def flush(self) -> None:
+        self._scheduled = False
+        self._delay_handle = None
+        pending = self._pending_updates
+        replicate_flags = self._pending_replicate
+        awareness_clients = self._pending_awareness
+        callbacks = self._on_complete
+        gates = self._gates
+        if pending:
+            self._pending_updates = []
+            self._pending_replicate = []
+        if awareness_clients:
+            self._pending_awareness = set()
+        if callbacks:
+            self._on_complete = []
+        if gates:
+            self._gates = []
+        if not pending and not awareness_clients:
+            return
+        document = self.document
+        wire = get_wire_telemetry()
+        # coalesce + build the wire frame NOW — this work overlaps the
+        # WAL group commit running on the executor; only DELIVERY (the
+        # first moment a client could see the update) waits for the
+        # durability gates
+        ledger = get_cost_ledger()
+        frame = None
+        per_update_frames = None
+        if pending:
+            t0 = time.perf_counter_ns() if ledger.enabled else 0
+            update = coalesce_updates(pending)
+            if ledger.enabled:
+                # coalesce: the per-tick merge only — the frame build
+                # below accounts itself as frame_encode, keeping the
+                # ledger's loop sites non-overlapping
+                ledger.record(
+                    "coalesce",
+                    "Sync",
+                    time.perf_counter_ns() - t0,
+                    0 if update is None else len(update),
+                )
+            if update is None:
+                # merge failure must not lose updates: per-update frames,
+                # built in ONE native batch call
+                per_update_frames = build_update_frames_batch(
+                    [(document.name, u) for u in pending]
+                )
+            else:
+                frame = build_update_frame(document.name, update)
+
+        def _deliver_tick() -> None:
+            if document.is_destroyed:
+                return
+            # audience snapshot: ONE registry copy serves the update
+            # pass AND the awareness pass of this tick
+            audience = document.get_connections()
+            elided = 0
+            if pending:
+                if per_update_frames is not None:
+                    for data in per_update_frames:
+                        elided += self.deliver(audience, data)
+                else:
+                    elided += self.deliver(audience, frame)
+                    if wire.enabled and audience:
+                        wire.record_fanout_frame(
+                            len(pending), (len(pending) - 1) * len(audience)
+                        )
+                if self.replica_sink is not None:
+                    sink_updates = [
+                        u for u, r in zip(pending, replicate_flags) if r
+                    ]
+                    if sink_updates:
+                        try:
+                            self.replica_sink(sink_updates)
+                        except Exception:
+                            pass  # replication must never break local fan-out
+                if self.replicate_updates is not None:
+                    replicable = [
+                        u for u, r in zip(pending, replicate_flags) if r
+                    ]
+                    if replicable:
+                        # the built frame is reusable across the
+                        # instance boundary only when it covers EXACTLY
+                        # the replicable set (a tick mixing remote-
+                        # origin updates needs a separate coalesce in
+                        # the lane)
+                        reuse = (
+                            frame if len(replicable) == len(pending) else None
+                        )
+                        try:
+                            self.replicate_updates(reuse, replicable)
+                        except Exception:
+                            pass  # replication must never break local fan-out
+            if awareness_clients and (
+                audience or self.replicate_awareness is not None
+            ):
+                overload = get_overload_controller()
+                if overload.enabled and overload.elide_awareness():
+                    # BROWNOUT-2: presence fan-out is pure overhead
+                    # while the ladder is shedding — drop the tick's
+                    # awareness entirely (LWW state reconverges on the
+                    # first tick after de-escalation)
+                    overload.shed(
+                        "awareness_elided", max(len(audience), 1)
+                    )
+                else:
+                    # built at delivery time: awareness is per-client
+                    # LWW state, so the freshest encode wins
+                    message = OutgoingMessage(
+                        document.name
+                    ).create_awareness_update_message(
+                        document.awareness, list(awareness_clients)
+                    )
+                    data = message.to_bytes()
+                    if audience:
+                        elided += self.deliver(audience, data)
+                    if self.replicate_awareness is not None:
+                        # awareness piggybacks on the tick: the SAME
+                        # frame bytes cross the instance boundary
+                        # (encode once, both sides)
+                        try:
+                            self.replicate_awareness(data)
+                        except Exception:
+                            pass
+            if wire.enabled and elided:
+                wire.record_catchup_elided(elided)
+            if callbacks:
+                # last-socket-enqueue: where the lifecycle trace's
+                # fan-out stage closes
+                t_last = time.perf_counter()
+                for callback in callbacks:
+                    try:
+                        callback(t_last)
+                    except Exception:
+                        pass
+
+        def deliver_tick() -> None:
+            # fanout_tick: one broadcast tick's delivery work (audience
+            # snapshot + per-socket enqueues), the loop-thread cost the
+            # headroom model charges per ingress frame
+            if not ledger.enabled:
+                _deliver_tick()
+                return
+            t0 = time.perf_counter_ns()
+            try:
+                _deliver_tick()
+            finally:
+                ledger.record(
+                    "fanout_tick", "Sync", time.perf_counter_ns() - t0
+                )
+
+        waiting = [gate for gate in gates if not gate.done()]
+        if not waiting:
+            deliver_tick()
+            return
+        self._spawn_gated_delivery(waiting, deliver_tick)
+
+    def _spawn_gated_delivery(self, gates: list, deliver_tick: Callable) -> None:
+        """Run `deliver_tick` once every durability gate has resolved.
+        Ticks stay ordered: WAL commit futures resolve in append order,
+        and same-future waiters wake in task-creation order."""
+
+        async def waiter() -> None:
+            try:
+                for gate in gates:
+                    if not gate.done():
+                        try:
+                            await gate
+                        except Exception:
+                            pass  # commit errors are counted, never block
+            finally:
+                self._gate_tasks.discard(asyncio.current_task())
+            deliver_tick()
+
+        # strong ref: a GC'd waiter would swallow the tick's frames
+        task = asyncio.ensure_future(waiter())
+        self._gate_tasks.add(task)
+
+    def deliver(self, audience, frame: bytes, tierable: bool = True) -> int:
+        """Enqueue one shared frame to every connection; returns the
+        number of catch-up-tier elisions."""
+        elided = 0
+        for connection in audience:
+            tier = getattr(connection, "catchup", None)
+            if tier is not None and tierable:
+                if tier.active:
+                    elided += 1
+                    continue
+                connection.send(frame)
+                tier.maybe_enter()
+            else:
+                connection.send(frame)
+        return elided
+
+    def close(self) -> None:
+        """Drop pending work (document destroyed)."""
+        if self._delay_handle is not None:
+            # the cancelled timer would have been the flush that resets
+            # _scheduled; clear the flag too or a straggler enqueue
+            # racing destroy would park forever behind it
+            self._delay_handle.cancel()
+            self._delay_handle = None
+            self._scheduled = False
+        self._pending_updates = []
+        self._pending_replicate = []
+        self._pending_awareness = set()
+        self._on_complete = []
+        self._gates = []
+        for task in list(self._gate_tasks):
+            task.cancel()
+        self._gate_tasks.clear()
+        self.replicate_updates = None
+        self.replicate_awareness = None
+        self.replica_sink = None

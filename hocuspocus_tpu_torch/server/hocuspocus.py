@@ -1,0 +1,696 @@
+"""The framework-agnostic server core (reference `Hocuspocus.ts` equivalent).
+
+Owns the document registry, the priority-ordered hook chain, the
+debounced store pipeline and document load/unload lifecycle. A rejected
+hook anywhere in the chain aborts the rest — that is how auth denial,
+request interception and distributed store-locks work.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import time
+import uuid
+from typing import Any, Callable, Optional
+
+from .. import __version__
+from ..crdt import Doc, apply_update, encode_state_as_update
+from ..observability.flight_recorder import get_flight_recorder
+from ..observability.tracing import get_tracer
+from ..protocol.awareness import awareness_states_to_array
+from ..protocol.close_events import RESET_CONNECTION
+from . import logger
+from .client_connection import ClientConnection
+from .connection import Connection
+from .debounce import Debouncer
+from .direct_connection import DirectConnection
+from .document import Document
+from .types import (
+    _CallbackExtension,
+    Configuration,
+    ConnectionConfiguration,
+    Extension,
+    HOOK_NAMES,
+    Payload,
+    REDIS_ORIGIN,
+)
+
+
+class RequestInfo:
+    """Transport-agnostic request metadata passed through hook payloads."""
+
+    __slots__ = ("headers", "url", "parameters", "remote")
+
+    def __init__(
+        self,
+        headers: Optional[dict] = None,
+        url: str = "/",
+        parameters: Optional[dict] = None,
+        remote: Optional[str] = None,
+    ) -> None:
+        self.headers = dict(headers or {})
+        self.url = url
+        if parameters is None:
+            from urllib.parse import parse_qs, urlsplit
+
+            query = urlsplit(url).query
+            parameters = {k: v[-1] for k, v in parse_qs(query).items()}
+        self.parameters = parameters
+        self.remote = remote
+
+
+class Hocuspocus:
+    def __init__(self, configuration: Optional[Configuration] = None, **kwargs: Any) -> None:
+        self.configuration = Configuration()
+        self.documents: dict[str, Document] = {}
+        self.loading_documents: dict[str, asyncio.Future] = {}
+        self.debouncer = Debouncer()
+        # store quarantine (docs/guides/durability.md): docs whose store
+        # chain exhausted its retries. Kept loaded (unload would drop
+        # the only in-memory copy), WAL retained, re-stored by the
+        # sweep task, reported degraded via get_health().
+        self.quarantine: dict[str, dict] = {}
+        self._quarantine_task: Optional[asyncio.Task] = None
+        self.server = None  # set by Server when hosted
+        self._configured_payload: Optional[Payload] = None
+        self._on_configure_done = False
+        if configuration is not None or kwargs:
+            self.configure(configuration, **kwargs)
+
+    # -- configuration -----------------------------------------------------
+
+    def configure(self, configuration: Optional[Configuration] = None, **kwargs: Any) -> "Hocuspocus":
+        if configuration is not None:
+            self.configuration = configuration
+        for key, value in kwargs.items():
+            setattr(self.configuration, key, value)
+        extensions = list(self.configuration.extensions)
+        extensions.sort(key=lambda e: getattr(e, "priority", 100) or 100, reverse=True)
+        extensions.append(_CallbackExtension(self.configuration))
+        self._extensions = extensions
+        self._configured_payload = Payload(
+            configuration=self.configuration, version=__version__, instance=self
+        )
+        self._on_configure_done = False
+        return self
+
+    async def ensure_configured(self) -> None:
+        """Run the on_configure hook chain once (lazily, from async context)."""
+        if self._configured_payload is None:
+            self.configure(self.configuration)
+        if not self._on_configure_done:
+            self._on_configure_done = True
+            await self.hooks("on_configure", self._configured_payload)
+
+    # -- hook chain --------------------------------------------------------
+
+    async def hooks(self, name: str, payload: Payload, callback: Optional[Callable] = None) -> Any:
+        """Run hook `name` on every extension, in priority order.
+
+        An exception from any extension aborts the rest of the chain and
+        propagates. `callback` runs after each extension with its return
+        value (used for context merging).
+        """
+        tracer = get_tracer()
+        if tracer.enabled:
+            with tracer.span(f"hooks.{name}"):
+                return await self._run_hooks(name, payload, callback)
+        return await self._run_hooks(name, payload, callback)
+
+    async def _run_hooks(self, name: str, payload: Payload, callback: Optional[Callable]) -> Any:
+        result: Any = None
+        for extension in getattr(self, "_extensions", []):
+            handler = getattr(extension, name, None)
+            if handler is None or not callable(handler):
+                continue
+            try:
+                result = handler(payload)
+                if asyncio.iscoroutine(result):
+                    result = await result
+            except Exception as error:
+                if str(error):
+                    logger.log_error(f"[{name}] {error}")
+                raise
+            if callback is not None:
+                cb_result = callback(result)
+                if asyncio.iscoroutine(cb_result):
+                    await cb_result
+        return result
+
+    # -- metrics -----------------------------------------------------------
+
+    def get_documents_count(self) -> int:
+        return len(self.documents)
+
+    def get_connections_count(self) -> int:
+        unique_socket_ids: set[str] = set()
+        direct = 0
+        for document in self.documents.values():
+            for connection in document.get_connections():
+                unique_socket_ids.add(connection.socket_id)
+            direct += document.direct_connections_count
+        return len(unique_socket_ids) + direct
+
+    def get_health(self) -> dict:
+        """Aggregate health payload for load balancers (`/healthz`).
+
+        The server itself is always "ok" while it can answer at all —
+        availability is never gated on an accelerator. Extensions
+        exposing a `health_status()` callable (e.g. the TPU plane
+        supervisor, tpu/supervisor.py) contribute a detail section; any
+        section reporting `degraded: True` downgrades the top-level
+        status to "degraded" so balancers can steer load while the
+        server keeps serving from the CPU path.
+        """
+        health: dict = {
+            "status": "ok",
+            "documents": self.get_documents_count(),
+            "connections": self.get_connections_count(),
+            "extensions": {},
+        }
+        if self.quarantine:
+            # docs whose store chain exhausted its retries: data is safe
+            # (loaded + WAL) but the persistence backend is failing —
+            # balancers should steer new load away
+            health["status"] = "degraded"
+            health["quarantined_documents"] = sorted(self.quarantine)
+        for extension in getattr(self, "_extensions", []):
+            status_fn = getattr(extension, "health_status", None)
+            if not callable(status_fn):
+                continue
+            try:
+                status = status_fn()
+            except Exception:
+                status = {"state": "error", "degraded": True}
+            health["extensions"][type(extension).__name__] = status
+            if isinstance(status, dict) and status.get("degraded"):
+                health["status"] = "degraded"
+        return health
+
+    def close_connections(self, document_name: Optional[str] = None) -> None:
+        for document in list(self.documents.values()):
+            if document_name is not None and document.name != document_name:
+                continue
+            for connection in document.get_connections():
+                connection.close(RESET_CONNECTION)
+
+    # -- connection handling -----------------------------------------------
+
+    def handle_connection(self, transport, request: RequestInfo, default_context: Optional[dict] = None) -> ClientConnection:
+        client_connection = ClientConnection(
+            transport,
+            request,
+            self,
+            self.hooks,
+            timeout=self.configuration.timeout,
+            default_context=default_context,
+        )
+
+        def handle_close(document: Document, hook_payload: Payload) -> None:
+            # Re-check: hooks may have taken time; a new connection may
+            # have arrived and relies on the registered document.
+            if document.get_connections_count() > 0:
+                return
+            debounce_id = f"onStoreDocument-{document.name}"
+            if not document.is_loading and self.debouncer.is_debounced(debounce_id):
+                if self.configuration.unload_immediately:
+                    self.debouncer.execute_now(debounce_id)
+            elif self.debouncer.in_flight(debounce_id) or document.save_mutex.locked():
+                # a fired store task is scheduled/running but hasn't
+                # completed: unloading NOW would drop the doc from the
+                # registry before its state hits storage (a fast rejoin
+                # would then load an empty doc). The store task's own
+                # finally unloads once it finishes.
+                pass
+            else:
+                asyncio.ensure_future(self.unload_document(document))
+
+        client_connection.on_close(handle_close)
+        return client_connection
+
+    # -- update pipeline ---------------------------------------------------
+
+    async def handle_document_update(
+        self,
+        document: Document,
+        connection: Any,
+        update: bytes,
+        request: Optional[RequestInfo] = None,
+    ) -> None:
+        hook_payload = Payload(
+            instance=self,
+            clients_count=document.get_connections_count(),
+            context=getattr(connection, "context", None) or {},
+            document=document,
+            document_name=document.name,
+            request_headers=request.headers if request is not None else {},
+            request_parameters=request.parameters if request is not None else {},
+            socket_id=getattr(connection, "socket_id", ""),
+            update=update,
+            transaction_origin=connection,
+        )
+        asyncio.ensure_future(self._run_on_change(hook_payload))
+        # Updates that did not come through a WebSocket connection are not
+        # ours to store; redis-origin changes are stored by the instance
+        # that received them from its client (reference #730/#696/#606).
+        if connection is None or not isinstance(connection, Connection):
+            return
+        task = self.store_document_hooks(document, hook_payload)
+        if task is not None:
+            await task
+
+    async def _run_on_change(self, payload: Payload) -> None:
+        try:
+            await self.hooks("on_change", payload)
+        except Exception:
+            pass
+
+    def _store_retry_delay(self, attempt: int) -> float:
+        from ..aio import backoff_delay_s
+
+        cfg = self.configuration
+        return backoff_delay_s(
+            attempt, cfg.store_retry_base_ms, cfg.store_retry_max_ms
+        )
+
+    def store_document_hooks(
+        self, document: Document, hook_payload: Payload, immediately: bool = False
+    ):
+        debounce_id = f"onStoreDocument-{document.name}"
+
+        async def run() -> None:
+            attempts = max(int(self.configuration.store_retries), 0) + 1
+            try:
+                async with document.save_mutex:
+                    for attempt in range(attempts):
+                        try:
+                            await self.hooks("on_store_document", hook_payload)
+                            await self.hooks("after_store_document", hook_payload)
+                            self._clear_quarantine(document.name)
+                            break
+                        except Exception as error:
+                            logger.log_error(
+                                "caught error during store_document_hooks "
+                                f"(attempt {attempt + 1}/{attempts}): {error!r}"
+                            )
+                            # best-effort cleanup hook so extensions
+                            # holding resources across the store chain
+                            # (e.g. the Redis store lock) can release
+                            # them before the retry re-acquires —
+                            # after_store_document never runs on failure
+                            try:
+                                await self.hooks(
+                                    "on_store_document_failed", hook_payload
+                                )
+                            except Exception:
+                                pass
+                            if attempt + 1 >= attempts:
+                                # retries exhausted: quarantine instead
+                                # of silently dropping the document's
+                                # only in-memory copy at unload
+                                self._quarantine_document(
+                                    document, hook_payload, error
+                                )
+                                if str(error):
+                                    raise
+                                break
+                            await asyncio.sleep(self._store_retry_delay(attempt))
+                            if document.is_destroyed:
+                                return
+            finally:
+                has_pending_work = (
+                    self.debouncer.is_debounced(debounce_id) or document.save_mutex.locked()
+                )
+                if (
+                    document.get_connections_count() == 0
+                    and not has_pending_work
+                    and document.name not in self.quarantine
+                ):
+                    await self.unload_document(document)
+
+        return self.debouncer.debounce(
+            debounce_id,
+            run,
+            0 if immediately else self.configuration.debounce,
+            self.configuration.max_debounce,
+        )
+
+    # -- store quarantine ---------------------------------------------------
+
+    def _quarantine_document(
+        self, document: Document, hook_payload: Payload, error: Exception
+    ) -> None:
+        info = self.quarantine.get(document.name)
+        self.quarantine[document.name] = {
+            "since": info["since"] if info else time.time(),
+            "failures": (info["failures"] if info else 0) + 1,
+            "last_error": repr(error)[:200],
+            "payload": hook_payload,
+        }
+        get_flight_recorder().record(
+            document.name, "store_quarantined", error=repr(error)[:120]
+        )
+        logger.log_error(
+            f"store retries exhausted for {document.name!r}: QUARANTINED "
+            "(kept loaded; periodic re-store sweep active)"
+        )
+        self._ensure_quarantine_sweep()
+
+    def _clear_quarantine(self, name: str) -> None:
+        if self.quarantine.pop(name, None) is not None:
+            get_flight_recorder().record(name, "store_recovered")
+
+    def _ensure_quarantine_sweep(self) -> None:
+        if self._quarantine_task is None or self._quarantine_task.done():
+            self._quarantine_task = asyncio.ensure_future(self._quarantine_sweep())
+
+    async def _quarantine_sweep(self) -> None:
+        """Periodically retry the store chain for quarantined docs. The
+        task exits when the quarantine empties (respawned on the next
+        quarantine) so idle servers hold no timer."""
+        interval = max(self.configuration.store_quarantine_sweep_ms, 100) / 1000.0
+        try:
+            while self.quarantine:
+                await asyncio.sleep(interval)
+                for name in list(self.quarantine):
+                    document = self.documents.get(name)
+                    info = self.quarantine.get(name)
+                    if document is None or info is None:
+                        self.quarantine.pop(name, None)
+                        continue
+                    if document.save_mutex.locked():
+                        # a previous attempt is still in flight (e.g. a
+                        # hung backend holding the mutex): piling fresh
+                        # tasks behind it helps nothing
+                        continue
+                    task = self.store_document_hooks(
+                        document, info["payload"], immediately=True
+                    )
+                    if task is not None:
+                        try:
+                            # bounded: ONE hung store must not starve
+                            # every other quarantined doc's re-store
+                            # (the task itself keeps running; the mutex
+                            # check above stops pile-up)
+                            await asyncio.wait_for(
+                                asyncio.shield(task),
+                                timeout=max(
+                                    self.configuration.drain_timeout_secs, 1.0
+                                ),
+                            )
+                        except Exception:
+                            pass  # still failing/hung: stays quarantined
+        except asyncio.CancelledError:
+            pass
+
+    async def release_quarantine(self, unload: bool = True) -> None:
+        """Shutdown path: stop the sweep and (optionally) unload the
+        quarantined docs — callers must have flushed/drained first."""
+        if self._quarantine_task is not None:
+            self._quarantine_task.cancel()
+            self._quarantine_task = None
+        names, self.quarantine = list(self.quarantine), {}
+        if not unload:
+            return
+        for name in names:
+            document = self.documents.get(name)
+            if document is not None and document.get_connections_count() == 0:
+                await self.unload_document(document)
+
+    # -- graceful drain ------------------------------------------------------
+
+    async def drain(self, timeout_secs: Optional[float] = None) -> dict:
+        """SIGTERM path: make everything durable under a deadline.
+
+        1. flush the WAL (everything acknowledged is now on disk — from
+           here on, nothing can be lost even if the deadline expires);
+        2. fire every pending debounced store NOW and store every other
+           loaded doc, all concurrently;
+        3. docs still storing at the deadline are quarantined (their
+           WAL suffix has the data) — the outcome report says which.
+        """
+        if timeout_secs is None:
+            timeout_secs = self.configuration.drain_timeout_secs
+        started = time.perf_counter()
+        # announce departure FIRST (best-effort): a merge cell's edge
+        # ingress publishes CELL_DRAINING here so the edge tier remaps
+        # this cell's docs and re-establishes sessions elsewhere while
+        # the stores below are still flushing (docs/guides/
+        # edge-routing.md); a monolith simply has no on_drain hooks
+        await self._safe_hooks("on_drain", Payload(instance=self))
+        outcome: dict = {
+            "docs": len(self.documents),
+            "stored": 0,
+            "clean": 0,
+            "timed_out": [],
+            "quarantined": [],
+            "wal_flushed": False,
+        }
+        # 1. durable log first
+        wal = None
+        for extension in getattr(self, "_extensions", []):
+            flush = getattr(extension, "flush_wal", None)
+            if callable(flush):
+                wal = getattr(extension, "wal", None)
+                try:
+                    await asyncio.wait_for(flush(), timeout=max(timeout_secs, 0.1))
+                    outcome["wal_flushed"] = True
+                except Exception as error:
+                    logger.log_error(f"drain: WAL flush failed: {error!r}")
+        # 2. store the DIRTY docs concurrently (execute pending
+        # debounces via the same path so per-doc stores can't overlap).
+        # A fleet of thousands of loaded-but-clean docs must not turn
+        # SIGTERM into thousands of full-state writes racing one
+        # deadline — a clean doc has nothing the store does not.
+        tasks: "dict[asyncio.Task, tuple[str, Payload]]" = {}
+        for name, document in list(self.documents.items()):
+            debounce_id = f"onStoreDocument-{name}"
+            dirty = (
+                self.debouncer.is_debounced(debounce_id)
+                or self.debouncer.in_flight(debounce_id)
+                or document.save_mutex.locked()
+                or name in self.quarantine
+                or (wal is not None and wal.pending_records(name) > 0)
+            )
+            if not dirty:
+                outcome["clean"] += 1
+                continue
+            payload = Payload(
+                instance=self,
+                document=document,
+                document_name=name,
+                context={},
+                socket_id="drain",
+                request_headers={},
+                request_parameters={},
+            )
+            quarantined = self.quarantine.get(name)
+            if quarantined is not None:
+                payload = quarantined["payload"]
+            task = self.store_document_hooks(document, payload, immediately=True)
+            if task is not None:
+                tasks[task] = (name, payload)
+        if tasks:
+            remaining = max(timeout_secs - (time.perf_counter() - started), 0.05)
+            done, pending = await asyncio.wait(tasks, timeout=remaining)
+            for task in done:
+                name, _payload = tasks[task]
+                if task.cancelled() or task.exception() is not None:
+                    outcome["quarantined"].append(name)
+                else:
+                    outcome["stored"] += 1
+            for task in pending:
+                # still storing at the deadline: the store task keeps
+                # running until process exit, but we stop waiting. The
+                # doc's WAL suffix is durable, so no data is at risk —
+                # record it as quarantined so the outcome is honest.
+                # The FULL store payload rides into the quarantine: the
+                # sweep re-runs the whole extension chain with it, and
+                # extensions read socket_id/request_* off it.
+                name, payload = tasks[task]
+                outcome["timed_out"].append(name)
+                document = self.documents.get(name)
+                if document is not None and name not in self.quarantine:
+                    self._quarantine_document(
+                        document, payload, TimeoutError("drain deadline")
+                    )
+        outcome["quarantined"].extend(
+            name for name in self.quarantine if name not in outcome["quarantined"]
+        )
+        outcome["duration_s"] = round(time.perf_counter() - started, 3)
+        get_flight_recorder().record("__server__", "drain", **{
+            key: value for key, value in outcome.items() if key != "docs"
+        })
+        logger.logger.info(
+            "drain: stored %s/%s docs in %ss%s",
+            outcome["stored"],
+            outcome["docs"],
+            outcome["duration_s"],
+            (
+                f"; quarantined {sorted(set(outcome['quarantined']))}"
+                if outcome["quarantined"]
+                else ""
+            ),
+        )
+        return outcome
+
+    # -- document lifecycle ------------------------------------------------
+
+    async def create_document(
+        self,
+        document_name: str,
+        request: RequestInfo,
+        socket_id: str,
+        connection_config: ConnectionConfiguration,
+        context: Any = None,
+    ) -> Document:
+        existing_loading = self.loading_documents.get(document_name)
+        if existing_loading is not None:
+            return await asyncio.shield(existing_loading)
+        existing = self.documents.get(document_name)
+        if existing is not None:
+            return existing
+        future = asyncio.ensure_future(
+            self.load_document(document_name, request, socket_id, connection_config, context)
+        )
+        self.loading_documents[document_name] = future
+        try:
+            document = await asyncio.shield(future)
+            self.documents[document_name] = document
+            return document
+        finally:
+            self.loading_documents.pop(document_name, None)
+
+    async def load_document(
+        self,
+        document_name: str,
+        request: RequestInfo,
+        socket_id: str,
+        connection_config: ConnectionConfiguration,
+        context: Any = None,
+    ) -> Document:
+        await self.ensure_configured()
+        request_headers = request.headers if request is not None else {}
+        request_parameters = request.parameters if request is not None else {}
+
+        ydoc_options = await self.hooks(
+            "on_create_document",
+            Payload(
+                document_name=document_name,
+                request_headers=request_headers,
+                request_parameters=request_parameters,
+                connection_config=connection_config,
+                context=context,
+                socket_id=socket_id,
+                instance=self,
+            ),
+        )
+        document = Document(
+            document_name,
+            {**self.configuration.ydoc_options, **(ydoc_options or {})},
+        )
+
+        hook_payload = Payload(
+            instance=self,
+            context=context,
+            connection_config=connection_config,
+            document=document,
+            document_name=document_name,
+            socket_id=socket_id,
+            request_headers=request_headers,
+            request_parameters=request_parameters,
+        )
+
+        def apply_loaded(loaded: Any) -> None:
+            # A hook may return a Doc whose state seeds the new document.
+            if isinstance(loaded, Doc):
+                apply_update(document, encode_state_as_update(loaded))
+
+        try:
+            await self.hooks("on_load_document", hook_payload, apply_loaded)
+        except Exception:
+            self.close_connections(document_name)
+            await self.unload_document(document)
+            raise
+
+        document.is_loading = False
+        await self.hooks("after_load_document", hook_payload)
+        get_flight_recorder().record(document_name, "load")
+
+        def on_update(document: Document, origin: Any, update: bytes) -> None:
+            request = getattr(origin, "request", None)
+            asyncio.ensure_future(
+                self.handle_document_update(document, origin, update, request)
+            )
+
+        document.on_update(on_update)
+
+        def before_broadcast_stateless(document: Document, stateless: str) -> None:
+            payload = Payload(
+                document=document, document_name=document.name, payload=stateless
+            )
+            asyncio.ensure_future(self._safe_hooks("before_broadcast_stateless", payload))
+
+        document.before_broadcast_stateless(before_broadcast_stateless)
+
+        def on_awareness_update(changes: dict, origin: Any) -> None:
+            asyncio.ensure_future(
+                self._safe_hooks(
+                    "on_awareness_update",
+                    Payload(
+                        **{
+                            **hook_payload.__dict__,
+                            **changes,
+                            "awareness": document.awareness,
+                            "states": awareness_states_to_array(
+                                document.awareness.get_states()
+                            ),
+                        }
+                    ),
+                )
+            )
+
+        document.awareness.on("update", on_awareness_update)
+        return document
+
+    async def _safe_hooks(self, name: str, payload: Payload) -> None:
+        try:
+            await self.hooks(name, payload)
+        except Exception:
+            pass
+
+    async def unload_document(self, document: Document) -> None:
+        document_name = document.name
+        if document_name not in self.documents:
+            return
+        if document_name in self.quarantine:
+            # the in-memory copy is the only one the store backend does
+            # not have; the quarantine sweep (or drain/destroy) decides
+            # its fate, never a connection-count race
+            return
+        try:
+            await self.hooks(
+                "before_unload_document",
+                Payload(instance=self, document_name=document_name, document=document),
+            )
+        except Exception:
+            return
+        if document.get_connections_count() > 0:
+            return
+        self.documents.pop(document_name, None)
+        document.destroy()
+        get_flight_recorder().record(document_name, "unload")
+        await self.hooks(
+            "after_unload_document", Payload(instance=self, document_name=document_name)
+        )
+
+    async def open_direct_connection(self, document_name: str, context: Any = None) -> DirectConnection:
+        connection_config = ConnectionConfiguration(is_authenticated=True, read_only=False)
+        document = await self.create_document(
+            document_name,
+            RequestInfo(),
+            str(uuid.uuid4()),
+            connection_config,
+            context,
+        )
+        return DirectConnection(document, self, context)

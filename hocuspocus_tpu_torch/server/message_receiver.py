@@ -1,0 +1,317 @@
+"""Inbound message dispatch — the server hot path.
+
+Capability parity with reference `packages/server/src/MessageReceiver.ts`:
+sync step handling (server replies SyncStep2 followed by its own
+SyncStep1), awareness, stateless, read-only SyncStatus acks.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Optional
+
+from ..crdt import snapshot, snapshot_contains_update
+from ..protocol.awareness import apply_awareness_update
+from ..protocol.frames import build_sync_status_frame
+from ..protocol.message import IncomingMessage, MessageType, OutgoingMessage
+from ..protocol.sync import (
+    MESSAGE_YJS_SYNC_STEP1,
+    MESSAGE_YJS_SYNC_STEP2,
+    MESSAGE_YJS_UPDATE,
+    read_sync_step1,
+    read_sync_step2,
+    read_update,
+    write_sync_step2,
+)
+from ..observability.costs import get_cost_ledger
+from ..observability.tracing import get_tracer
+from ..observability.wire import get_wire_telemetry, message_type_name
+from .document import Document
+from . import logger as _logger_mod
+
+
+class MessageReceiver:
+    def __init__(self, message: IncomingMessage, default_transaction_origin=None) -> None:
+        self.message = message
+        self.default_transaction_origin = default_transaction_origin
+
+    async def apply(
+        self,
+        document: Document,
+        connection=None,
+        reply: Optional[Callable[[bytes], None]] = None,
+        *,
+        message_type: Optional[int] = None,
+    ) -> None:
+        tracer = get_tracer()
+        if tracer.enabled:
+            with tracer.span(
+                "message.apply",
+                document=document.name,
+                bytes=len(self.message.decoder.buf),
+            ) as span:
+                await self._apply(document, connection, reply, span, message_type)
+        else:
+            await self._apply(document, connection, reply, None, message_type)
+
+    async def _apply(
+        self,
+        document: Document,
+        connection=None,
+        reply: Optional[Callable[[bytes], None]] = None,
+        span=None,
+        message_type: Optional[int] = None,
+    ) -> None:
+        message = self.message
+        if message_type is None:
+            message_type = message.read_var_uint()
+        if span is not None:
+            span.set("type", int(message_type))
+        wire = get_wire_telemetry()
+        # ingress accounting covers the SOCKET edge only: redis-bus
+        # replicated messages also flow through this receiver
+        # (extensions/redis.py, connection=None) but can never produce
+        # a wire error, so counting them would dilute the error-rate
+        # SLO's denominator and hide real client-facing breaches
+        ledger = get_cost_ledger()
+        if (wire.enabled or ledger.enabled) and connection is not None:
+            started = time.perf_counter()
+            try:
+                await self._dispatch(message, message_type, document, connection, reply)
+            finally:
+                elapsed = time.perf_counter() - started
+                nbytes = len(message.decoder.buf)
+                if wire.enabled:
+                    wire.record_ingress(int(message_type), nbytes, elapsed)
+                if ledger.enabled:
+                    # frame_decode: the full inbound dispatch window —
+                    # same window + byte count as record_ingress, so the
+                    # ledger's byte sums reconcile against the wire
+                    # counters (tests/observability/test_profiler_costs)
+                    ledger.record(
+                        "frame_decode",
+                        message_type_name(int(message_type)),
+                        int(elapsed * 1e9),
+                        nbytes,
+                    )
+        else:
+            await self._dispatch(message, message_type, document, connection, reply)
+
+    async def _dispatch(
+        self,
+        message: IncomingMessage,
+        message_type: int,
+        document: Document,
+        connection=None,
+        reply: Optional[Callable[[bytes], None]] = None,
+    ) -> None:
+        empty_message_length = message.length
+
+        if message_type in (MessageType.Sync, MessageType.SyncReply):
+            message.write_var_uint(MessageType.Sync)
+            await self.read_sync_message(
+                message,
+                document,
+                connection,
+                reply,
+                request_first_sync=message_type != MessageType.SyncReply,
+            )
+            if message.length > empty_message_length + 1:
+                if reply is not None:
+                    reply(message.to_bytes())
+                elif connection is not None:
+                    connection.send(message.to_bytes())
+        elif message_type == MessageType.Awareness:
+            apply_awareness_update(
+                document.awareness,
+                message.read_var_uint8_array(),
+                connection.transport if connection is not None else None,
+            )
+        elif message_type == MessageType.QueryAwareness:
+            self.apply_query_awareness(document, reply)
+        elif message_type == MessageType.Stateless:
+            if connection is not None:
+                from ..server.types import Payload
+
+                await connection.callbacks["stateless"](
+                    Payload(
+                        connection=connection,
+                        document_name=document.name,
+                        document=document,
+                        payload=message.read_var_string(),
+                    )
+                )
+        elif message_type == MessageType.BroadcastStateless:
+            payload = message.read_var_string()
+            # ONE shared frame for the whole audience (snapshotted
+            # once), matching the fan-out engine's encode-once idiom —
+            # send_stateless re-encoded the payload per connection
+            data = OutgoingMessage(document.name).write_stateless(payload).to_bytes()
+            document.fanout.deliver(
+                document.get_connections(), data, tierable=False
+            )
+        elif message_type == MessageType.CLOSE:
+            if connection is not None:
+                from ..protocol.close_events import CloseEvent
+
+                connection.close(CloseEvent(1000, "provider_initiated"))
+        elif message_type == MessageType.Auth:
+            _logger_mod.log_error(
+                "Received an authentication message on an already-authenticated "
+                "connection. Probably your provider was destroyed and recreated "
+                "very fast."
+            )
+        else:
+            _logger_mod.log_error(
+                f"Unable to handle message of type {message_type}: no handler defined!"
+            )
+
+    async def read_sync_message(
+        self,
+        message: IncomingMessage,
+        document: Document,
+        connection=None,
+        reply: Optional[Callable[[bytes], None]] = None,
+        request_first_sync: bool = True,
+    ) -> int:
+        wire = get_wire_telemetry()
+        if not wire.enabled or connection is None:
+            # socket-edge latency only (see apply: redis-bus messages
+            # arrive with connection=None)
+            return await self._read_sync_message(
+                message, document, connection, reply, request_first_sync
+            )
+        started = time.perf_counter()
+        sync_type = await self._read_sync_message(
+            message, document, connection, reply, request_first_sync
+        )
+        # sync-step latency by submessage: step1 covers the SyncStep2
+        # reply build (device state gather on the plane path), step2/
+        # update cover the CPU apply
+        wire.record_sync_step(sync_type, time.perf_counter() - started)
+        return sync_type
+
+    async def _read_sync_message(
+        self,
+        message: IncomingMessage,
+        document: Document,
+        connection=None,
+        reply: Optional[Callable[[bytes], None]] = None,
+        request_first_sync: bool = True,
+    ) -> int:
+        sync_type = message.read_var_uint()
+
+        if connection is not None:
+            from ..server.types import Payload
+
+            await connection.callbacks["before_sync"](
+                connection,
+                Payload(type=sync_type, payload=message.peek_var_uint8_array()),
+            )
+
+        if sync_type == MESSAGE_YJS_SYNC_STEP1:
+            # durability gate (docs/guides/durability.md): the state a
+            # joiner is about to receive must be WAL-durable first, or
+            # a crash could leave the client holding updates the
+            # restarted server never saw — same invariant as the
+            # broadcast tick's delivery gate
+            wait_durable = getattr(document, "wait_wal_durable", None)
+            if wait_durable is not None:
+                await wait_durable()
+            source = getattr(document, "sync_source", None)
+            if source is not None:
+                # TPU-plane serving path: the SyncStep2 payload is built
+                # from device state; None degrades to the CPU document.
+                # The async variant batches concurrent SyncStep1s through
+                # one device state-vector-diff triage (catch-up storms).
+                sv = message.decoder.read_var_uint8_array()
+                batched = getattr(source, "encode_state_as_update_async", None)
+                if batched is not None:
+                    update = await batched(sv)
+                else:
+                    update = source.encode_state_as_update(sv)
+                if update is not None:
+                    message.encoder.write_var_uint(MESSAGE_YJS_SYNC_STEP2)
+                    message.encoder.write_var_uint8_array(update)
+                else:
+                    write_sync_step2(message.encoder, document, sv)
+            else:
+                read_sync_step1(message.decoder, message.encoder, document)
+            # The server replies SyncStep2 (already in message.encoder)
+            # immediately followed by its own SyncStep1.
+            if reply is not None and request_first_sync:
+                sync_message = (
+                    OutgoingMessage(document.name)
+                    .create_sync_reply_message()
+                    .write_first_sync_step_for(document)
+                )
+                reply(sync_message.to_bytes())
+            elif connection is not None:
+                sync_message = (
+                    OutgoingMessage(document.name)
+                    .create_sync_message()
+                    .write_first_sync_step_for(document)
+                )
+                connection.send(sync_message.to_bytes())
+        elif sync_type == MESSAGE_YJS_SYNC_STEP2:
+            if connection is not None and connection.read_only:
+                # Read-only: never apply. Ack only when the update brings
+                # nothing new (snapshot containment check).
+                snap = snapshot(document)
+                update = message.read_var_uint8_array()
+                contains = snapshot_contains_update(snap, update)
+                connection.send(
+                    build_sync_status_frame(document.name, contains)
+                )
+                return sync_type
+            ledger = get_cost_ledger()
+            t0 = time.perf_counter_ns() if ledger.enabled else 0
+            read_sync_step2(
+                message.decoder,
+                document,
+                connection if connection is not None else self.default_transaction_origin,
+            )
+            if ledger.enabled:
+                ledger.record("apply_update", "Sync", time.perf_counter_ns() - t0)
+            if connection is not None:
+                connection.send(
+                    build_sync_status_frame(document.name, True)
+                )
+        elif sync_type == MESSAGE_YJS_UPDATE:
+            if connection is not None and connection.read_only:
+                connection.send(
+                    build_sync_status_frame(document.name, False)
+                )
+                return sync_type
+            origin = (
+                connection if connection is not None else self.default_transaction_origin
+            )
+            tracer = get_tracer()
+            ledger = get_cost_ledger()
+            t0 = time.perf_counter_ns() if ledger.enabled else 0
+            if tracer.enabled:
+                # the CPU-side apply that precedes the capture seam: a
+                # lifecycle trace's host prologue is visible next to its
+                # update.* stage spans in /debug/trace
+                with tracer.span("message.update_apply", document=document.name):
+                    read_update(message.decoder, document, origin)
+            else:
+                read_update(message.decoder, document, origin)
+            if ledger.enabled:
+                ledger.record("apply_update", "Sync", time.perf_counter_ns() - t0)
+            if connection is not None:
+                connection.send(
+                    build_sync_status_frame(document.name, True)
+                )
+        else:
+            raise ValueError(f"received a sync message with unknown type {sync_type}")
+        return sync_type
+
+    def apply_query_awareness(
+        self, document: Document, reply: Optional[Callable[[bytes], None]] = None
+    ) -> None:
+        message = OutgoingMessage(document.name).create_awareness_update_message(
+            document.awareness
+        )
+        if reply is not None:
+            reply(message.to_bytes())

@@ -1,0 +1,286 @@
+"""Built-in HTTP + WebSocket host (reference `Server.ts` equivalent).
+
+Hosts a `Hocuspocus` instance on aiohttp. The core stays
+framework-agnostic: any transport implementing send/close can call
+`hocuspocus.handle_connection` (mirroring how the reference embeds in
+express/koa/hono — `playground/backend/src/*.ts`).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+from typing import Any, Optional
+
+import aiohttp
+from aiohttp import WSMsgType, web
+
+from . import logger
+from ..protocol.close_events import MESSAGE_TOO_BIG, SERVICE_RESTART
+from .hocuspocus import Hocuspocus, RequestInfo
+from .overload import (
+    get_overload_controller,
+    resolve_tenant,
+    service_unavailable_response,
+)
+from .transports import CallbackWebSocketTransport
+from .types import Configuration, Payload
+
+
+class AiohttpWebSocketTransport(CallbackWebSocketTransport):
+    """The generic queue-backed transport bound to an aiohttp
+    WebSocketResponse (one concurrency machinery, two hosts — see
+    transports.py)."""
+
+    def __init__(self, ws: web.WebSocketResponse) -> None:
+        self.ws = ws
+        super().__init__(
+            send_async=ws.send_bytes,
+            close_async=lambda code, reason: ws.close(
+                code=code, message=reason.encode()
+            ),
+            is_closed_check=lambda: ws.closed,
+        )
+
+
+class Server:
+    def __init__(self, configuration: Optional[Configuration] = None, **kwargs: Any) -> None:
+        self.hocuspocus = Hocuspocus(configuration, **kwargs)
+        self.hocuspocus.server = self
+        self.host: Optional[str] = None
+        self.port: Optional[int] = None
+        self._runner: Optional[web.AppRunner] = None
+        self._site: Optional[web.TCPSite] = None
+        self._transports: set = set()
+        self._draining = False
+
+    @property
+    def configuration(self) -> Configuration:
+        return self.hocuspocus.configuration
+
+    @property
+    def documents(self) -> dict:
+        return self.hocuspocus.documents
+
+    def get_documents_count(self) -> int:
+        return self.hocuspocus.get_documents_count()
+
+    def get_connections_count(self) -> int:
+        return self.hocuspocus.get_connections_count()
+
+    def close_connections(self, document_name: Optional[str] = None) -> None:
+        self.hocuspocus.close_connections(document_name)
+
+    async def open_direct_connection(self, document_name: str, context: Any = None):
+        return await self.hocuspocus.open_direct_connection(document_name, context)
+
+    @property
+    def address(self) -> dict:
+        return {"host": self.host, "port": self.port}
+
+    @property
+    def http_url(self) -> str:
+        return f"http://{self.host}:{self.port}"
+
+    @property
+    def web_socket_url(self) -> str:
+        return f"ws://{self.host}:{self.port}"
+
+    # -- lifecycle ---------------------------------------------------------
+
+    async def listen(self, port: int = 80, host: str = "127.0.0.1") -> "Server":
+        await self.hocuspocus.ensure_configured()
+        app = web.Application()
+        app.router.add_route("*", "/{tail:.*}", self._handle_request)
+        self._runner = web.AppRunner(app, access_log=None, shutdown_timeout=2)
+        await self._runner.setup()
+        self._site = web.TCPSite(self._runner, host, port)
+        await self._site.start()
+        # resolve OS-assigned port (port=0 support for tests)
+        server_sockets = self._site._server.sockets  # type: ignore[union-attr]
+        self.host = host
+        self.port = server_sockets[0].getsockname()[1] if server_sockets else port
+        if not self.configuration.quiet:
+            self._show_start_screen()
+        await self.hocuspocus.hooks(
+            "on_listen",
+            Payload(instance=self.hocuspocus, configuration=self.configuration, port=self.port),
+        )
+        return self
+
+    def _show_start_screen(self) -> None:
+        name = self.configuration.name or "hocuspocus-tpu"
+        extensions = sorted(
+            type(e).__name__
+            for e in getattr(self.hocuspocus, "_extensions", [])
+            if type(e).__name__ != "_CallbackExtension"
+        )
+        logging.getLogger("hocuspocus_tpu_torch").info(
+            "%s v%s running at %s (extensions: %s)",
+            name,
+            __import__("hocuspocus_tpu_torch").__version__,
+            self.web_socket_url,
+            ", ".join(extensions) or "none",
+        )
+
+    async def drain(self, timeout_secs: Optional[float] = None) -> dict:
+        """Graceful SIGTERM path (docs/guides/durability.md): stop
+        accepting connections, flush the WAL, store every dirty doc
+        concurrently under the deadline, then close clients with 1012
+        (Service Restart — reconnect-advisable). Returns the outcome
+        report; call `destroy()` afterwards to tear the server down."""
+        self._draining = True
+        outcome = await self.hocuspocus.drain(timeout_secs)
+        for document in list(self.hocuspocus.documents.values()):
+            for connection in document.get_connections():
+                connection.close(SERVICE_RESTART)
+        for transport in list(self._transports):
+            transport.close(SERVICE_RESTART.code, SERVICE_RESTART.reason)
+        await asyncio.sleep(0)
+        return outcome
+
+    async def destroy(self) -> None:
+        # stop accepting new connections, reset existing ones
+        self._draining = True
+        self.close_connections()
+        # quarantined docs never unload on their own: stop the sweep
+        # and release them now (drain(), if the operator called it,
+        # already gave their stores a final bounded chance)
+        await self.hocuspocus.release_quarantine()
+        # wait for all documents to store + unload
+        for _ in range(500):
+            if self.hocuspocus.get_documents_count() == 0:
+                break
+            await asyncio.sleep(0.01)
+        # actively close remaining sockets so the HTTP runner can stop
+        for transport in list(self._transports):
+            transport.close(4205, "Reset Connection")
+        await asyncio.sleep(0)
+        try:
+            await self.hocuspocus.hooks("on_destroy", Payload(instance=self.hocuspocus))
+        finally:
+            if self._runner is not None:
+                await self._runner.cleanup()
+
+    # -- request handling --------------------------------------------------
+
+    def _create_session(self, transport, request_info, context):
+        """Session factory seam: the monolith/cell roles terminate in a
+        document-owning ClientConnection; the edge role
+        (edge/server.py EdgeServer) overrides this to create a relaying
+        EdgeClientSession. Anything returned must expose
+        `handle_message(bytes)` and `handle_transport_close(code,
+        reason)`."""
+        return self.hocuspocus.handle_connection(transport, request_info, context)
+
+    async def _handle_request(self, request: web.Request):
+        if (
+            request.headers.get("Upgrade", "").lower() == "websocket"
+            and request.method == "GET"
+        ):
+            return await self._handle_websocket(request)
+        payload = Payload(request=request, instance=self.hocuspocus, response=None)
+        try:
+            await self.hocuspocus.hooks("on_request", payload)
+        except Exception as error:
+            response = getattr(error, "response", None) or payload.get("response")
+            if response is not None:
+                return response
+            return web.Response(status=500, text="Internal Server Error")
+        if payload.get("response") is not None:
+            return payload["response"]
+        return web.Response(text="Welcome to hocuspocus-tpu!")
+
+    def _retry_after_s(self) -> float:
+        """Retry-After seconds for 503 refusals. One knob serves every
+        refusal path (drain, RED, edge): the overload controller's
+        configured value when the control plane is on, else the server
+        configuration's — never a hard-coded constant."""
+        overload = get_overload_controller()
+        if overload.enabled:
+            return overload.retry_after_s
+        return self.configuration.retry_after_s
+
+    async def _handle_websocket(self, request: web.Request):
+        overload = get_overload_controller()
+        if self._draining:
+            # upgrade refused with 503 + Retry-After: balancers fail the
+            # health check over to another instance; direct clients back
+            # off and reconnect (the provider treats any connect failure
+            # as retryable). Shares the one rejection helper with
+            # RED-state admission below — identical wire behavior.
+            overload.count_drain_rejection()
+            return service_unavailable_response(
+                "draining", self._retry_after_s()
+            )
+        if overload.enabled:
+            # overload control plane (docs/guides/overload.md): RED
+            # refuses every new upgrade; a tenant with an empty connect
+            # bucket is refused before the handshake is paid (peek only
+            # — the charge lands at auth)
+            tenant = resolve_tenant(
+                headers=request.headers,
+                parameters=dict(request.rel_url.query),
+            )
+            refusal = overload.admit_upgrade(tenant)
+            if refusal is not None:
+                return service_unavailable_response(
+                    refusal, self._retry_after_s()
+                )
+        request_info = RequestInfo(
+            headers=dict(request.headers),
+            url=str(request.rel_url),
+            remote=request.remote,
+        )
+        context: dict = {}
+        try:
+            await self.hocuspocus.hooks(
+                "on_upgrade",
+                Payload(request=request, instance=self.hocuspocus, context=context),
+            )
+        except Exception:
+            return web.Response(status=403, text="Forbidden")
+
+        heartbeat = max(self.configuration.timeout / 1000, 1)
+        # inbound frame cap: oversized frames close with MessageTooBig
+        # (1009) instead of buffering unboundedly
+        ws = web.WebSocketResponse(
+            heartbeat=heartbeat,
+            autoping=True,
+            max_msg_size=self.configuration.stateless_payload_limit,
+        )
+        await ws.prepare(request)
+        transport = AiohttpWebSocketTransport(ws)
+        self._transports.add(transport)
+        client_connection = self._create_session(transport, request_info, context)
+        close_code = 1000
+        close_reason = ""
+        try:
+            async for msg in ws:
+                if msg.type == WSMsgType.BINARY:
+                    await client_connection.handle_message(msg.data)
+                elif msg.type == WSMsgType.ERROR:
+                    exc = ws.exception()
+                    if (
+                        isinstance(exc, aiohttp.WebSocketError)
+                        and exc.code == aiohttp.WSCloseCode.MESSAGE_TOO_BIG
+                    ):
+                        await ws.close(
+                            code=MESSAGE_TOO_BIG.code, message=MESSAGE_TOO_BIG.reason.encode()
+                        )
+                    elif isinstance(exc, aiohttp.WebSocketError):
+                        # invalid opcode / bad frame / protocol violation:
+                        # don't mislabel as 1009
+                        await ws.close(
+                            code=aiohttp.WSCloseCode.PROTOCOL_ERROR,
+                            message=b"protocol error",
+                        )
+                    break
+        except Exception as error:
+            logger.log_error(f"websocket error: {error!r}")
+        finally:
+            close_code = ws.close_code or 1000
+            self._transports.discard(transport)
+            transport.abort()
+            await client_connection.handle_transport_close(close_code, close_reason)
+        return ws

@@ -1,0 +1,179 @@
+"""Framework-agnostic websocket transport for embedders.
+
+`Hocuspocus.handle_connection` drives any object with the transport
+interface (`is_closed`, `send(bytes)`, `close(code, reason)`,
+`abort()`). The built-in aiohttp host has its own implementation
+(`server.AiohttpWebSocketTransport`); this module provides a generic
+queue-backed one so ANY async web framework — tornado, the
+`websockets` library, something custom — can embed the collaboration
+core with two callables, mirroring how the reference embeds into
+express/koa/hono/deno hosts via `hocuspocus.handleConnection`
+(`playground/backend/src/express.ts` et al.).
+
+send() must be callable synchronously (CRDT transaction callbacks fire
+inside synchronous document mutation); the writer task drains the
+queue in order on the running event loop.
+
+Batched drains: each writer wake empties the WHOLE queue (`get_nowait`
+loop) and ships the frames as one batch — either through the optional
+`send_batch_async` callable (frameworks with a vectored write, or the
+bench harness) or by awaiting `send_async` per frame without returning
+to the scheduler in between. Under fan-out storms this turns one task
+wakeup per frame into one per burst.
+
+Overflow policy: the queue is bounded by `max_queue` (frames). A
+connection that falls `max_queue` frames behind is not coming back —
+the broadcast fan-out engine (server/fanout.py) already switched it to
+catch-up tiering at the backpressure watermark, so only pathological
+direct traffic (e.g. huge sync replies to a wedged socket) can grow the
+queue this far. Rather than balloon server memory, the transport closes
+the socket with 1013 ("try again later"); the client reconnects and
+cold-syncs through the join-storm cache. Overflows are counted in wire
+telemetry (`hocuspocus_wire_send_queue_overflow_total`).
+"""
+
+from __future__ import annotations
+
+import asyncio
+from typing import Awaitable, Callable, List, Optional
+
+from ..observability.wire import get_wire_telemetry
+
+# frames a single connection may have queued before the overflow policy
+# closes it (see module docstring)
+DEFAULT_MAX_QUEUE = 4096
+
+# websocket close code for the overflow policy: "try again later"
+_OVERFLOW_CLOSE_CODE = 1013
+
+
+class CallbackWebSocketTransport:
+    """Queue-backed transport over caller-supplied async callables.
+
+    Parameters:
+    - send_async(data: bytes) -> awaitable: deliver one binary frame.
+    - close_async(code: int, reason: str) -> awaitable: close the
+      socket. Exceptions from either mark the transport closed.
+    - is_closed_check: optional callable returning the socket's own
+      closed state (polled in addition to this transport's flag).
+    - send_batch_async(frames: list[bytes]) -> awaitable: optional
+      vectored write; when given, each writer wake hands the whole
+      drained batch to the framework in ONE call.
+    - max_queue: bound on queued data frames (0 disables); crossing it
+      triggers the overflow policy (close 1013, counted).
+    """
+
+    def __init__(
+        self,
+        send_async: Callable[[bytes], Awaitable[None]],
+        close_async: Callable[[int, str], Awaitable[None]],
+        is_closed_check: Optional[Callable[[], bool]] = None,
+        send_batch_async: Optional[Callable[[List[bytes]], Awaitable[None]]] = None,
+        max_queue: int = DEFAULT_MAX_QUEUE,
+    ) -> None:
+        self._send_async = send_async
+        self._close_async = close_async
+        self._is_closed_check = is_closed_check
+        self._send_batch_async = send_batch_async
+        self.max_queue = max_queue
+        # bounded by the qsize policy in send(), not Queue(maxsize=...):
+        # the close marker must ALWAYS fit, even into a full queue
+        self.queue: asyncio.Queue = asyncio.Queue()
+        self._closed = False
+        # one-shot callbacks fired when the writer has shipped
+        # everything and the queue is empty (the catch-up tier's exit
+        # signal — see server/fanout.py)
+        self._drain_listeners: list = []
+        self._writer_task = asyncio.ensure_future(self._writer())
+        # send-queue depth gauge + backpressure watermark (weakly held;
+        # untracked eagerly at close/abort)
+        get_wire_telemetry().track_transport(self)
+
+    @property
+    def is_closed(self) -> bool:
+        if self._closed:
+            return True
+        check = self._is_closed_check
+        return bool(check()) if check is not None else False
+
+    def send(self, data: bytes) -> None:
+        if self.is_closed:
+            return
+        if self.max_queue and self.queue.qsize() >= self.max_queue:
+            # overflow policy (module docstring): close rather than
+            # balloon memory; the close marker rides the same queue so
+            # already-queued frames still ship first
+            get_wire_telemetry().record_queue_overflow()
+            self.close(_OVERFLOW_CLOSE_CODE, "send queue overflow")
+            return
+        self.queue.put_nowait(("data", data))
+        wire = get_wire_telemetry()
+        if wire.enabled:
+            wire.note_send_queued(self)
+
+    def close(self, code: int = 1000, reason: str = "") -> None:
+        if not self._closed:
+            self._closed = True
+            self.queue.put_nowait(("close", (code, reason)))
+
+    def add_drain_listener(self, callback: Callable[[], None]) -> None:
+        """Register a ONE-SHOT callback for the next moment the writer
+        finds the queue fully drained. Listeners are dropped (not
+        fired) when the transport dies."""
+        self._drain_listeners.append(callback)
+
+    def _notify_drained(self) -> None:
+        if not self._drain_listeners:
+            return
+        listeners, self._drain_listeners = self._drain_listeners, []
+        for callback in listeners:
+            try:
+                callback()
+            except Exception:
+                pass
+
+    async def _writer(self) -> None:
+        try:
+            while True:
+                batch = [await self.queue.get()]
+                # drain the whole queue per wake: one task wakeup (and
+                # one framework call on the batch path) per burst
+                while True:
+                    try:
+                        batch.append(self.queue.get_nowait())
+                    except asyncio.QueueEmpty:
+                        break
+                frames: list = []
+                close_args = None
+                for kind, payload in batch:
+                    if kind == "data":
+                        frames.append(payload)
+                    else:
+                        close_args = payload
+                        break  # frames queued after a close are moot
+                if frames:
+                    if self._send_batch_async is not None:
+                        await self._send_batch_async(frames)
+                    else:
+                        for data in frames:
+                            await self._send_async(data)
+                if close_args is not None:
+                    code, reason = close_args
+                    await self._close_async(code, reason)
+                    get_wire_telemetry().untrack_transport(self)
+                    self._drain_listeners.clear()
+                    return
+                if self.queue.empty():
+                    self._notify_drained()
+        except Exception:
+            self._closed = True
+            get_wire_telemetry().untrack_transport(self)
+            self._drain_listeners.clear()
+            return
+
+    def abort(self) -> None:
+        """Tear down without a close frame (the socket is already gone)."""
+        self._closed = True
+        self._writer_task.cancel()
+        self._drain_listeners.clear()
+        get_wire_telemetry().untrack_transport(self)

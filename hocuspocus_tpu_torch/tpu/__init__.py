@@ -1,6 +1,7 @@
-"""The merge plane, its kernels and its serving path, in PyTorch."""
+"""The merge plane, its kernels, its serving path and the server
+extension that puts live documents on it, in PyTorch."""
 
-from .merge_plane import LogRec, MergePlane, PlaneDoc
+from .merge_plane import LogRec, MergePlane, PlaneDoc, TpuMergeExtension
 from .serving import PlaneServing, SyncFrameCache, TpuSyncSource
 
 __all__ = [
@@ -9,5 +10,6 @@ __all__ = [
     "PlaneDoc",
     "PlaneServing",
     "SyncFrameCache",
+    "TpuMergeExtension",
     "TpuSyncSource",
 ]

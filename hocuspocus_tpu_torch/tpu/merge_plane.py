@@ -18,11 +18,17 @@ straight to the doc's serve log.
 Uploads go from pinned host staging (on the card) with non-blocking
 copies on the current stream; the cycle's single completion barrier is
 the health readback in _sync_health.
+
+`TpuMergeExtension` puts a server's live documents on the plane: it
+captures their updates at `Document._handle_update`, flushes on a
+governed cadence through the device lane, answers SyncStep1 from device
+state and broadcasts one merged frame per coalescing window.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import threading
 import time
 from dataclasses import dataclass, field
@@ -31,6 +37,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..aio import spawn_tracked
+from ..observability.flight_recorder import get_flight_recorder
+from ..observability.tracing import UpdateTraceBook, get_tracer
+from ..server.types import Extension, Payload
 from .integrate import (
     append_run_slots_rle_sparse_fast,
     append_run_slots_sparse_fast,
@@ -136,6 +146,43 @@ _OP_DEFAULTS = (0, 0, 0, 0, NONE_CLIENT_I32, 0, NONE_CLIENT_I32, 0)
 _RUN_DEFAULTS = (0, 0, 0)
 
 
+class WarmWatch:
+    """First launch vs repeat launch per (site, shape) of the plane's
+    device steps.
+
+    The counterpart of the JAX package's compile tracker. A step's first
+    launch at a shape pays what a warm launch does not: the kernel
+    library's build or load, and the C entry's shared-memory setup when
+    the size grows. The listen-time warm grid launches every shape a
+    flush can take and then calls `mark_warmed`; a first launch after
+    that is a shape the grid missed, counted in `unwarmed_launches`."""
+
+    def __init__(self) -> None:
+        self._seen: set = set()
+        self.warmed = False
+        self.first_launches = 0
+        self.repeat_launches = 0
+        self.unwarmed_launches = 0
+
+    def mark_warmed(self) -> None:
+        self.warmed = True
+
+    def mark_covered(self, site: str, shape) -> None:
+        """Another plane of this geometry already launched the shape in
+        this process (the shared warm registry, tpu/scheduler.py)."""
+        self._seen.add((site, tuple(shape)))
+
+    def observe(self, site: str, shape, warmup: bool = False) -> None:
+        key = (site, tuple(shape))
+        if key in self._seen:
+            self.repeat_launches += 1
+            return
+        self._seen.add(key)
+        self.first_launches += 1
+        if self.warmed and not warmup:
+            self.unwarmed_launches += 1
+
+
 class MergePlane:
     """Device-resident arenas for up to `num_docs` sequences on one device.
 
@@ -166,6 +213,9 @@ class MergePlane:
                 "MergePlane needs a CUDA device; pass device='cpu' to run "
                 "the plain PyTorch path on the CPU"
             )
+        if device.type == "cuda" and device.index is None:
+            # pinned to an index, so a worker thread can make it current
+            device = torch.device("cuda", torch.cuda.current_device())
         self.device = device
         self.arena = arena
         self.num_docs = num_docs
@@ -228,6 +278,7 @@ class MergePlane:
             "docs_retired_capacity": 0,
             "docs_retired_fallback": 0,
             "docs_retired_plane_full": 0,
+            "docs_recycled": 0,
             "sync_serves": 0,
             "sync_cache_hits": 0,
             "sync_cache_misses": 0,
@@ -269,6 +320,27 @@ class MergePlane:
         self._append_staging: "Optional[list[_Staging]]" = None
         self._append_inflight: list = [None, None]
         self._append_batches = 0
+        # update-lifecycle traces: the capture seam stamps sampled
+        # updates, the flush carries them through drain, build, upload,
+        # device and readback, and the broadcast pass closes them
+        self.update_traces = UpdateTraceBook()
+        self.compile_watch = WarmWatch()
+        # device-lane seam (tpu/scheduler.py), set by the owning
+        # extension: the plane never admits itself, its dispatch sites
+        # only account each launch as in-lane or bypass
+        self.lane = None
+
+    def _note_dispatch(self, site: str, batches: int = 1) -> None:
+        if self.lane is not None:
+            self.lane.note_dispatch(site, batches)
+
+    def device_scope(self):
+        """Make the plane's device current in the calling thread: flushes
+        and warm launches run in executor threads, and the C entries
+        launch on the current device's current stream."""
+        if self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
 
     # -- arena dispatch ----------------------------------------------------
     # Each seam reads the module attribute at call time, so a caller may
@@ -340,11 +412,17 @@ class MergePlane:
         self._set_tail_empty(slot)
         return slot
 
+    def note_trace(self, name: str) -> Optional[int]:
+        """Capture-seam stamp: give one just-enqueued update a lifecycle
+        trace id (sampled)."""
+        return self.update_traces.stamp(name)
+
     def release(self, name: str) -> None:
         doc = self.docs.pop(name, None)
         if doc is None:
             return
         self.dirty.discard(name)
+        self.update_traces.drop(name)
         slots = set(doc.seqs.values())
         for slot in slots:
             self.slot_owner.pop(slot, None)
@@ -371,6 +449,8 @@ class MergePlane:
             doc.retire_reason = reason
             if count:
                 self.counters[f"docs_retired_{reason}"] += 1
+            get_flight_recorder().record(name, "retire", reason=reason)
+        self.update_traces.drop(name)
         doc.lowerer.unsupported = True
         doc.serve_log = []
         doc.map_tombstones = []
@@ -504,7 +584,7 @@ class MergePlane:
 
         max_batches bounds the batches in this cycle (one batch already
         covers up to max_slots_per_flush ops for EVERY queue)."""
-        with self._step_lock:
+        with self._step_lock, self.device_scope():
             return self._flush_locked(max_batches)
 
     def _k_buckets(self) -> list[int]:
@@ -515,6 +595,119 @@ class MergePlane:
             if k >= self.max_slots_per_flush:
                 return buckets
             k *= 2
+
+    def _b_buckets(self) -> list[int]:
+        """The sparse busy-width buckets: powers of four below the
+        population (a wider busy set takes the dense (K, D) layout)."""
+        buckets = []
+        b = 1
+        while b < self.num_docs:
+            buckets.append(b)
+            b *= 4
+        return buckets
+
+    def warmup_shapes(self) -> "list[tuple[int, int]]":
+        """Every (K, B) integrate shape a flush can launch: sparse batches
+        pin K to the top bucket, one shape per B bucket, plus the dense
+        (k, num_docs) ladder."""
+        k_max = self._k_buckets()[-1]
+        return [(k_max, b) for b in self._b_buckets()] + [
+            (k, self.num_docs) for k in self._k_buckets()
+        ]
+
+    def warmup_aux_shapes(self) -> "list[tuple]":
+        """Tagged warm-grid entries beyond the integrate (k, b) pairs: the
+        run-append fast path's ("append", K_max, B) ladder and the
+        ("tail", W) probe widths _sync_health can launch."""
+        k_max = self._k_buckets()[-1]
+        shapes: "list[tuple]" = [
+            ("append", k_max, b) for b in self._b_buckets() + [self.num_docs]
+        ]
+        widths = [16] if self.num_docs <= 16 else [16, self._TAIL_PROBE_MAX]
+        shapes += [("tail", w) for w in widths]
+        return shapes
+
+    def _warm_site(self, entry: tuple) -> "tuple[str, tuple]":
+        """(warm-watch site, shape key) for one warm-grid entry."""
+        if entry[0] == "append":
+            return "append_sparse", (entry[1], entry[2])
+        if entry[0] == "tail":
+            return "tail_probe", (entry[1],)
+        k, b = entry
+        if b >= self.num_docs:
+            return "integrate_dense", (k, self.num_docs)
+        return "integrate_sparse", (k, b)
+
+    def _noop_ops(self, k: int, b: int) -> OpBatch:
+        return OpBatch(
+            *(
+                torch.full((k, b), default, dtype=torch.int32, device=self.device)
+                for default in _OP_DEFAULTS
+            )
+        )
+
+    def _padding_slots(self, b: int) -> torch.Tensor:
+        return torch.full((b,), self.num_docs, dtype=torch.int32, device=self.device)
+
+    def warmup_compiles(self, shape=None, shared: bool = False) -> bool:
+        """Launch each step once at a flush shape with a batch that
+        changes nothing (noop ops; every routed column the padding
+        sentinel), so the first live flush at that shape pays neither the
+        kernel library's build or load nor the launch setup. `shape` is
+        one entry of warmup_shapes() or warmup_aux_shapes() (callers take
+        the flush lock per shape), or None for the whole grid.
+
+        shared=True consults the process-wide warm registry
+        (tpu/scheduler.py): a shape another plane of the same geometry on
+        the same device already launched is skipped. Returns True when
+        anything was launched."""
+        full_grid = shape is None
+        shapes = [shape] if shape is not None else self.warmup_shapes() + self.warmup_aux_shapes()
+        if shared:
+            from .scheduler import note_warmed, shared_warm_filter
+
+            shapes, covered = shared_warm_filter(
+                self.arena, self.num_docs, self.capacity, shapes, device=str(self.device)
+            )
+            for entry in covered:
+                self.compile_watch.mark_covered(*self._warm_site(entry))
+        dispatched = False
+        with self._step_lock, self.device_scope():
+            for entry in shapes:
+                site, shape_key = self._warm_site(entry)
+                if site == "append_sparse":
+                    _, k, b = entry
+                    zeros = [
+                        torch.zeros((k, b), dtype=torch.int32, device=self.device)
+                        for _ in range(3)
+                    ]
+                    self.state, _count = self._append_step_fn()(
+                        self.state, *zeros, self._padding_slots(b)
+                    )
+                elif site == "tail_probe":
+                    (w,) = shape_key
+                    probe = torch.zeros(w, dtype=torch.int32, device=self.device)
+                    self._tail_probe_fn()(self.state, probe).cpu()
+                elif site == "integrate_dense":
+                    k, _b = entry
+                    self.state, _count = self._step_fn()(self.state, self._noop_ops(k, self.num_docs))
+                else:
+                    k, b = entry
+                    self.state, _count = self._sparse_step_fn()(
+                        self.state, self._noop_ops(k, b), self._padding_slots(b)
+                    )
+                self.compile_watch.observe(site, shape_key, warmup=True)
+                self._note_dispatch("warmup")
+                dispatched = True
+                if shared:
+                    note_warmed(
+                        self.arena, self.num_docs, self.capacity, entry, device=str(self.device)
+                    )
+            if dispatched and self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        if full_grid:
+            self.compile_watch.mark_warmed()
+        return dispatched
 
     def _bucket_b(self, busy: int) -> int:
         """Round a busy width up to its sparse bucket (powers of four);
@@ -530,9 +723,13 @@ class MergePlane:
         return b >= self.num_docs, b
 
     def _flush_locked(self, max_batches: Optional[int] = None) -> int:
+        tracer = get_tracer()
+        book = self.update_traces
+        trace_batches: list = []
         k_max = self._k_buckets()[-1]
         total = 0
         batches = 0
+        device_batches = 0
         fast_total = slow_total = 0
         build_ms = upload_ms = dispatch_ms = 0.0
         upload_bytes = 0
@@ -542,6 +739,13 @@ class MergePlane:
             drained = self._drain_ops(k_max)
             if drained is None:
                 break
+            cycle_traces = None
+            if book.active():
+                # stamped updates whose slots drained this batch enter
+                # the in-flight set; t0 closes their queue-wait stage
+                cycle_traces = book.take_drained(
+                    (self.slot_owner.get(int(s)) for s in drained[3]), t0
+                )
             built = drained[4]
             busy_total = int(drained[3].size)
             # split the drained columns into all-sequential (fast) and
@@ -572,10 +776,12 @@ class MergePlane:
                 self._append_inflight[index] = self._record_upload()
                 self._append_batches += 1
                 t2 = time.perf_counter()
-                self.state, _count = self._append_step_fn()(
-                    self.state, fields_f[0], fields_f[1], fields_f[2], slots_f
-                )
+                with tracer.device_span("merge_plane.append", slots=k_max, busy=bf):
+                    self.state, _count = self._append_step_fn()(
+                        self.state, fields_f[0], fields_f[1], fields_f[2], slots_f
+                    )
                 t_dispatch = time.perf_counter()
+                self.compile_watch.observe("append_sparse", (k_max, bf))
                 # the dispatched runs land at the rank tail, so the new
                 # tail is each column's last coalesced run
                 self._tail_client[f_slots] = f_tail_cl
@@ -583,6 +789,9 @@ class MergePlane:
                 self.counters["flush_batches_fast"] += 1
                 self.counters["flush_fast_ops"] += f_ops
                 fast_total += f_ops
+                device_batches += 1
+                if cycle_traces and slow is None:
+                    trace_batches.append((cycle_traces, t1, t2, t_dispatch))
                 build_ms += (t1 - t0) * 1000.0
                 upload_ms += (t2 - t1) * 1000.0
                 dispatch_ms += (t_dispatch - t2) * 1000.0
@@ -614,15 +823,20 @@ class MergePlane:
                 # integrates batch i, the next iteration builds batch i+1
                 # in the OTHER staging buffer; _sync_health below is the
                 # cycle's single completion barrier
-                if slot_view is None:
-                    self.state, _count = self._step_fn()(self.state, ops)
-                    self.counters["flush_batches_dense"] += 1
-                else:
-                    self.state, _count = self._sparse_step_fn()(
-                        self.state, ops, slots_dev
-                    )
-                    self.counters["flush_batches_sparse"] += 1
+                with tracer.device_span("merge_plane.integrate", slots=k, busy=b):
+                    if slot_view is None:
+                        self.state, _count = self._step_fn()(self.state, ops)
+                        self.counters["flush_batches_dense"] += 1
+                    else:
+                        self.state, _count = self._sparse_step_fn()(
+                            self.state, ops, slots_dev
+                        )
+                        self.counters["flush_batches_sparse"] += 1
                 t_dispatch = time.perf_counter()
+                if slot_view is None:
+                    self.compile_watch.observe("integrate_dense", (k, self.num_docs))
+                else:
+                    self.compile_watch.observe("integrate_sparse", (k, b))
                 # full-integrate columns invalidate their tracked rank
                 # tails; _sync_health re-arms the live ones below
                 slow_cols = slow[3].astype(np.intp)
@@ -633,6 +847,9 @@ class MergePlane:
                         self._tail_dirty.add(col)
                 self.counters["flush_slow_ops"] += slow[4]
                 slow_total += slow[4]
+                device_batches += 1
+                if cycle_traces:
+                    trace_batches.append((cycle_traces, t1, t2, t_dispatch))
                 build_ms += (t1 - t0) * 1000.0
                 upload_ms += (t2 - t1) * 1000.0
                 dispatch_ms += (t_dispatch - t2) * 1000.0
@@ -642,9 +859,14 @@ class MergePlane:
             busy_last = busy_total
             batches += 1
         if batches:
+            self._note_dispatch("flush", device_batches)
             t3 = time.perf_counter()
             self._sync_health()
             t_sync = time.perf_counter()
+            if trace_batches:
+                # the cycle's single readback barrier closes every
+                # in-flight trace's device and readback stages
+                book.complete_cycle(trace_batches, t_sync)
             self.flush_stats.update(
                 build_ms=round(build_ms, 3),
                 upload_ms=round(upload_ms, 3),
@@ -1123,3 +1345,640 @@ class MergePlane:
                 rnk += take
                 remaining -= take
         return clients, clocks, ranks, entries
+
+
+class TpuMergeExtension(Extension):
+    """Puts live documents on the merge plane via onChange.
+
+    Two modes:
+    - shadow (serve=False): the plane mirrors every supported document;
+      the CPU document serves.
+    - serve (serve=True): for supported docs the plane IS the serving
+      path — SyncStep2 replies come from device state
+      (`Document.sync_source`), per-update CPU fan-out is suppressed
+      (`Document.broadcast_source`) and replaced by one merged broadcast
+      per coalescing window. A CRDT-level degradation (unsupported
+      content, overflow, desync) falls the doc back to the CPU path,
+      shipping the full CPU state once so receivers that only saw plane
+      broadcasts are whole; each such fallback is counted in
+      `plane.counters["cpu_fallbacks"]`. A failed device step raises on
+      the card (see `_device_fault`); only a CPU plane degrades on it.
+
+    The counterpart of the JAX package's extension of the same name on
+    one device. The plane runs on the card unless `device="cpu"` is
+    given (`device=None` means the card, and raises without CUDA).
+    Sharding (`mesh=`) and arena residency (`evict_idle_secs`,
+    `compact_threshold`) are not ported yet (ROADMAP.md, Queue A) and
+    raise NotImplementedError; the port has no native text lane, so
+    `native_lane` is accepted and stays off.
+    """
+
+    priority = 900
+
+    def __init__(
+        self,
+        num_docs: int = 256,
+        capacity: int = 4096,
+        flush_interval_ms: float = 5.0,
+        plane: Optional[MergePlane] = None,
+        serve: bool = False,
+        mesh=None,
+        device=None,
+        broadcast_interval_ms: float = 2.0,
+        arena: str = "unit",
+        native_lane: bool = True,
+        evict_idle_secs: float = 0.0,
+        compact_threshold: float = 0.0,
+        governor: bool = True,
+    ) -> None:
+        """governor — arrival-aware batching (tpu/scheduler.py): the
+        flush cadence and the kernel calls per cycle follow the
+        op-arrival EWMA, queue depth and lane congestion instead of the
+        fixed flush_interval_ms (which stays the governor's BASE
+        cadence). False restores the fixed timer exactly. The device
+        work admits through the process-global device lane.
+        """
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= (a sharded plane) is not ported yet: ROADMAP.md, Queue A"
+            )
+        if evict_idle_secs > 0 or compact_threshold > 0:
+            raise NotImplementedError(
+                "arena residency (evict_idle_secs, compact_threshold) is not "
+                "ported yet: ROADMAP.md, Queue A"
+            )
+        if plane is not None and device is not None:
+            raise ValueError(
+                "pass device= to the MergePlane you construct, not alongside "
+                "plane= (an explicit plane keeps its own device)"
+            )
+        self.plane = plane or MergePlane(
+            num_docs=num_docs,
+            capacity=capacity,
+            arena=arena,
+            device="cuda" if device is None else device,
+        )
+        from .scheduler import BatchGovernor, get_device_lane
+
+        self.lane = self.plane.lane = get_device_lane()
+        self.governor = BatchGovernor(base_interval_ms=flush_interval_ms) if governor else None
+        # governor policy inputs ride a short-TTL depth cache:
+        # pending_ops() is O(busy slots) and the capture seam calls the
+        # governor per update. Policy tolerates 5ms staleness; the
+        # post-flush reschedule check stays exact.
+        self._depth_cache = 0
+        self._depth_cache_at = 0.0
+        self.native_lane = bool(native_lane and serve and self.plane.enable_lane())
+        self.flush_interval_ms = flush_interval_ms
+        # broadcasts build from the HOST serve logs and run on their own
+        # (shorter) coalescing window, decoupled from the device flush:
+        # edits landing within the window share one frame per doc, and
+        # the device round trip never sits on the edit->observe path
+        self.broadcast_interval_ms = broadcast_interval_ms
+        self._flush_handle: Optional[asyncio.TimerHandle] = None
+        # single-flight guard for the flush task: one cycle in flight;
+        # it reschedules
+        self._flush_inflight = False
+        self._broadcast_handle: Optional[asyncio.TimerHandle] = None
+        self._last_broadcast_at = 0.0
+        self.serve = serve
+        self.serving = None
+        self._docs: dict[str, object] = {}  # name -> server Document being served
+        self._instance = None  # hocuspocus instance (hook dispatch)
+        # strong refs to in-flight tasks: the event loop only weakly
+        # references tasks, and a GC'd flush task silently stops the
+        # serve pipeline (or strands the flush lock mid-acquire)
+        self._flush_tasks: set = set()
+        # the listen-time warm grid (on_listen); awaitable by callers that
+        # must not race it
+        self.warmup_task: Optional[asyncio.Task] = None
+        # docs whose recycle attempt found no headroom for their live
+        # state: further attempts are suppressed until unload
+        self._recycle_declined: set[str] = set()
+        if serve:
+            from .serving import PlaneServing
+
+            self.serving = PlaneServing(self.plane)
+
+    def _spawn_tracked(self, coro) -> "asyncio.Task":
+        return spawn_tracked(self._flush_tasks, coro)
+
+    # -- hooks ---------------------------------------------------------------
+
+    async def on_listen(self, data: Payload) -> None:
+        """Warm the plane off the event loop: build or load the arena's
+        kernel library and launch every flush shape once, then the
+        serving gathers, so the first live flush pays neither nvcc nor
+        the launch setup. The warm grid rides the device lane at the
+        LOWEST priority, one admission per shape: early client flushes
+        go between shapes instead of waiting out the grid. A launch that
+        fails ends the task with its error (await `warmup_task` to see
+        it); the flushes that follow meet the same error."""
+
+        async def warm_one(work) -> None:
+            from .scheduler import CLASS_WARM
+
+            ticket = await self.lane.admit(CLASS_WARM, site="warmup")
+            try:
+                async with self.plane.flush_lock:
+                    await asyncio.get_event_loop().run_in_executor(None, work)
+            except Exception:
+                from ..server import logger as _logger_mod
+
+                _logger_mod.logger.error("plane warmup failed", exc_info=True)
+                raise
+            finally:
+                ticket.release()
+
+        async def warm() -> None:
+            for shape in self.plane.warmup_shapes() + self.plane.warmup_aux_shapes():
+                await warm_one(lambda s=shape: self.plane.warmup_compiles(s, shared=True))
+            # from here every flush shape has launched once
+            self.plane.compile_watch.mark_warmed()
+            if self.serving is not None:
+                for width in self.serving._gather_widths():
+                    await warm_one(lambda w=width: self.serving.warmup_gathers(w))
+
+        self.warmup_task = self._spawn_tracked(warm())
+
+    def _attach_serving(self, name: str, document) -> None:
+        """Hook a document into the plane's serving seams (shared by
+        load-time onboarding and capacity recycling — the mirror of
+        _detach_serving)."""
+        from .serving import TpuSyncSource
+
+        document.sync_source = TpuSyncSource(
+            self.serving, name, document, on_fault=self._device_fault
+        )
+        document.broadcast_source = self
+        self._docs[name] = document
+
+    async def after_load_document(self, data: Payload) -> None:
+        from ..crdt import encode_state_as_update
+
+        self._instance = data.instance
+        name = data.document_name
+        self.plane.register(name)
+        # receivers get pre-load state via sync, not broadcast
+        self.plane.enqueue_update(name, encode_state_as_update(data.document), presync=True)
+        if self.serve and self.plane.is_supported(name):
+            self._attach_serving(name, data.document)
+        self._schedule_flush()
+
+    async def on_change(self, data: Payload) -> None:
+        if self.serve and data.document_name in self._docs:
+            return  # already captured synchronously in try_capture
+        if self.serve:
+            # fresh traffic on a doc that degraded off the plane (e.g. a
+            # device OVERFLOW retire from the health sweep, a seam
+            # try_capture never sees): busy docs are worth re-onboarding
+            # from their live snapshot
+            plane_doc = self.plane.docs.get(data.document_name)
+            if plane_doc is not None and plane_doc.retired:
+                self._maybe_recycle(data.document, plane_doc.retire_reason)
+                return
+        accepted = self.plane.enqueue_update(data.document_name, data.update)
+        if accepted and self.governor is not None:
+            self.governor.note_arrival(accepted)
+        self._schedule_flush()
+
+    async def after_unload_document(self, data: Payload) -> None:
+        name = data.document_name
+        instance = data.instance
+        # release mutates the queue/log registries a concurrent
+        # executor-side flush iterates — serialize with it. ALL of the
+        # teardown sits inside the lock and behind a liveness re-check:
+        # a rejoin can re-load the document while unload hooks await,
+        # and plane.register() then reuses this registration, so a late
+        # release here would silently detach the NEW incarnation.
+        while True:
+            async with self.plane.flush_lock:
+                loading = None if instance is None else instance.loading_documents.get(name)
+                if loading is None:
+                    if instance is not None and name in instance.documents:
+                        return  # re-loaded while we waited: registration lives on
+                    self._detach_serving(name, self._docs.pop(name, None))
+                    self.plane.release(name)
+                    # a future incarnation starts with a fresh recycle budget
+                    self._recycle_declined.discard(name)
+                    return
+            # A re-load is in flight. Wait for it OUTSIDE the lock: on
+            # success its own eventual unload fires this hook again; on
+            # FAILURE no further after_unload will ever fire for this
+            # name, so loop back and do the teardown here.
+            try:
+                await asyncio.shield(loading)
+                return
+            except Exception:
+                # an already-failed future raises without suspending;
+                # yield so create_document's finally runs before we
+                # re-check
+                await asyncio.sleep(0)
+
+    async def on_destroy(self, data: Payload) -> None:
+        if self._flush_handle is not None:
+            self._flush_handle.cancel()
+        if self._broadcast_handle is not None:
+            self._broadcast_handle.cancel()
+        # flush the broadcast tail (local only), then fully drain the
+        # device queues: no timer fires after teardown to pick up
+        # either. final=True: the drain is pause-exempt
+        self._broadcast_served(cross_instance=False)
+        await self._flush_now(max_batches=None, final=True)
+
+    # -- serving: update capture (called by Document._handle_update) ---------
+
+    def try_capture(self, document, update: bytes, origin) -> bool:
+        """Claim an update for plane-batched broadcast. False = CPU fan-out."""
+        from ..server.types import REDIS_ORIGIN, REPLICA_ORIGIN
+
+        name = document.name
+        if not self.serve or name not in self._docs:
+            return False
+        plane = self.plane
+        if not plane.is_supported(name):
+            # already degraded (e.g. a device OVERFLOW retire from the
+            # post-flush health sweep, where no recycle seam runs) —
+            # this fresh traffic is the signal the doc is still busy
+            plane_doc = plane.docs.get(name)
+            reason = plane_doc.retire_reason if plane_doc is not None else None
+            self._fallback_to_cpu(document)
+            self._maybe_recycle(document, reason)
+            return False
+        # stamp the (sampled) update with a trace id BEFORE queueing: an
+        # executor-side flush can drain the queue the moment the op lands
+        book = plane.update_traces
+        trace_id = plane.note_trace(name) if book.enabled else None
+        # remote-origin applies (another instance, a replica stream) are
+        # kept out of the window's cross-instance frame
+        accepted = plane.enqueue_update(
+            name, update, remote=origin in (REDIS_ORIGIN, REPLICA_ORIGIN)
+        )
+        if trace_id is not None and not accepted:
+            book.unstamp(name, trace_id)
+        if not plane.is_supported(name):
+            # this very update degraded the doc; it broadcasts via CPU
+            plane_doc = plane.docs.get(name)
+            reason = plane_doc.retire_reason if plane_doc is not None else None
+            self._fallback_to_cpu(document)
+            self._maybe_recycle(document, reason)
+            return False
+        if accepted and self.governor is not None:
+            # feed the arrival-rate EWMA BEFORE scheduling: the cadence
+            # decision below reads it
+            self.governor.note_arrival(accepted)
+        self._schedule_flush()
+        self._schedule_broadcast()
+        return True
+
+    def _maybe_recycle(self, document, reason: "Optional[str]") -> None:
+        """Schedule a recycle for row-exhaustion retires ("capacity",
+        "plane_full", "overflow"): re-onboard with fresh rows lowered
+        from the live CPU snapshot. Content retires ("unsupported") and
+        desyncs never recycle."""
+        if reason not in ("capacity", "plane_full", "overflow"):
+            return
+        if document.name in self._recycle_declined:
+            return
+        self._spawn_tracked(self._recycle_capacity_doc(document))
+
+    async def _recycle_capacity_doc(self, document) -> None:
+        """Give a row-exhaustion-retired doc fresh arena rows: release
+        the exhausted rows, re-register, lower the live snapshot as
+        presync. If the live state itself nearly fills a row or the
+        plane has no spare rows, the doc stays on the CPU path rather
+        than thrash through recycles."""
+        from .scheduler import CLASS_CATCHUP
+
+        # catch-up class: recovery work for a live busy doc
+        ticket = await self.lane.admit(CLASS_CATCHUP, site="recycle")
+        try:
+            await self._recycle_capacity_doc_admitted(document)
+        finally:
+            ticket.release()
+
+    async def _recycle_capacity_doc_admitted(self, document) -> None:
+        from ..crdt import encode_state_as_update
+
+        name = document.name
+        plane = self.plane
+        async with plane.flush_lock:
+            if document.get_connections_count() <= 0:
+                return  # unloading anyway
+            if name in self._docs:
+                return  # already re-onboarded
+            if name in self._recycle_declined:
+                return  # a queued attempt ran after the verdict landed
+            existing = plane.docs.get(name)
+            if existing is None or not existing.retired:
+                return  # registration changed under us; leave it be
+            try:
+                plane.release(name)
+                plane.register(name)
+                plane.enqueue_update(name, encode_state_as_update(document), presync=True)
+                doc = plane.docs.get(name)
+                if doc is None or doc.lowerer.unsupported:
+                    self._recycle_declined.add(name)
+                    return  # live content unsupported/too big: stays on CPU
+                # guard retires use count=False: this incident was
+                # already counted when the original registration retired
+                for slot in doc.seqs.values():
+                    if plane.projected_len[slot] > plane.capacity * 3 // 4:
+                        plane.retire_doc(name, "capacity", count=False)
+                        self._recycle_declined.add(name)
+                        return  # no row headroom: recycling would thrash
+                if len(plane.free) < 2:
+                    # no spare rows: the next new sequence would
+                    # plane_full again immediately
+                    plane.retire_doc(name, "plane_full", count=False)
+                    self._recycle_declined.add(name)
+                    return
+                plane.counters["docs_recycled"] += 1
+                get_flight_recorder().record(name, "recycle")
+                self._attach_serving(name, document)
+            except Exception:
+                # a half-recycled registration would silently swallow
+                # ops: mark it retired so the doc lives on the CPU path
+                from ..server import logger as _logger_mod
+
+                _logger_mod.log_error(f"recycle failed for {name!r}; staying on CPU")
+                plane.retire_doc(name, "fallback", count=False)
+                return
+        self._schedule_flush()
+
+    def _detach_serving(self, name: str, document) -> None:
+        """Unhook a document from the plane's serving seams and drop its
+        serving caches (shared by CPU fallback and unload teardown)."""
+        if document is not None:
+            document.sync_source = None
+            document.broadcast_source = None
+        if self.serving is not None:
+            self.serving.forget(name, self.plane.docs.get(name))
+
+    def _fallback_to_cpu(self, document) -> None:
+        from ..crdt import encode_state_as_update
+
+        name = document.name
+        if self._docs.pop(name, None) is None:
+            return  # already degraded
+        self._detach_serving(name, document)
+        if name in self.plane.docs:
+            self.plane.retire_doc(name, "fallback")
+        self.plane.update_traces.drop(name)
+        get_flight_recorder().record(name, "degrade")
+        self.plane.counters["cpu_fallbacks"] += 1
+        # receivers may hold plane broadcasts only up to the last flush;
+        # ship the full CPU state once (dedup makes it a cheap no-op for
+        # anyone already current)
+        document.broadcast_update_frame(encode_state_as_update(document))
+
+    # -- flush ---------------------------------------------------------------
+
+    def _device_fault(self) -> None:
+        """Called inside the handler of a failed device step (a flush, or
+        a sync serve's flush and encode). On the card the error
+        propagates: a kernel that does not build or launch fails the
+        flush, the sync serve and the server loudly, and the CPU never
+        serves in the plane's place. On a CPU plane every served doc
+        degrades to the CPU document, as the JAX package's extension
+        does: the dead flush already consumed the captured ops, and only
+        the full-state fallback broadcast carries them."""
+        from ..server import logger as _logger_mod
+
+        if self.plane.device.type == "cuda":
+            _logger_mod.logger.error("plane device step failed on the card", exc_info=True)
+            raise
+        _logger_mod.logger.error("plane device step failed; degrading served docs to CPU", exc_info=True)
+        for document in list(self._docs.values()):
+            try:
+                self._fallback_to_cpu(document)
+            except Exception:
+                _logger_mod.log_error(f"CPU fallback failed for {document.name!r}")
+
+    def _broadcast_served(self, cross_instance: bool = True) -> None:
+        """One broadcast pass: every doc with new serve-log records gets
+        one merged frame. Pure host work (serve logs + cached health
+        rows) — never waits on the device flush; a desync the validator
+        finds a cycle later degrades that doc via full-state CPU
+        fallback, which supersedes any optimistic frames."""
+        if not self.serve:
+            return
+        plane = self.plane
+        dirty = list(plane.dirty)
+        plane.dirty.clear()
+        docs_by_name: dict = {}
+        served_dirty: list = []
+        for name in dirty:
+            document = self._docs.get(name)
+            if document is not None:
+                docs_by_name[name] = document
+                served_dirty.append(name)
+        # one vectorized health compare covers the common case; only
+        # suspects pay the per-doc check (which retires on failure)
+        try:
+            healthy, suspects = self.serving.filter_healthy(served_dirty)
+        except Exception:
+            from ..server import logger as _logger_mod
+
+            _logger_mod.log_error("vectorized health filter failed; falling back to per-doc checks")
+            healthy, suspects = [], served_dirty
+        for name in suspects:
+            document = docs_by_name[name]
+            # per-doc guard: any serving error degrades that doc only
+            try:
+                if self.serving.doc_healthy(name) is None:
+                    self._fallback_to_cpu(document)
+                    continue
+            except Exception:
+                self._degrade_one(name, document)
+                continue
+            healthy.append(name)
+        if not healthy:
+            return
+        try:
+            # per-doc encode failures come back in `failed`
+            pairs, failed = self.serving.build_broadcast_pairs(healthy)
+        except Exception:
+            # only the batch call itself can land here: a plane-level
+            # fault, so degrading the set is the honest outcome
+            for name in healthy:
+                self._degrade_one(name, docs_by_name[name])
+            return
+        for name in failed:
+            self._degrade_one(name, docs_by_name[name])
+        book = plane.update_traces
+        for name, pair in pairs:
+            document = docs_by_name[name]
+            try:
+                if pair is None:
+                    # empty window (e.g. presync-only records): close any
+                    # flushed traces anyway — fan-out was a no-op
+                    book.finish(name)
+                    continue
+                update, cross_update = pair
+                # window frames ride the document's broadcast tick
+                # (server/fanout.py); the lifecycle trace closes at
+                # LAST-SOCKET-ENQUEUE via the tick's completion callback
+                document.queue_broadcast(
+                    update,
+                    on_complete=(lambda t_last, _name=name: book.finish(_name, t_last)),
+                )
+                if cross_instance and cross_update is not None and self._instance is not None:
+                    # cross-instance fan-out rides the merged window
+                    # frame minus remote-origin ops
+                    self._spawn_tracked(
+                        self._instance.hooks(
+                            "on_plane_broadcast",
+                            Payload(
+                                instance=self._instance,
+                                document_name=name,
+                                document=document,
+                                update=cross_update,
+                            ),
+                        )
+                    )
+            except Exception:
+                self._degrade_one(name, document)
+
+    def _degrade_one(self, name: str, document) -> None:
+        from ..server import logger as _logger_mod
+
+        _logger_mod.log_error(f"plane broadcast failed for {name!r}; degrading to CPU path")
+        try:
+            self._fallback_to_cpu(document)
+        except Exception:
+            _logger_mod.log_error(f"CPU fallback failed for {name!r}")
+
+    async def _flush_now(self, max_batches: Optional[int] = 1, final: bool = False) -> None:
+        """Flush+serve with the DEVICE step off the event loop.
+
+        `plane.flush()` synchronizes with the card at its health readback;
+        it runs in the default executor (which makes the plane's device
+        current in its worker thread) so websockets keep pumping while
+        the card integrates. Reads on the event-loop thread stay ordered
+        after it: both use the device's default stream, under flush_lock.
+
+        Broadcasts do NOT run here: they build from the host serve logs
+        on their own timer (_schedule_broadcast), so the device cycle
+        only gates validation and sync serves, never the edit->observe
+        path. The cycle admits through the device lane as INTERACTIVE
+        before touching the flush lock. on_destroy passes final=True
+        with max_batches=None for a full drain, which waits for the lane
+        at most 5 s. A failed device step goes to `_device_fault`: it
+        raises on the card.
+        """
+        from .scheduler import CLASS_INTERACTIVE, CLASS_NAMES, LaneDeferred
+
+        if self._flush_inflight and not final:
+            return  # the in-flight cycle reschedules; don't stack waiters
+        self._flush_inflight = True
+        try:
+            try:
+                ticket = await self.lane.admit(
+                    CLASS_INTERACTIVE, site="flush", deadline_s=5.0 if final else None
+                )
+            except LaneDeferred as deferred:
+                # only the final drain has a deadline: teardown proceeds
+                # unarbitrated
+                get_flight_recorder().record(
+                    "__plane__",
+                    "flush_deferred",
+                    lane_class=CLASS_NAMES[deferred.lane_class],
+                    wait_ms=round(deferred.waited_s * 1000.0, 3),
+                )
+                ticket = None
+            try:
+                if self.governor is not None and max_batches == 1:
+                    congested = self.lane.contended()
+                    max_batches = self.governor.max_batches(self._policy_depth(), congested)
+                async with self.plane.flush_lock:
+                    try:
+                        await asyncio.get_event_loop().run_in_executor(
+                            None, lambda: self.plane.flush(max_batches)
+                        )
+                        if self.serve:
+                            self.serving.refresh()
+                    except Exception:
+                        self._device_fault()
+                        return
+                    if self.serve:
+                        self._validate_served()
+                if self.governor is not None:
+                    self.governor.note_cycle(self.plane.flush_stats)
+            finally:
+                if ticket is not None:
+                    ticket.release()
+            if self.plane.pending_ops() > 0:
+                self._schedule_flush()
+            elif self.governor is not None:
+                self.governor.note_park()
+        finally:
+            self._flush_inflight = False
+
+    def _validate_served(self) -> None:
+        """Post-flush desync sweep, vectorized over every slot: one numpy
+        compare of the flush's combined readback against the validated
+        dispatch tallies catches a device-side op rejection even when no
+        further edit or sync would touch the doc. Affected served docs
+        degrade to the CPU path via the full-state fallback broadcast."""
+        plane = self.plane
+        if plane.last_lengths is None or plane.last_gen is None:
+            return
+        bad = (
+            plane.slot_live
+            & (plane.last_gen == plane.slot_gen)
+            & ((plane.validated_units != plane.last_lengths) | plane.last_overflows)
+        )
+        if not bad.any():
+            return
+        for slot in np.nonzero(bad)[0]:
+            name = plane.slot_owner.get(int(slot))
+            if name is None:
+                continue
+            if self.serving.doc_healthy(name) is None:
+                document = self._docs.get(name)
+                if document is not None:
+                    self._fallback_to_cpu(document)
+
+    def _schedule_flush(self) -> None:
+        if self._flush_handle is not None:
+            return
+
+        def run() -> None:
+            self._flush_handle = None
+            self._spawn_tracked(self._flush_now())
+
+        if self.governor is not None:
+            # arrival-aware cadence: immediate full drain past the
+            # queue-depth watermark, base cadence under steady load or
+            # lane congestion, stretched ticks when arrivals are sparse
+            delay = self.governor.flush_delay_s(self._policy_depth(), self.lane.contended())
+        else:
+            delay = self.flush_interval_ms / 1000
+        self._flush_handle = asyncio.get_event_loop().call_later(delay, run)
+
+    def _policy_depth(self) -> int:
+        """Queued-op depth for GOVERNOR decisions only (5ms-stale)."""
+        now = time.monotonic()
+        if now - self._depth_cache_at > 0.005:
+            self._depth_cache = self.plane.pending_ops()
+            self._depth_cache_at = now
+        return self._depth_cache
+
+    def _schedule_broadcast(self) -> None:
+        if not self.serve or self._broadcast_handle is not None:
+            return
+        loop = asyncio.get_event_loop()
+
+        def run() -> None:
+            self._broadcast_handle = None
+            self._last_broadcast_at = loop.time()
+            self._broadcast_served()
+
+        # coalescing window only under sustained traffic: a lone edit
+        # after an idle gap broadcasts on the next loop tick, while
+        # back-to-back edits within the window share one frame per doc
+        window = self.broadcast_interval_ms / 1000
+        idle = loop.time() - self._last_broadcast_at
+        delay = 0.0 if idle >= window else window
+        self._broadcast_handle = loop.call_later(delay, run)

@@ -79,6 +79,12 @@ class SyncFrameCache:
             entries.popitem(last=False)
             self.evictions += 1
 
+    def forget(self, name: str) -> None:
+        """Drop a doc's entries outright (unload, degrade)."""
+        entries = self._by_name.pop(name, None)
+        if entries:
+            self.evictions += len(entries)
+
 
 def _wire_parent(parent: Optional[tuple]):
     """DenseOp parent tuple -> the Item.write representation."""
@@ -176,6 +182,16 @@ class PlaneServing:
             self.refresh()
         return self._length_cache
 
+    def forget(self, name: str, doc: Optional[PlaneDoc]) -> None:
+        """Drop every per-doc serving cache at unload/degrade time: the
+        sync cache holds the PlaneDoc and its whole serve log, so a
+        server churning through doc names would otherwise keep each."""
+        self.broadcast_cursor.pop(name, None)
+        self._sync_cache.forget(name)
+        if doc is not None:
+            for slot in doc.seqs.values():
+                self._tombstone_cache.pop(slot, None)
+
     # -- health -------------------------------------------------------------
 
     def doc_healthy(self, name: str) -> Optional[PlaneDoc]:
@@ -198,6 +214,45 @@ class PlaneServing:
         ):
             return None
         return doc
+
+    def filter_healthy(self, names: "list[str]") -> "tuple[list[str], list[str]]":
+        """(fast_ok, needs_check): one vectorized compare replaces the
+        per-doc health loop for the common case (registered, supported,
+        single-row doc whose cached device row matches its validated
+        tally). A stale-generation row fast-OKs, as check_doc_health
+        skips such slots too. needs_check gets the rest (unregistered,
+        unsupported, a mismatching current row, multi-row trees, no
+        snapshot yet) for doc_healthy, which also retires on failure."""
+        plane = self.plane
+        if self._length_cache is None or self._gen_cache is None:
+            return [], list(names)
+        candidates: list[str] = []
+        slots: list[int] = []
+        needs_check: list[str] = []
+        for name in names:
+            doc = plane.docs.get(name)
+            if doc is None or doc.lowerer.unsupported:
+                needs_check.append(name)
+                continue
+            doc_slots = list(doc.seqs.values())
+            if len(doc_slots) > 1:
+                needs_check.append(name)  # multi-row trees: full check
+                continue
+            candidates.append(name)
+            slots.append(doc_slots[0] if doc_slots else -1)
+        if not candidates:
+            return [], needs_check
+        arr = np.asarray(slots, np.int64)
+        rowless = arr < 0
+        safe = np.where(rowless, 0, arr)
+        gen_current = self._gen_cache[safe] == plane.slot_gen[safe]
+        mismatch = (self._validated_cache[safe] != self._length_cache[safe]) | self._overflow_cache[
+            safe
+        ]
+        ok = rowless | ~gen_current | ~mismatch
+        fast_ok = [name for name, good in zip(candidates, ok) if good]
+        needs_check.extend(name for name, good in zip(candidates, ok) if not good)
+        return fast_ok, needs_check
 
     def covers(self, name: str, document) -> bool:
         """Plane has integrated everything the CPU document has seen."""
@@ -387,6 +442,18 @@ class PlaneServing:
             self._tombstone_cache[slot] = ((gens[i], epoch), self._merge_ranges(raw))
         plane.counters["sync_encode_host"] += len(chunk)
 
+    def warmup_gathers(self, width: int) -> None:
+        """Launch the tombstone gather and the catch-up pack once at one
+        gather width, so the first reconnect storm pays transfers only.
+        The extension's listen-time warm task calls it once per width of
+        _gather_widths(), taking the flush lock for each."""
+        plane = self.plane
+        pack = catchup_pack_rle if plane.arena == "rle" else catchup_pack
+        with plane._step_lock, plane.device_scope():
+            self._gather_rows([0] * width)
+            slots = torch.zeros(width, dtype=torch.int32, device=plane.device)
+            pack(plane.state, slots, self._pack_width()).cpu()
+
     def _device_delete_set(self, doc: PlaneDoc) -> DeleteSet:
         """Tombstones as the DEVICE sees them, across every row of the
         doc, plus host-applied map-item tombstones."""
@@ -512,16 +579,29 @@ class PlaneServing:
         batch, self._catchup_queue = self._catchup_queue, []
         if not batch:
             return
-        # the whole drain — flush, refresh, triage, encode — holds the
-        # flush lock: every step reads device state
-        async with self.plane.flush_lock:
-            try:
-                await self._drain_catchup_locked(batch)
-            except Exception as error:
-                # a failed device step or encode reaches every waiting
-                # caller; nothing is served from the CPU in its place
-                for *_rest, future in batch:
-                    future.done() or future.set_exception(error)
+        plane = self.plane
+        # device-lane admission (tpu/scheduler.py): the drain flushes and
+        # runs the triage — interactive class, a joiner is blocked on the
+        # reply
+        ticket = None
+        if plane.lane is not None:
+            from .scheduler import CLASS_INTERACTIVE
+
+            ticket = await plane.lane.admit(CLASS_INTERACTIVE, site="sync")
+        try:
+            # the whole drain — flush, refresh, triage, encode — holds the
+            # flush lock: every step reads device state
+            async with plane.flush_lock:
+                try:
+                    await self._drain_catchup_locked(batch)
+                except Exception as error:
+                    # a failed device step or encode reaches every waiting
+                    # caller; nothing is served from the CPU in its place
+                    for *_rest, future in batch:
+                        future.done() or future.set_exception(error)
+        finally:
+            if ticket is not None:
+                ticket.release()
 
     async def _drain_catchup_locked(self, batch: list) -> None:
         import asyncio
@@ -576,6 +656,7 @@ class PlaneServing:
             torch.from_numpy(server).to(plane.device),
             torch.from_numpy(client).to(plane.device),
         )
+        plane._note_dispatch("sync")
         missing_from = missing_from.cpu().numpy()
         missing_len = missing_len.cpu().numpy()
         for i, (doc, _local, _target, columns, future) in enumerate(rows):
@@ -675,27 +756,42 @@ class TpuSyncSource:
 
     None hands the client to the CPU document (the doc is unhealthy or
     behind it, or its state vector does not decode) and counts one
-    `cpu_fallbacks`. An error of the device step propagates: a failed
-    kernel build or launch is never answered from the CPU."""
+    `cpu_fallbacks`. An error of the serve itself (a failed kernel build
+    or launch, a failed encode) goes to `on_fault`, called inside the
+    handler: without one it propagates. TpuMergeExtension passes its
+    `_device_fault`, which re-raises on the card and, on a CPU plane,
+    degrades the served docs; the CPU document then answers (counted)."""
 
-    def __init__(self, serving: PlaneServing, name: str, document) -> None:
+    def __init__(self, serving: PlaneServing, name: str, document, on_fault=None) -> None:
         self.serving = serving
         self.name = name
         self.document = document
+        self.on_fault = on_fault
 
     def _counted(self, payload: Optional[bytes]) -> Optional[bytes]:
         if payload is None:
             self.serving.plane.counters["cpu_fallbacks"] += 1
         return payload
 
+    def _fault(self) -> None:
+        if self.on_fault is None:
+            raise
+        self.on_fault()
+
     def encode_state_as_update(self, sv_bytes: Optional[bytes]) -> Optional[bytes]:
-        return self._counted(
-            self.serving.encode_state_as_update(self.name, self.document, sv_bytes)
-        )
+        try:
+            payload = self.serving.encode_state_as_update(self.name, self.document, sv_bytes)
+        except Exception:
+            self._fault()
+            payload = None
+        return self._counted(payload)
 
     async def encode_state_as_update_async(self, sv_bytes: Optional[bytes]) -> Optional[bytes]:
         """Batched (storm) variant: concurrent SyncStep1s share one
         state-vector-diff triage — see PlaneServing.batched_sync."""
-        return self._counted(
-            await self.serving.batched_sync(self.name, self.document, sv_bytes)
-        )
+        try:
+            payload = await self.serving.batched_sync(self.name, self.document, sv_bytes)
+        except Exception:
+            self._fault()
+            payload = None
+        return self._counted(payload)

@@ -364,3 +364,97 @@ def test_launch_setup_grows_its_shared_memory_in_one_process(cuda, arena):
     for width, sizes in ((64, [0, 10, 30]), (1024, [5, 300, 900]), (4096, [50, 2000, 3000])):
         state, next_clock = typed_rows(arena, sizes, width)
         assert_dispatch_matches(arena, cuda, state, random_ops(rng, next_clock, 4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arena", ["unit", "rle"])
+def test_served_path_through_the_extension_on_the_card(cuda, arena):
+    """8 docs x 3 in-process providers through the port's server core and
+    TpuMergeExtension on the card (chip_smoke.run_server at a small
+    size): every provider converges, the served bytes rebuild every doc,
+    and the arena's kernel launches from the server path."""
+    import asyncio
+
+    from chip_smoke import run_server
+
+    ext, out = asyncio.run(
+        run_server(np.random.default_rng(3), arena, 8, 1024, 3, rounds=3, device=cuda)
+    )
+    counters = out["counters"]
+    assert sum(out["integrate_launches"].values()) > 0
+    assert counters["cpu_fallbacks"] == 0
+    assert not any(v for k, v in counters.items() if k.startswith("docs_retired_"))
+    assert counters["plane_broadcasts"] > 0 and counters["sync_serves"] >= 16
+    assert out["served_docs"] == 8
+    assert out["warm_launches"]["unwarmed"] == 0
+    assert ext.plane.device.type == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arena", ["unit", "rle"])
+def test_a_failed_launch_on_the_card_fails_the_flush_and_the_sync_serve(cuda, arena, monkeypatch):
+    """A kernel launch that fails on the card (a nonzero cudaError_t from
+    the C entry, injected) propagates out of the extension's flush and
+    out of both sync serves; no doc moves to the CPU document."""
+    import asyncio
+
+    from hocuspocus_tpu_torch.provider import HocuspocusProvider, InProcessProviderSocket
+    from hocuspocus_tpu_torch.server import Configuration, Hocuspocus
+    from hocuspocus_tpu_torch.server.types import Payload
+    from hocuspocus_tpu_torch.tpu import TpuMergeExtension
+    from hocuspocus_tpu_torch.tpu.scheduler import reset_device_lane
+
+    async def until(condition):
+        for _ in range(3000):
+            if condition():
+                return
+            await asyncio.sleep(0.01)
+        raise AssertionError("condition not met in 30 s")
+
+    async def body():
+        reset_device_lane()
+        ext = TpuMergeExtension(
+            num_docs=8, capacity=1024, serve=True, arena=arena, device=cuda,
+            governor=False, flush_interval_ms=60_000,
+        )
+        core = Hocuspocus(Configuration(quiet=True, extensions=[ext]))
+        await core.ensure_configured()
+        provider = HocuspocusProvider(name="d", websocket_provider=InProcessProviderSocket(core))
+        provider.attach()
+        await until(lambda: provider.synced)
+        text = provider.document.get_text("t")
+        text.insert(0, "typed at the end")
+        await until(lambda: ext.plane.pending_ops() > 0)
+        await ext._flush_now(max_batches=None, final=True)
+        document = core.documents["d"]
+        launches = {"n": 0}
+
+        def failing_launch(self, *args):
+            launches["n"] += 1
+            raise RuntimeError(f"{self.source.stem} kernel launch failed: injected")
+
+        monkeypatch.setattr(ti.KernelLibrary, "launch", failing_launch)
+        try:
+            for step in ("flush", "sync", "sync_async"):
+                text.insert(0, f"{step}: ")  # mid-text: the integrate kernel, not the append path
+                await until(lambda: ext.plane.pending_ops() > 0)
+                with pytest.raises(RuntimeError, match="injected"):
+                    if step == "flush":
+                        await ext._flush_now(max_batches=None, final=True)
+                    elif step == "sync":
+                        document.sync_source.encode_state_as_update(None)
+                    else:
+                        await document.sync_source.encode_state_as_update_async(None)
+            assert launches["n"] >= 3
+            assert ext.plane.counters["cpu_fallbacks"] == 0
+            assert not any(
+                v for k, v in ext.plane.counters.items() if k.startswith("docs_retired_")
+            )
+            assert "d" in ext._docs
+        finally:
+            monkeypatch.undo()
+            provider.destroy()
+            provider.websocket_provider.destroy()
+            await core.hooks("on_destroy", Payload(instance=core))
+
+    asyncio.run(body())

@@ -63,6 +63,45 @@ def test_merge_plane_raises_without_cuda_unless_asked_for_the_cpu():
     assert "CPU rle RleState cpu" in out, out
 
 
+NO_AIOHTTP = """
+import sys
+sys.modules["aiohttp"] = None  # an import of it now raises ImportError
+import hocuspocus_tpu_torch.server
+import hocuspocus_tpu_torch.provider
+import hocuspocus_tpu_torch.tpu.merge_plane
+from hocuspocus_tpu_torch.provider import HocuspocusProvider, InProcessProviderSocket
+from hocuspocus_tpu_torch.server import Configuration, Hocuspocus
+try:
+    hocuspocus_tpu_torch.server.Server
+except ImportError:
+    print("SERVER NEEDS AIOHTTP")
+print("IMPORTED")
+"""
+
+EXTENSION_NO_CUDA = """
+from hocuspocus_tpu_torch.tpu import TpuMergeExtension
+for arena in ("unit", "rle"):
+    try:
+        TpuMergeExtension(arena=arena)
+    except RuntimeError as error:
+        print("RAISED", arena, error)
+    ext = TpuMergeExtension(num_docs=2, capacity=8, device="cpu", arena=arena, serve=True)
+    print("CPU", arena, ext.plane.state[0].device)
+"""
+
+
+def test_server_packages_import_without_aiohttp():
+    out = _run(NO_AIOHTTP)
+    assert "IMPORTED" in out and "SERVER NEEDS AIOHTTP" in out, out
+
+
+def test_extension_raises_without_cuda_unless_asked_for_the_cpu():
+    out = _run(EXTENSION_NO_CUDA, CUDA_VISIBLE_DEVICES="")
+    for arena in ("unit", "rle"):
+        assert f"RAISED {arena} MergePlane needs a CUDA device" in out, out
+        assert f"CPU {arena} cpu" in out, out
+
+
 def test_chip_smoke_refuses_to_run_without_cuda():
     proc = subprocess.run(
         [sys.executable, "chip_smoke.py"],
