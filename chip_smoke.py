@@ -5,18 +5,24 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It builds the Hopper integrate kernels from `hocuspocus_tpu_torch/csrc/`
-(K1 for the unit arena, K2 for the run-length arena, one nvcc each, both
-started together), holds each against its plain PyTorch version (bit for
+It first builds the port's native codec and text lane with g++ from
+`hocuspocus_tpu_torch/native/` (phase `native_build`), then the Hopper
+integrate kernels from `hocuspocus_tpu_torch/csrc/` (K1 for the unit
+arena, K2 for the run-length arena, one nvcc each, both started
+together), holds each kernel against its plain PyTorch version (bit for
 bit) at the bench shape and at deployment scale, then drives the merge
-plane + serving path (`MergePlane` on the card, `PlaneServing`,
-`TpuSyncSource`) over each arena with concurrent Yjs editors and checks
-every served byte against a second plane on the CPU, and last drives the
-served path over each arena: the port's Hocuspocus core with
-`TpuMergeExtension(serve=True)` and 10,240 in-process providers editing
-1,024 docs, then two join waves (phases `server`, `rle_server`), each
-path's biggest integrate batch replayed through the kernel and the
-plain version (`server_replay`, `rle_server_replay`). Each phase prints
+plane + serving path (`MergePlane`, `PlaneServing`, `TpuSyncSource`)
+over each arena with concurrent Yjs editors through three planes: on
+the card with the native text lane, on the card on the Python host
+path, and on the CPU on the Python host path, every arena element and
+served byte held equal after every flush. Last it drives the served
+path over each arena: the port's Hocuspocus core with
+`TpuMergeExtension(serve=True)` (the native text lane on, its default)
+and 10,240 in-process providers editing 1,024 docs, then two join waves
+(phases `server`, `rle_server`), and the same path with
+`native_lane=False` (`server_python`, `rle_server_python`),
+each path's biggest integrate batch replayed through the kernel and the
+plain version (`server_replay`, `rle_server_replay`, ...). Each phase prints
 one line; any failure exits nonzero. A kernel phase's `ms` is the
 kernels' device time per launch: the launch entry (`integrate_rows_cuda`
 / `integrate_rle_rows_cuda`) is timed with CUDA events, 8 launches back
@@ -32,10 +38,14 @@ checkout, it exits nonzero and prints no result.
 from __future__ import annotations
 
 import argparse
+import asyncio
+import collections
+import gc
 import json
 import random
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -72,16 +82,27 @@ OPS_RLE_INSERT = OPS_RLE_ORIGINS + OPS_RLE_CONFLICT + OPS_RLE_SPLIT + OPS_RLE_BU
 OPS_RLE_BOUND = 6  # :207-215 each id bound's scan: ==, <, add, <, two ands
 OPS_RLE_COVER = 6  # :224-230 tombstone pass: ==, >=, add, <=, two ands
 RLE_BYTES_PER_ENTRY = 21  # 5 int32 fields + a bool
-# plane rounds per arena: the host work of a round grows with the docs,
-# and the whole script keeps to about five minutes on the card
-UNIT_PLANE_ROUNDS = 12
-RLE_PLANE_ROUNDS = 12
+# plane rounds per arena: a round's host work grows with the docs and the
+# planes (three since the text lane: about 15 s a round on the card), cut
+# so that the whole script keeps to about 13 minutes there
+UNIT_PLANE_ROUNDS = 8
+RLE_PLANE_ROUNDS = 8
 # the served path (phases server, rle_server): BASELINE config 2's 1,024
 # docs x 10 clients at capacity 4,096, uncut; only the rounds are cut
 # (each round is 10,240 edits through the server core on one host thread)
 SERVER_CLIENTS = 10
 SERVER_ROUNDS = 6
 SERVER_CUTS = {"rounds": "6 rounds of one edit per provider"}
+# the served path on the Python host path (native_lane=False), kept driven
+# at full width so that its host timings stand beside the lane's; only
+# the rounds are cut further
+PYTHON_SERVER_ROUNDS = 3
+PYTHON_SERVER_CUTS = {"rounds": "3 rounds of one edit per provider"}
+# PERF.md's budget for one flush cycle of the plane phases
+FLUSH_BUDGET_MS = 50.0
+# the main path's parts, in the kernels' record: plane (the lane and the
+# Python card planes), server (native lane), server_python
+PATHS = ("plane", "server", "server_python")
 
 CLIENTS = np.asarray([7, 0x9000_0001], np.uint32)
 NONE = 0xFFFFFFFF
@@ -400,6 +421,26 @@ def nvidia_smi_line() -> str:
         check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def phase_native_build():
+    """Build the port's native codec and text lane (g++, the checkout's
+    `hocuspocus_tpu_torch/native/*.cpp`) and load it; a failed build
+    raises out of the smoke."""
+    from hocuspocus_tpu_torch import native
+
+    started = time.perf_counter()
+    codec = native.get_codec()
+    check(codec.__name__ == native.MODULE_NAME, f"native: loaded {codec.__name__}")
+    check(hasattr(codec, "lane_drain"), "native: the module has no text lane")
+    emit(
+        "native_build",
+        module=codec.__name__,
+        path=native.build_info["path"],
+        python_include=native.build_info["include"],
+        gxx_seconds=round(native.build_info["seconds"], 3),
+        seconds=round(time.perf_counter() - started, 3),
+    )
 
 
 def phase_build():
@@ -799,15 +840,20 @@ class Recorder:
         setattr(self.module, self.names[1], self.sparse)
 
 
-def run_plane(rng, devices, num_docs, capacity, clients, rounds, on_flush=None, arena="unit"):
+def run_plane(rng, devices, num_docs, capacity, clients, rounds, on_flush=None, arena="unit",
+              lanes=None, launch_count=None):
     """Drive MergePlane(arena=...) + PlaneServing on each device in
     `devices` with the same concurrent Yjs stream: `clients` replicas per doc, every
     editor edits its own replica before it sees the others' edits, and
-    the updates reach the planes shuffled. After every flush, for every
-    doc, the bytes TpuSyncSource serves cold and for a stale state
-    vector must rebuild the converged text, and match across planes
-    byte for byte. Returns (planes, per-round flush seconds of the
-    first plane, checks)."""
+    the updates reach the planes shuffled. `lanes[i]` puts every doc of
+    plane i on the native text lane (the default: no lane). Before every
+    flush the broadcast windows must match across planes byte for byte;
+    after it, for every doc, the bytes TpuSyncSource serves cold and for
+    a stale state vector must rebuild the converged text, and match
+    across planes byte for byte. `launch_count()`, when given, is read
+    around each plane's flush, and so are the garbage collector's
+    collections. Returns (planes, per-plane per-round flush seconds,
+    per-plane per-round collections, checks, per-plane launches)."""
     from hocuspocus_tpu_torch.crdt import Doc, apply_update, encode_state_vector
     from hocuspocus_tpu_torch.tpu import MergePlane, PlaneServing, TpuSyncSource
 
@@ -816,6 +862,11 @@ def run_plane(rng, devices, num_docs, capacity, clients, rounds, on_flush=None, 
     ]
     servings = [PlaneServing(p) for p in planes]
     names = [f"doc-{i}" for i in range(num_docs)]
+    for plane, lane in zip(planes, lanes or [False] * len(planes)):
+        if lane:
+            plane.enable_lane()
+            for name in names:
+                check(plane.register_lane(name) is not None, f"{name}: no lane slot")
     replicas, outboxes, joiners = [], [], []
     remote = object()  # origin of relayed applies: replicas do not re-send them
     for _ in names:
@@ -836,7 +887,9 @@ def run_plane(rng, devices, num_docs, capacity, clients, rounds, on_flush=None, 
         replicas.append(docs)
         outboxes.append(boxes)
         joiners.append(Doc())  # a reconnecting client, synced only by stale serves
-    flush_seconds = []
+    flush_seconds = [[] for _ in planes]
+    flush_gcs = [[] for _ in planes]
+    launches = [0 for _ in planes]
     served_bytes = 0
     for round_no in range(rounds):
         for i, name in enumerate(names):
@@ -866,11 +919,23 @@ def run_plane(rng, devices, num_docs, capacity, clients, rounds, on_flush=None, 
                     for src, update in sent:
                         if src != j:
                             apply_update(doc, update, remote)
-        started = time.perf_counter()
-        planes[0].flush()
-        flush_seconds.append(time.perf_counter() - started)
-        for plane in planes[1:]:
-            plane.flush()
+        windows = [serving.build_broadcast_pairs(names) for serving in servings]
+        for pairs, failed in windows:
+            check(not failed, f"round {round_no}: window encodes failed for {failed}")
+            check(dict(pairs) == dict(windows[0][0]), f"round {round_no}: windows differ across planes")
+        # the card planes take turns flushing first
+        order = list(range(len(planes)))
+        if round_no % 2:
+            order[0], order[1] = order[1], order[0]
+        for k in order:
+            before = launch_count() if launch_count is not None else 0
+            gc_before = sum(g["collections"] for g in gc.get_stats())
+            started = time.perf_counter()
+            planes[k].flush()
+            flush_seconds[k].append(time.perf_counter() - started)
+            flush_gcs[k].append(sum(g["collections"] for g in gc.get_stats()) - gc_before)
+            if launch_count is not None:
+                launches[k] += launch_count() - before
         for serving in servings:
             serving.refresh()
         if on_flush is not None:
@@ -896,7 +961,7 @@ def run_plane(rng, devices, num_docs, capacity, clients, rounds, on_flush=None, 
             apply_update(joiners[i], stale[0])
             check(joiners[i].get_text("t").to_string() == want, f"{name}: stale serve text differs")
             served_bytes += len(cold[0]) + len(stale[0])
-    return planes, flush_seconds, {"served_bytes": served_bytes}
+    return planes, flush_seconds, flush_gcs, {"served_bytes": served_bytes}, launches
 
 
 # per arena: the tag prefix, the plane's dispatch attributes the recorder
@@ -915,9 +980,13 @@ ARENAS = {
 
 def phase_plane(rng, arena, num_docs, capacity, clients, rounds):
     """The main path over one arena: BASELINE config 2 through
-    MergePlane(arena=...) on the card, with a twin plane on the CPU.
-    The kernel's launch counts are set to 0 just before and read just
-    after."""
+    MergePlane(arena=...) on the card with every doc on the native text
+    lane (the served path's default host path), beside a card plane on
+    the Python host path and a CPU plane on the Python host path. The
+    three arenas must agree element for element and the served bytes
+    byte for byte after every flush; the two card planes' flush times and
+    stages are reported side by side. The kernel's launch counts are set
+    to 0 just before and read just after."""
     from hocuspocus_tpu_torch.tpu import integrate as ti
     from hocuspocus_tpu_torch.tpu import merge_plane as mp
 
@@ -925,40 +994,76 @@ def phase_plane(rng, arena, num_docs, capacity, clients, rounds):
     tag = spec["tag"] + "plane"
     dense_name, sparse_name = spec["wrap"]
     arena_checks = []
-    stages = []
+    stages = {"lane": [], "python": []}
     peaks = {"num_runs": 0, "total_units": 0}
     recorder = Recorder(mp, dense_name, sparse_name)
 
     def compare(planes):
-        gpu, cpu = planes
-        stages.append(dict(gpu.flush_stats))
-        check(states_equal(cpu.state, gpu.state), f"{tag}: CUDA and CPU arenas differ")
+        lane, python, cpu = planes
+        stages["lane"].append(dict(lane.flush_stats))
+        stages["python"].append(dict(python.flush_stats))
+        check(states_equal(cpu.state, lane.state), f"{tag}: lane (CUDA) and CPU arenas differ")
+        check(states_equal(cpu.state, python.state), f"{tag}: Python (CUDA) and CPU arenas differ")
         arena_checks.append(True)
         if arena == "rle":
-            peaks["num_runs"] = max(peaks["num_runs"], int(gpu.state.num_runs.max()))
-            peaks["total_units"] = max(peaks["total_units"], int(gpu.state.total_units.max()))
-        recorder.after_flush(gpu.state)
+            peaks["num_runs"] = max(peaks["num_runs"], int(lane.state.num_runs.max()))
+            peaks["total_units"] = max(peaks["total_units"], int(lane.state.total_units.max()))
+        recorder.after_flush(lane.state)
 
     dense_fn, sparse_fn = getattr(ti, dense_name), getattr(ti, sparse_name)
     started = time.perf_counter()
     dense_fn.launches = sparse_fn.launches = 0
     with recorder:
-        planes, flush_s, extra = run_plane(
-            rng, ["cuda", "cpu"], num_docs, capacity, clients, rounds,
-            on_flush=compare, arena=arena,
+        planes, flush_s, flush_gcs, extra, by_plane = run_plane(
+            rng, ["cuda", "cuda", "cpu"], num_docs, capacity, clients, rounds,
+            on_flush=compare, arena=arena, lanes=[True, False, False],
+            launch_count=lambda: dense_fn.launches + sparse_fn.launches,
         )
     launches = {dense_name: dense_fn.launches, sparse_name: sparse_fn.launches}
     total_launches = sum(launches.values())
-    gpu = planes[0]
-    counters = gpu.counters
+    lane = planes[0]
+    counters = lane.counters
     retired = {k: v for k, v in counters.items() if k.startswith("docs_retired_")}
-    check(total_launches > 0, f"{tag}: the integrate kernel never launched")
+    check(by_plane[0] > 0, f"{tag}: the integrate kernel never launched from the lane plane")
+    check(by_plane[1] > 0, f"{tag}: the integrate kernel never launched from the Python plane")
     check(counters["flush_fast_ops"] > 0, f"{tag}: no op took the append fast path")
     check(counters["flush_slow_ops"] > 0, f"{tag}: no op took the integrate path")
     check(counters["cpu_fallbacks"] == 0, f"{tag}: CPU fallbacks happened")
     check(not any(retired.values()), f"{tag}: docs retired {retired}")
-    check(counters == planes[1].counters, f"{tag}: CUDA and CPU counters differ")
-    flush_ms = np.asarray(flush_s) * 1e3
+    check(all(lane.docs[f"doc-{i}"].lane_slot is not None for i in range(num_docs)),
+          f"{tag}: a doc left the native lane")
+    for other in planes[1:]:
+        check(counters == other.counters, f"{tag}: the planes' counters differ")
+
+    def timing(k, key):
+        # with a flush per round the p99 is near the maximum: every
+        # round's flush is listed, with its stages and the collections
+        # the garbage collector ran inside it, and the flushes over the
+        # budget are counted
+        flush_ms = np.asarray(flush_s[k]) * 1e3
+        stage_names = ("build_ms", "upload_ms", "dispatch_ms", "device_sync_ms")
+        return {
+            "flush_samples": len(flush_ms),
+            "flush_p50_ms": float(np.percentile(flush_ms, 50)),
+            "flush_p99_ms": float(np.percentile(flush_ms, 99)),
+            "flush_max_ms": float(flush_ms.max()),
+            "flushes_over_budget": int((flush_ms > FLUSH_BUDGET_MS).sum()),
+            "flush_stage_p50_ms": {
+                stage: float(np.median([s[stage] for s in stages[key]])) for stage in stage_names
+            },
+            "rounds": [
+                {
+                    "ms": float(ms),
+                    "first": (r % 2 == 0) == (k == 0),
+                    "gc": gcs,
+                    "batches": st["batches"],
+                    **{stage: st[stage] for stage in stage_names},
+                }
+                for r, (ms, gcs, st) in enumerate(zip(flush_ms, flush_gcs[k], stages[key]))
+            ],
+            "integrate_launches": by_plane[k],
+        }
+
     if arena == "rle":
         extra = {
             "peak_num_runs": peaks["num_runs"],
@@ -984,20 +1089,15 @@ def phase_plane(rng, arena, num_docs, capacity, clients, rounds):
         cpu_fallbacks=counters["cpu_fallbacks"],
         docs_retired=retired,
         sync_serves=counters["sync_serves"],
-        flush_samples=len(flush_ms),
-        flush_p50_ms=float(np.percentile(flush_ms, 50)),
-        flush_p99_ms=float(np.percentile(flush_ms, 99)),
-        flush_stage_p50_ms={
-            key: float(np.median([s[key] for s in stages]))
-            for key in ("build_ms", "upload_ms", "dispatch_ms", "device_sync_ms")
-        },
+        lane_plane=timing(0, "lane"),
+        python_plane=timing(1, "python"),
         fast_path_fraction=round(
             counters["flush_fast_ops"]
             / max(counters["flush_fast_ops"] + counters["flush_slow_ops"], 1),
             6,
         ),
         arena_equal_checks=len(arena_checks),
-        cuda_cpu_bytes_equal=True,
+        planes_bytes_equal=True,
         **extra,
     )
     return total_launches, recorder.best
@@ -1087,7 +1187,7 @@ def phase_replay(recorded, arena, reps):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def phase_served_replay(recorded, arena):
+def phase_served_replay(recorded, arena, suffix=""):
     """The served path's integrate batch with the most ops, replayed
     through the dispatcher the plane calls (the kernel) and through the
     plain version, each on its own copy of the same arena snapshot: the
@@ -1098,7 +1198,7 @@ def phase_served_replay(recorded, arena):
     from hocuspocus_tpu_torch.tpu import kernels as tk
     from hocuspocus_tpu_torch.tpu import kernels_rle as tr
 
-    tag = ARENAS[arena]["tag"] + "server_replay"
+    tag = ARENAS[arena]["tag"] + "server" + suffix + "_replay"
     check(recorded is not None, f"{tag}: no integrate batch was recorded")
     count, state0, ops, slots = recorded
     dense_name, sparse_name = ARENAS[arena]["wrap"]
@@ -1199,7 +1299,6 @@ class EditClock:
 
 async def _converge(pairs, deadline: float, what: str) -> None:
     """Wait until every (provider, server Document) pair holds one text."""
-    import asyncio
 
     left = list(pairs)
     while left:
@@ -1213,8 +1312,98 @@ async def _converge(pairs, deadline: float, what: str) -> None:
         await asyncio.sleep(0.02)
 
 
+class HostSeams:
+    """Wall time of the served path's host calls, on whichever thread
+    makes them. The lane's C++ never lets the interpreter lock go, so a
+    `lane.*` call's wall time is the time it holds the lock; the Python
+    host path's seams (`enqueue_update`, `broadcast_windows`, `drain`)
+    let it go every `sys.getswitchinterval()`. `flush_wait` is each
+    flush's wait from its executor submit to its start on the worker
+    thread; `flush_wall` and `flush_cpu` are the flush's own wall and
+    thread CPU time there, so their difference is the time the flush
+    thread spent off the CPU (the lock, or a blocking device wait).
+    `gc<generation>.<loop|worker>` is each garbage collection's time, by
+    the thread that ran it; a collection holds the lock throughout."""
+
+    def __init__(self) -> None:
+        self.samples = collections.defaultdict(list)
+        self._gc_started = 0.0
+
+    def collected(self, phase, info) -> None:
+        """The `gc.callbacks` hook."""
+        if phase == "start":
+            self._gc_started = time.perf_counter()
+            return
+        where = "loop" if threading.current_thread() is threading.main_thread() else "worker"
+        key = f"gc{info['generation']}.{where}"
+        self.samples[key].append(time.perf_counter() - self._gc_started)
+
+    def timed(self, key, fn):
+        samples = self.samples[key]
+
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                samples.append(time.perf_counter() - t0)
+
+        return call
+
+    def reset(self) -> None:
+        for samples in self.samples.values():
+            samples.clear()
+
+    def summary(self) -> dict:
+        out = {}
+        for key, samples in sorted(self.samples.items()):
+            if samples:
+                ms = np.asarray(samples) * 1e3
+                out[key] = {
+                    "n": len(ms),
+                    "total_ms": float(ms.sum()),
+                    "p50_ms": float(np.percentile(ms, 50)),
+                    "p99_ms": float(np.percentile(ms, 99)),
+                    "max_ms": float(ms.max()),
+                }
+        return out
+
+
+class _TimedCodec:
+    """The native module with every function timed under `lane.<name>`."""
+
+    def __init__(self, codec, seams: HostSeams) -> None:
+        self._codec, self._seams = codec, seams
+
+    def __getattr__(self, name):
+        fn = self._seams.timed(f"lane.{name}", getattr(self._codec, name))
+        setattr(self, name, fn)
+        return fn
+
+
+class _TimedExecutor(ThreadPoolExecutor):
+    """The loop's default executor, timing each flush from its submit to
+    its start on a worker thread."""
+
+    def __init__(self, seams: HostSeams) -> None:
+        super().__init__(thread_name_prefix="flush")
+        self._waits = seams.samples["flush_wait"]
+
+    def submit(self, fn, /, *args, **kwargs):
+        if "_flush_now" not in getattr(fn, "__qualname__", ""):
+            return super().submit(fn, *args, **kwargs)
+        submitted = time.perf_counter()
+        waits = self._waits
+
+        def run():
+            waits.append(time.perf_counter() - submitted)
+            return fn(*args, **kwargs)
+
+        return super().submit(run)
+
+
 async def run_server(rng, arena, num_docs, capacity, clients, rounds, device="cuda",
-                     profile_kernels=False, recorder=None):
+                     profile_kernels=False, recorder=None, native_lane=True):
     """The served path over one arena: the port's Hocuspocus core with
     TpuMergeExtension(serve=True, every scheduling knob at its default)
     and `clients` HocuspocusProviders per doc, each on an in-process
@@ -1225,10 +1414,11 @@ async def run_server(rng, arena, num_docs, capacity, clients, rounds, device="cu
     own: the first is served from device state, the second from the
     sync cache. A `recorder` (Recorder) keeps the traffic's biggest
     integrate batch. Last, one more edit per doc is flushed on the loop
-    thread with the loop held (`idle_flush`). Returns (the extension, the
-    phase's numbers)."""
+    thread with the loop held (`idle_flush`). `native_lane` is the
+    extension's option (on by default, as there). HostSeams times the
+    host calls through the traffic (`host_traffic`) and the join waves
+    (`host_joins`). Returns (the extension, the phase's numbers)."""
     import contextlib
-    import asyncio
 
     from hocuspocus_tpu_torch.crdt import Doc, apply_update, encode_state_vector
     from hocuspocus_tpu_torch.provider import HocuspocusProvider, InProcessProviderSocket
@@ -1239,9 +1429,12 @@ async def run_server(rng, arena, num_docs, capacity, clients, rounds, device="cu
     from hocuspocus_tpu_torch.tpu.scheduler import reset_device_lane
 
     reset_device_lane()
+    seams = HostSeams()
+    asyncio.get_running_loop().set_default_executor(_TimedExecutor(seams))
     started = time.perf_counter()
     ext = TpuMergeExtension(
-        num_docs=num_docs, capacity=capacity, serve=True, arena=arena, device=device
+        num_docs=num_docs, capacity=capacity, serve=True, arena=arena, device=device,
+        native_lane=native_lane,
     )
     core = Hocuspocus(Configuration(quiet=True, extensions=[ext]))
     await core.ensure_configured()
@@ -1253,17 +1446,28 @@ async def run_server(rng, arena, num_docs, capacity, clients, rounds, device="cu
     plane = ext.plane
     cycles = []  # (seconds, flush_stats) of every flush that integrated ops
     real_flush = plane.flush
+    flush_wall, flush_cpu = seams.samples["flush_wall"], seams.samples["flush_cpu"]
 
     def timed_flush(max_batches=None):
-        t0 = time.perf_counter()
+        t0, c0 = time.perf_counter(), time.thread_time()
         count = real_flush(max_batches)
+        wall = time.perf_counter() - t0
+        flush_wall.append(wall)
+        flush_cpu.append(time.thread_time() - c0)
         if count:
-            cycles.append((time.perf_counter() - t0, dict(plane.flush_stats)))
+            cycles.append((wall, dict(plane.flush_stats)))
         if recorder is not None:
             recorder.after_flush(plane.state)
         return count
 
     plane.flush = timed_flush
+    plane.enqueue_update = seams.timed("enqueue_update", plane.enqueue_update)
+    plane._drain_ops = seams.timed("drain", plane._drain_ops)
+    ext.serving.build_broadcast_pairs = seams.timed(
+        "broadcast_windows", ext.serving.build_broadcast_pairs
+    )
+    if plane._lane_codec is not None:
+        plane._lane_codec = _TimedCodec(plane._lane_codec, seams)
     names = [f"doc-{i}" for i in range(num_docs)]
     groups = []
     for name in names:
@@ -1289,6 +1493,8 @@ async def run_server(rng, arena, num_docs, capacity, clients, rounds, device="cu
     if recorder is not None:
         recorder.before = clone_state(plane.state)
     dense_fn.launches = sparse_fn.launches = 0
+    seams.reset()
+    gc.callbacks.append(seams.collected)
     traffic_started = time.perf_counter()
     profiler = None
     if profile_kernels:
@@ -1319,8 +1525,12 @@ async def run_server(rng, arena, num_docs, capacity, clients, rounds, device="cu
                 await asyncio.sleep(0.005)
             traffic_seconds = time.perf_counter() - traffic_started
             integrated = sum(plane.counters[key] - base[key] for key in base)
+            host_traffic = seams.summary()
+            seams.reset()
             joins, joiners = await _join_waves(core, names, plane)
+            host_joins = seams.summary()
     finally:
+        gc.callbacks.remove(seams.collected)
         if profiler is not None:
             profiler.__exit__(None, None, None)
     profiled_seconds = time.perf_counter() - traffic_started
@@ -1357,6 +1567,9 @@ async def run_server(rng, arena, num_docs, capacity, clients, rounds, device="cu
         kernel_ms = kernel_us / 1e3 if kernel_us else None
     counters = dict(plane.counters)
     served_docs = sum(name in ext._docs for name in names)
+    lane_docs = sum(
+        name in plane.docs and plane.docs[name].lane_slot is not None for name in names
+    )
     lane = ext.lane.snapshot()["counters"] if ext.lane is not None else None
     governor = ext.governor.snapshot()["counters"] if ext.governor is not None else None
     warm = plane.compile_watch
@@ -1388,8 +1601,13 @@ async def run_server(rng, arena, num_docs, capacity, clients, rounds, device="cu
         "kernel_device_ms": kernel_ms,
         "kernel_device_share": None if kernel_ms is None else kernel_ms / 1e3 / profiled_seconds,
         "idle_flush": idle_flush,
+        "switch_interval_ms": sys.getswitchinterval() * 1e3,
+        "host_traffic": host_traffic,
+        "host_joins": host_joins,
         "peak_resident_providers": len(everyone) + len(joiners),
         "served_docs": served_docs,
+        "native_lane": ext.native_lane,
+        "lane_docs": lane_docs,
         "counters": counters,
         "lane": lane,
         "governor": governor,
@@ -1405,7 +1623,6 @@ async def _idle_flush(ext, core, groups, rng, flush) -> dict:
     other Python thread wanting the interpreter lock. Its stages set
     beside the served cycles' tell the engine's own time from the time
     it waits for the loop thread."""
-    import asyncio
 
     plane = ext.plane
     editors = [group[-1] for group in groups]
@@ -1438,7 +1655,6 @@ async def _idle_flush(ext, core, groups, rng, flush) -> dict:
 async def _join_waves(core, names, plane):
     """Two waves of one late joiner per doc, each on a socket of its own:
     (per-wave join -> synced numbers, the joiners)."""
-    import asyncio
 
     from hocuspocus_tpu_torch.provider import HocuspocusProvider, InProcessProviderSocket
 
@@ -1478,25 +1694,26 @@ async def _all_synced(providers) -> None:
     await await_synced(providers, timeout=600, what="providers")
 
 
-def phase_server(rng, arena, num_docs, capacity, clients, rounds, cuts):
+def phase_server(rng, arena, num_docs, capacity, clients, rounds, cuts, native_lane=True):
     """The served path on the card over one arena (run_server), with the
     checks that hold it: every provider converged, the served bytes
     rebuild every doc, broadcasts went through the plane, every join was
-    served from it, nothing fell back to the CPU or retired, every doc is
-    still served, and the arena's kernel launched from this path. Then
-    the path's biggest integrate batch is replayed through the kernel
-    and the plain version (phase_served_replay). Returns (launches,
-    max_abs_err of the replay)."""
-    import asyncio
-
+    served from it, nothing fell back to the CPU or retired (no lane
+    demote either), every doc is still served, every doc is on the
+    native text lane when it is on (`native_lane=False`: the
+    `*_server_python` phases, none), and the arena's kernel launched
+    from this path. Then the path's biggest integrate batch is replayed
+    through the kernel and the plain version (phase_served_replay).
+    Returns (launches, max_abs_err of the replay)."""
     from hocuspocus_tpu_torch.tpu import merge_plane as mp
 
-    tag = ARENAS[arena]["tag"] + "server"
+    suffix = "" if native_lane else "_python"
+    tag = ARENAS[arena]["tag"] + "server" + suffix
     recorder = Recorder(mp, *ARENAS[arena]["wrap"])
     _ext, out = asyncio.run(
         run_server(
             rng, arena, num_docs, capacity, clients, rounds,
-            profile_kernels=True, recorder=recorder,
+            profile_kernels=True, recorder=recorder, native_lane=native_lane,
         )
     )
     counters = out["counters"]
@@ -1509,6 +1726,9 @@ def phase_server(rng, arena, num_docs, capacity, clients, rounds, cuts):
     check(not any(retired.values()), f"{tag}: docs retired {retired}")
     check(out["served_docs"] == num_docs, f"{tag}: {out['served_docs']} of {num_docs} docs still served")
     check(launches > 0, f"{tag}: the integrate kernel never launched from the server path")
+    check(out["native_lane"] is native_lane, f"{tag}: native_lane is {out['native_lane']}")
+    lane_want = num_docs if native_lane else 0
+    check(out["lane_docs"] == lane_want, f"{tag}: {out['lane_docs']} of {num_docs} docs on the lane")
     emit(
         tag,
         gpu=nvidia_smi_line(),
@@ -1529,7 +1749,7 @@ def phase_server(rng, arena, num_docs, capacity, clients, rounds, cuts):
         flush_fast_ops=counters["flush_fast_ops"],
         flush_slow_ops=counters["flush_slow_ops"],
     )
-    err = phase_served_replay(recorder.best, arena)
+    err = phase_served_replay(recorder.best, arena, suffix)
     recorder.best = recorder.before = None
     return launches, err
 
@@ -1555,6 +1775,7 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(args.seed)
     results = {"unit": {}, "rle": {}}
     try:
+        phase_native_build()
         phase_build()
         seeded = phase_dense(rng, num_docs=8192, capacity=5632, num_slots=64, reps=5)
         phase_sparse(rng, seeded, num_docs=100_000, busy=1024, pad=32, num_slots=16, reps=5)
@@ -1580,6 +1801,12 @@ def main(argv=None) -> int:
                 rng, arena, num_docs=1024, capacity=4096, clients=SERVER_CLIENTS,
                 rounds=SERVER_ROUNDS, cuts=SERVER_CUTS,
             )
+        for arena in ("unit", "rle"):
+            # the earlier served path (Python host path), kept driven
+            results[arena]["server_python"], results[arena]["server_python_err"] = phase_server(
+                rng, arena, num_docs=1024, capacity=4096, clients=SERVER_CLIENTS,
+                rounds=PYTHON_SERVER_ROUNDS, cuts=PYTHON_SERVER_CUTS, native_lane=False,
+            )
         smi = nvidia_smi_line()
     except SmokeFailure as failure:
         print(f"chip_smoke: FAILED: {failure}", file=sys.stderr)
@@ -1597,12 +1824,13 @@ def main(argv=None) -> int:
                 "route": "cuda",
                 "source": f"hocuspocus_tpu_torch/csrc/{source}",
                 "replaces": replaces,
-                "launches": results[arena]["plane"] + results[arena]["server"],
-                "launches_by_path": {
-                    "plane": results[arena]["plane"],
-                    "server": results[arena]["server"],
-                },
-                "max_abs_err": max(results[arena]["max_abs_err"], results[arena]["server_err"]),
+                "launches": sum(results[arena][path] for path in PATHS),
+                "launches_by_path": {path: results[arena][path] for path in PATHS},
+                "max_abs_err": max(
+                    results[arena]["max_abs_err"],
+                    results[arena]["server_err"],
+                    results[arena]["server_python_err"],
+                ),
                 "ms": results[arena]["ms"],
                 "plain_ms": results[arena]["plain_ms"],
                 "bound_ms": results[arena]["bound_ms"],

@@ -5,8 +5,9 @@ nothing of that package. Public API mirrors the yjs surface the server
 uses: Doc, apply_update, encode_state_as_update, encode_state_vector,
 merge_updates, diff_update, snapshots, and the shared types. Undo,
 permanent user data and relative positions are not part of the serve
-path and are left out; the native C++ codec is not copied, so every
-encode and decode takes the pure-Python path.
+path and are left out. The bulk varint helpers and the idempotent-
+redelivery scan run in the port's native codec
+(`hocuspocus_tpu_torch.native`), built at first use.
 """
 
 from .delete_set import DeleteSet, merge_delete_sets

@@ -21,6 +21,15 @@ from typing import Any
 BITS31 = 0x7FFFFFFF
 
 
+def _bulk_codec():
+    """The port's native codec, whose bulk varint helpers replace the
+    per-value Python loops (import deferred: `native` builds the
+    extension on first use, and raises if it cannot)."""
+    from ..native import get_codec
+
+    return get_codec()
+
+
 class Encoder:
     """Append-only binary encoder, byte-compatible with lib0's Encoder."""
 
@@ -85,10 +94,9 @@ class Encoder:
         self.buf += data
 
     def write_var_uints(self, values) -> None:
-        """Bulk varint write for a whole struct-run / state-vector /
-        delete-range sequence."""
-        for v in values:
-            self.write_var_uint(v)
+        """Bulk varint write: one native call for a whole struct-run /
+        state-vector / delete-range sequence."""
+        self.buf += _bulk_codec().encode_var_uints(values)
 
     def write_float32(self, num: float) -> None:
         self.buf += struct.pack(">f", num)
@@ -216,13 +224,10 @@ class Decoder:
 
     def read_var_uints(self, count: int) -> tuple:
         """Bulk varint read — the mirror of Encoder.write_var_uints.
-        Truncation raises ValueError, unlike scalar read_var_uint's
-        IndexError."""
-        read = self.read_var_uint
-        try:
-            return tuple(read() for _ in range(count))
-        except IndexError:
-            raise ValueError("unexpected end of buffer") from None
+        One native call; truncation raises ValueError, unlike scalar
+        read_var_uint's IndexError."""
+        values, self.pos = _bulk_codec().read_var_uints(self.buf, self.pos, count)
+        return values
 
     def read_var_string(self) -> str:
         length = self.read_var_uint()

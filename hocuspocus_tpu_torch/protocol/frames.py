@@ -1,20 +1,21 @@
-"""Hot-path wire-frame helpers, on the pure-Python codec.
+"""Hot-path wire-frame helpers on the port's native C++ codec.
 
 These cover the three per-message operations the server performs most:
 routing (header parse), the update broadcast frame, and the per-update
 durability ack (reference `packages/server/src/OutgoingMessage.ts`
 frame layout; `Document.ts:228-240` fan-out; `MessageReceiver.ts:206-212`
-ack). The port has no native codec yet, so every frame takes the Python
-path, which the JAX package's native functions match byte for byte.
+ack). Each helper makes one call into `hocuspocus_tpu_torch.native`;
+the pure-Python codec (`crdt.encoding`) stays the correctness reference,
+and the native functions match it byte for byte
+(tests/test_torch_native.py).
 """
 
 from __future__ import annotations
 
 import time
 
-from ..crdt.encoding import Decoder, Encoder
+from ..native import get_codec
 from ..observability.costs import get_cost_ledger
-from .sync import MESSAGE_YJS_UPDATE
 
 
 def _type_name(message_type: int) -> str:
@@ -27,10 +28,7 @@ def parse_frame_header(data: bytes) -> tuple[str, int, int]:
     """[varString name][varUint type] -> (name, type, payload offset)."""
     ledger = get_cost_ledger()
     t0 = time.perf_counter_ns() if ledger.enabled else 0
-    decoder = Decoder(data)
-    name = decoder.read_var_string()
-    msg_type = decoder.read_var_uint()
-    parsed = (name, msg_type, decoder.pos)
+    parsed = get_codec().parse_frame_header(data)
     if ledger.enabled:
         # varint_header: attribution detail inside frame_decode (the
         # header's share of the per-frame budget); bytes = header bytes
@@ -47,14 +45,7 @@ def build_update_frame(name: str, update: bytes, reply: bool = False) -> bytes:
     """[name][Sync|SyncReply][yjsUpdate][update] — the broadcast frame."""
     ledger = get_cost_ledger()
     t0 = time.perf_counter_ns() if ledger.enabled else 0
-    from .message import MessageType
-
-    encoder = Encoder()
-    encoder.write_var_string(name)
-    encoder.write_var_uint(MessageType.SyncReply if reply else MessageType.Sync)
-    encoder.write_var_uint(MESSAGE_YJS_UPDATE)
-    encoder.write_var_uint8_array(update)
-    frame = encoder.to_bytes()
+    frame = get_codec().build_update_frame(name, update, reply)
     if ledger.enabled:
         ledger.record(
             "frame_encode",
@@ -68,7 +59,8 @@ def build_update_frame(name: str, update: bytes, reply: bool = False) -> bytes:
 def parse_frame_headers_batch(
     frames: "list[bytes]", skip_malformed: bool = False
 ) -> "list[tuple[str, int, int] | None]":
-    """Parse N frame headers.
+    """Parse N frame headers in ONE native call (GIL released during the
+    byte scan; consecutive frames for the same document share one str).
 
     Strict mode (default) raises ValueError on the first malformed
     header, matching :func:`parse_frame_header`. ``skip_malformed=True``
@@ -80,26 +72,7 @@ def parse_frame_headers_batch(
         return []
     ledger = get_cost_ledger()
     t0 = time.perf_counter_ns() if ledger.enabled else 0
-    parsed = []
-    for i, data in enumerate(frames):
-        try:
-            decoder = Decoder(data)
-            name = decoder.read_var_string()
-            msg_type = decoder.read_var_uint()
-            parsed.append((name, msg_type, decoder.pos))
-        except (ValueError, EOFError, IndexError) as exc:
-            # batch parity with the JAX package's native path: ValueError
-            # (the scalar path's EOFError/IndexError zoo stays as-is)
-            if not skip_malformed:
-                raise ValueError(
-                    f"malformed frame header at index {i}"
-                ) from exc
-            parsed.append(None)
-        except TypeError:
-            # non-buffer input: strict mode propagates, skip mode drops
-            if not skip_malformed:
-                raise
-            parsed.append(None)
+    parsed = get_codec().parse_frame_headers_batch(frames, skip_malformed)
     if ledger.enabled:
         ok = [p for p in parsed if p is not None]
         if ok:
@@ -116,26 +89,17 @@ def parse_frame_headers_batch(
 def build_update_frames_batch(
     items: "list[tuple[str, bytes] | tuple[str, bytes, bool]]",
 ) -> "list[bytes]":
-    """Build N broadcast frames. Ledger cost is amortized across the
-    batch like the scalar path's per-frame ``frame_encode`` records."""
+    """Build N broadcast frames in ONE native call (frames laid out in a
+    single arena with the GIL released, then cut into per-frame bytes).
+    Ledger cost is amortized across the batch like the scalar path's
+    per-frame ``frame_encode`` records."""
     if not items:
         return []
     ledger = get_cost_ledger()
     t0 = time.perf_counter_ns() if ledger.enabled else 0
-    from .message import MessageType
-
-    built = []
-    for it in items:
-        name, update = it[0], it[1]
-        reply = bool(it[2]) if len(it) > 2 else False
-        encoder = Encoder()
-        encoder.write_var_string(name)
-        encoder.write_var_uint(
-            MessageType.SyncReply if reply else MessageType.Sync
-        )
-        encoder.write_var_uint(MESSAGE_YJS_UPDATE)
-        encoder.write_var_uint8_array(update)
-        built.append(encoder.to_bytes())
+    built = get_codec().build_update_frames_batch(
+        [it if isinstance(it, tuple) else tuple(it) for it in items]
+    )
     if ledger.enabled:
         ledger.record_batch(
             "frame_encode",
@@ -149,10 +113,4 @@ def build_update_frames_batch(
 
 def build_sync_status_frame(name: str, ok: bool) -> bytes:
     """[name][SyncStatus][0|1] — the per-update durability ack."""
-    from .message import MessageType
-
-    encoder = Encoder()
-    encoder.write_var_string(name)
-    encoder.write_var_uint(MessageType.SyncStatus)
-    encoder.write_var_uint(1 if ok else 0)
-    return encoder.to_bytes()
+    return get_codec().build_sync_status_frame(name, ok)

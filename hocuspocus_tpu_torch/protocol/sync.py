@@ -41,11 +41,19 @@ def coalesce_updates(updates: "list[bytes]") -> Optional[bytes]:
     server/fanout.py). Returns None when the merge fails; the caller
     must then fall back to per-update fan-out so no update is lost.
 
-    The merge is :func:`crdt.update.merge_updates`; the JAX package's
-    native merge returns the same bytes or defers to it.
+    Native-first: the C++ codec merges at the byte level (spans copied
+    verbatim, GIL released) and returns None whenever it cannot prove
+    byte identity with the Python merge — rich content refs, overlapping
+    runs needing an offset split, non-canonical varints — in which case
+    we fall through to :func:`crdt.update.merge_updates` unchanged.
     """
     if len(updates) == 1:
         return updates[0]
+    from ..native import get_codec
+
+    merged = get_codec().coalesce_updates(updates)
+    if merged is not None:
+        return merged
     from ..crdt.update import merge_updates
 
     try:

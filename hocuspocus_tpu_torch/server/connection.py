@@ -185,8 +185,7 @@ class Connection:
                     )
             return
         # native header parse: one C++ call replaces the two Python
-        # varint/string reads (frames.parse_frame_header falls back to
-        # the Python decoder without the toolchain); the pre-read type
+        # varint/string reads (frames.parse_frame_header); the pre-read type
         # is handed to MessageReceiver so it is never decoded twice
         document_name, message_type, payload_off = parse_frame_header(data)
         if document_name != self.document.name:

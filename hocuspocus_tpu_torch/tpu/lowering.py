@@ -27,10 +27,11 @@ themselves, mirroring the CPU engine. Documents containing Skip structs
 or subdocs are flagged unsupported — the CPU path stays authoritative
 for them.
 
-Decoding goes through the port's pure-Python CRDT decoder, which
-yields full Items (parent, parent_sub, rich content). The JAX package
-screens updates with its native C++ codec first; its results are
-byte-identical to this path.
+Decoding uses the port's native C++ codec (hocuspocus_tpu_torch.native)
+as the fast screen: updates made only of origin-carrying string/delete
+runs (the steady-state typing stream) lower straight from its output;
+anything structural re-decodes through the pure-Python CRDT decoder,
+which yields full Items (parent, parent_sub, rich content).
 """
 
 from __future__ import annotations
@@ -57,15 +58,15 @@ import numpy as np
 from ..crdt.ids import ID
 from ..crdt.structs import GC, Item, Skip
 from ..crdt.update import _read_client_struct_refs
+from ..native import get_codec
 from .kernels import KIND_DELETE, KIND_INSERT, NONE_CLIENT
 
-# struct kinds produced by decoding (0-4 match the JAX package's native
-# codec, kept so both packages name kinds alike)
+# struct kinds produced by decoding (0-4 match the native codec)
 STRUCT_STRING = 0
 STRUCT_DELETED = 1
 STRUCT_GC = 2
 STRUCT_SKIP = 3
-STRUCT_OTHER = 4  # ContentDoc / unknown content — unsupported
+STRUCT_OTHER = 4  # native "other" / ContentDoc — needs python / unsupported
 STRUCT_FORMAT = 5
 STRUCT_EMBED = 6
 STRUCT_TYPE = 7
@@ -107,7 +108,7 @@ class DenseOp:
 
 @dataclass
 class LoweredStruct:
-    """Decoder-neutral struct record (lowered from Python Items)."""
+    """Decoder-neutral struct record (native tuples or Python Items)."""
 
     client: int
     clock: int
@@ -140,7 +141,7 @@ def _classify_content(content) -> tuple[int, int, Any]:
     return STRUCT_OTHER, content.get_length(), None
 
 
-def _decode_update(update: bytes) -> tuple[list[LoweredStruct], list[tuple]]:
+def _python_decode(update: bytes) -> tuple[list[LoweredStruct], list[tuple]]:
     decoder = Decoder(update)
     refs = _read_client_struct_refs(decoder)
     ds = DeleteSet.read(decoder)
@@ -188,6 +189,40 @@ def _decode_update(update: bytes) -> tuple[list[LoweredStruct], list[tuple]]:
                 )
             )
     return structs, list(ds.iterate())
+
+
+def _decode_update(update: bytes) -> tuple[list[LoweredStruct], list[tuple]]:
+    raw_structs, deletes = get_codec().decode_update(update)
+    structs = []
+    for client, clock, kind, oc, ok, rc, rk, payload in raw_structs:
+        origin = None if oc == NONE_CLIENT else (oc, ok)
+        right_origin = None if rc == NONE_CLIENT else (rc, rk)
+        if kind == STRUCT_OTHER or (
+            kind in (STRUCT_STRING, STRUCT_DELETED)
+            and origin is None
+            and right_origin is None
+        ):
+            # rich content, or an origin-less item whose wire parent the
+            # native screen skipped — the python decoder recovers both
+            return _python_decode(update)
+        if kind == STRUCT_STRING:
+            text = payload
+            length = _utf16_len(payload)
+        else:
+            text = payload  # int length for DELETED/GC/SKIP
+            length = payload
+        structs.append(
+            LoweredStruct(
+                client=client,
+                clock=clock,
+                kind=kind,
+                length=length,
+                payload=text,
+                origin=origin,
+                right_origin=right_origin,
+            )
+        )
+    return structs, [tuple(d) for d in deletes]
 
 
 @dataclass
@@ -543,3 +578,11 @@ def units_to_text(units) -> str:
     return (
         np.asarray(units, np.dtype("<u2")).tobytes().decode("utf-16-le", errors="replace")
     )
+
+
+def _utf16_len(s: str) -> int:
+    n = len(s)
+    for ch in s:
+        if ord(ch) > 0xFFFF:
+            n += 1
+    return n

@@ -15,6 +15,14 @@ row; a tree doc occupies one row per element child-list. Map items are
 host-side last-writer-wins records that never ride the device — they go
 straight to the doc's serve log.
 
+With `enable_lane`, a plain-text document registered by `register_lane`
+keeps its whole host path in the port's C++ text lane
+(`hocuspocus_tpu_torch/native/text_lane.cpp`): decode, lowering, serve
+log and queue live there, and each flush pops the lane's ops in one
+columnar `lane_drain` into the same fast/slow split and device batch as
+the Python queues. The first update with rich content demotes the doc
+to the Python path (`docs_retired_lane_demote`).
+
 Uploads go from pinned host staging (on the card) with non-blocking
 copies on the current stream; the cycle's single completion barrier is
 the health readback in _sync_health.
@@ -91,6 +99,12 @@ class PlaneDoc:
     map_tombstones: list[tuple] = field(default_factory=list)
     retired: bool = False
     retire_reason: Optional[str] = None  # first reason wins (see retire_doc)
+    # native text lane (see native/text_lane.cpp): when set, the whole
+    # host path — lowering, serve log, unit log, dispatch queue — lives
+    # in C++; serve_log/unit_logs here are lazy materializations for
+    # the cold serving paths, cached under lane_cache_key
+    lane_slot: Optional[int] = None
+    lane_cache_key: Optional[tuple] = None
 
 
 class _Staging:
@@ -236,7 +250,9 @@ class MergePlane:
         # slots with (possibly) queued ops: per-batch bookkeeping walks
         # THIS set, O(busy), never the full queue registry. enqueue adds
         # AFTER every extend, so a drain-side discard racing an enqueue
-        # is always repaired by the enqueuer's own add.
+        # is always repaired by the enqueuer's own add. Native-lane
+        # queues are not tracked here: the lane keeps its own registry
+        # of nonempty queues in C++.
         self._busy_slots: set[int] = set()
         # per-slot insert units handed to the device so far / as of the
         # last completed flush: health checks compare device lengths
@@ -278,6 +294,7 @@ class MergePlane:
             "docs_retired_capacity": 0,
             "docs_retired_fallback": 0,
             "docs_retired_plane_full": 0,
+            "docs_retired_lane_demote": 0,
             "docs_recycled": 0,
             "sync_serves": 0,
             "sync_cache_hits": 0,
@@ -320,6 +337,12 @@ class MergePlane:
         self._append_staging: "Optional[list[_Staging]]" = None
         self._append_inflight: list = [None, None]
         self._append_batches = 0
+        # native text lane (enable_lane): the C++ host path for plain-
+        # text docs. _lane_banned remembers docs that demoted (rich
+        # content) so re-onboarding goes straight to the Python path.
+        self._lane = None
+        self._lane_codec = None
+        self._lane_banned: set[str] = set()
         # update-lifecycle traces: the capture seam stamps sampled
         # updates, the flush carries them through drain, build, upload,
         # device and readback, and the broadcast pass closes them
@@ -378,11 +401,126 @@ class MergePlane:
             return tail_probe_rle
         return tail_probe
 
-    def enable_lane(self) -> bool:
-        """The native C++ text lane is not part of the port: every doc
-        takes the Python host path, as in the JAX package when its codec
-        is missing (and, like there, this reports False)."""
-        return False
+    # -- native text lane --------------------------------------------------
+
+    def enable_lane(self) -> None:
+        """Switch on the C++ host path for plain-text docs (see
+        native/text_lane.cpp). Raises when the codec cannot be built."""
+        if self._lane is None:
+            from ..native import get_codec
+
+            self._lane_codec = get_codec()
+            self._lane = self._lane_codec.lane_new()
+
+    def register_lane(self, name: str) -> Optional[PlaneDoc]:
+        """Register `name` on the native text lane (one slot, opened
+        eagerly). Returns None when the lane is off / banned for this
+        doc / the plane is full — caller falls back to register()."""
+        if self._lane is None or name in self._lane_banned:
+            return None
+        doc = self.docs.get(name)
+        if doc is not None:
+            return doc if doc.lane_slot is not None else None
+        if not self.free:
+            return None
+        slot = self.free.pop()
+        doc = PlaneDoc(name)
+        doc.lane_slot = slot
+        self.docs[name] = doc
+        self.slot_owner[slot] = name
+        self.queues[slot] = []  # stays empty: ops queue natively
+        self.unit_logs[slot] = []  # lazy materialization target
+        self.projected_len[slot] = 0
+        self.dispatched_units[slot] = 0
+        self.validated_units[slot] = 0
+        self.slot_live[slot] = True
+        self.slot_gen[slot] += 1
+        self._set_tail_empty(slot)
+        self._lane_codec.lane_open(self._lane, slot)
+        return doc
+
+    def _enqueue_lane(
+        self, doc: PlaneDoc, update: bytes, presync: bool, remote: bool
+    ) -> int:
+        slot = doc.lane_slot
+        res = self._lane_codec.lane_apply(self._lane, slot, update, presync, remote)
+        if res is None:
+            # rich/tree/map content: this doc needs the Python path.
+            # The ban makes the re-onboard (load-time retry or recycle)
+            # take the plain register() route.
+            self._lane_banned.add(doc.name)
+            self.retire_doc(doc.name, "lane_demote")
+            return 0
+        ops_added, queued_units, queued_ops, root = res
+        if root is not None and not doc.seqs:
+            doc.seqs[("root", root)] = slot
+        # RLE cost counts device-bound QUEUE entries, not serve-log
+        # records: host-only GC records never consume arena entries
+        # (mirrors the Python path routing GC to map_out)
+        cost = queued_ops if self.arena == "rle" else queued_units
+        projected = self.projected_len[slot] + cost
+        if projected > self.capacity:
+            self.retire_doc(doc.name, "capacity")
+            return 0
+        self.projected_len[slot] = projected
+        if ops_added:
+            self.dirty.add(doc.name)
+        return ops_added
+
+    def materialize_lane(self, doc: PlaneDoc) -> None:
+        """Fill doc.serve_log / unit_logs / lowerer.known from the
+        native lane for the Python serving paths (cold/stale syncs,
+        text(), the RLE payload index). Cached on the log lengths, so
+        repeated serves of an unchanged doc pay one export."""
+        if doc.lane_slot is None:
+            return
+        slot = doc.lane_slot
+        key = self._lane_codec.lane_log_len(self._lane, slot)
+        if doc.lane_cache_key == key:
+            return
+        ops, units_bytes, known, root = self._lane_codec.lane_export(self._lane, slot)
+        self.unit_logs[slot] = np.frombuffer(units_bytes, np.dtype("<u2")).tolist()
+        parent = ("root", root) if root is not None else None
+        recs = []
+        for kind, client, clock, run_len, lc, lk, rc, rk, unit_off, flags in ops:
+            gc = bool(flags & 2)
+            op = DenseOp(
+                kind=kind,
+                client=client,
+                clock=clock,
+                run_len=run_len,
+                left_client=lc,
+                left_clock=lk,
+                right_client=rc,
+                right_clock=rk,
+                deleted_content=bool(flags & 1),
+                gc=gc,
+                presync=bool(flags & 4),
+                # mirrors the Python lowerer: the wire parent only
+                # exists on origin-less items (and never on deletes/gc)
+                parent=(
+                    parent
+                    if (
+                        kind == KIND_INSERT
+                        and not gc
+                        and lc == NONE_CLIENT
+                        and rc == NONE_CLIENT
+                    )
+                    else None
+                ),
+            )
+            recs.append(
+                LogRec(
+                    op=op,
+                    # gc records are host-only in the Python path
+                    slot=None if gc else slot,
+                    unit_off=unit_off,
+                    remote=bool(flags & 8),
+                )
+            )
+        doc.serve_log = recs
+        doc.lowerer.known = dict(known)
+        doc.lane_cache_key = key
 
     # -- registry ----------------------------------------------------------
 
@@ -424,6 +562,9 @@ class MergePlane:
         self.dirty.discard(name)
         self.update_traces.drop(name)
         slots = set(doc.seqs.values())
+        if doc.lane_slot is not None:
+            slots.add(doc.lane_slot)  # may predate root discovery
+            self._lane_codec.lane_close(self._lane, doc.lane_slot)
         for slot in slots:
             self.slot_owner.pop(slot, None)
             self.queues.pop(slot, None)
@@ -467,6 +608,14 @@ class MergePlane:
             self.unit_logs[slot] = []
             self.slot_live[slot] = False
             self.slot_gen[slot] += 1
+        if doc.lane_slot is not None:
+            # lane slots may predate root discovery (not yet in seqs)
+            slot = doc.lane_slot
+            self._lane_codec.lane_clear_queue(self._lane, slot)
+            self.slot_live[slot] = False
+            self.slot_gen[slot] += 1
+            self._tail_known[slot] = False
+            self._tail_dirty.discard(slot)
 
     def _clear_slots(self, slots: "list[int]") -> None:
         """Reset a batch of arena rows to their empty values in place (one
@@ -501,6 +650,11 @@ class MergePlane:
         self, name: str, update: bytes, presync: bool = False, remote: bool = False
     ) -> int:
         """Lower + queue one update; returns the number of ops accepted."""
+        lane_doc = self.docs.get(name)
+        if lane_doc is not None and lane_doc.lane_slot is not None:
+            if lane_doc.lowerer.unsupported:
+                return 0
+            return self._enqueue_lane(lane_doc, update, presync, remote)
         doc = self.register(name)
         if doc.lowerer.unsupported:
             return 0
@@ -575,6 +729,8 @@ class MergePlane:
             queue = self.queues.get(slot)
             if queue:
                 total += len(queue)
+        if self._lane is not None:
+            total += self._lane_codec.lane_queue_total(self._lane)
         return total
 
     # -- device step -------------------------------------------------------
@@ -744,10 +900,10 @@ class MergePlane:
                 # stamped updates whose slots drained this batch enter
                 # the in-flight set; t0 closes their queue-wait stage
                 cycle_traces = book.take_drained(
-                    (self.slot_owner.get(int(s)) for s in drained[3]), t0
+                    (self.slot_owner.get(int(s)) for s in drained[4]), t0
                 )
-            built = drained[4]
-            busy_total = int(drained[3].size)
+            built = drained[5]
+            busy_total = int(drained[4].size)
             # split the drained columns into all-sequential (fast) and
             # concurrent (slow) sets; the two dispatches touch disjoint
             # rows, so their order is immaterial
@@ -799,10 +955,10 @@ class MergePlane:
                 k_last, b_last = k_max, bf
                 t0 = t_dispatch  # the slow build, if any, starts here
             if slow is not None:
-                depth = slow[5]
+                depth = slow[6]
                 # sparse batches pin K to the top bucket; dense batches
                 # keep the power-of-two K ladder
-                dense, b_bucket = self._plan_batch(int(slow[3].size))
+                dense, b_bucket = self._plan_batch(int(slow[4].size))
                 if dense:
                     k = 1
                     while k < depth:
@@ -839,14 +995,14 @@ class MergePlane:
                     self.compile_watch.observe("integrate_sparse", (k, b))
                 # full-integrate columns invalidate their tracked rank
                 # tails; _sync_health re-arms the live ones below
-                slow_cols = slow[3].astype(np.intp)
+                slow_cols = slow[4].astype(np.intp)
                 self._tail_known[slow_cols] = False
                 for col in slow_cols:
                     col = int(col)
                     if self.slot_live[col]:
                         self._tail_dirty.add(col)
-                self.counters["flush_slow_ops"] += slow[4]
-                slow_total += slow[4]
+                self.counters["flush_slow_ops"] += slow[5]
+                slow_total += slow[5]
                 device_batches += 1
                 if cycle_traces:
                     trace_batches.append((cycle_traces, t1, t2, t_dispatch))
@@ -944,12 +1100,13 @@ class MergePlane:
     _TAIL_PROBE_MAX = 256
 
     def _drain_ops(self, k: int):
-        """Pop up to k ops from every BUSY queue into flat coordinate /
-        value lists — O(busy). Returns None when nothing was drained,
-        else (rows, slots, vals, cols, built, depth): op coordinates
-        (row-in-batch, arena slot), 8 per-field value columns, the sorted
-        unique busy slot ids, the op count and the deepest per-queue
-        take (the dense layout's K requirement)."""
+        """Pop up to k ops from every BUSY queue (Python + native lane)
+        into flat coordinate / value lists — O(busy). Returns None when
+        nothing was drained, else (rows, slots, vals, lane, cols, built,
+        depth): Python op coordinates (row-in-batch, arena slot) and 8
+        per-field value columns, the lane's columnar drain tuple (or
+        None), the sorted unique busy slot ids, the op count and the
+        deepest per-queue take (the dense layout's K requirement)."""
         rows: list[int] = []
         slots: list[int] = []
         vals: tuple[list[int], ...] = ([], [], [], [], [], [], [], [])
@@ -988,34 +1145,67 @@ class MergePlane:
             if len(take) > depth:
                 depth = len(take)
             self.dispatched_units[slot] += dispatched
+        lane = None
+        if self._lane is not None:
+            # native lane drain: one C call pops up to k ops per lane
+            # slot into columnar buffers scattered by _assemble_batch —
+            # no per-op Python at all on the hot-doc flush path
+            drained = self._lane_codec.lane_drain(self._lane, k)
+            if drained[0]:
+                lane = drained
+                ds = np.frombuffer(drained[11], np.int64)
+                self.dispatched_units[ds] += np.frombuffer(drained[12], np.int64)
+                built += drained[0]
+                lane_rows = np.frombuffer(drained[1], np.int64)
+                depth = max(depth, int(lane_rows.max()) + 1)
         if not built:
             return None
         cols = np.unique(np.asarray(slots, np.int64))
-        return rows, slots, vals, cols, built, depth
+        if lane is not None:
+            cols = np.union1d(cols, np.frombuffer(lane[2], np.int64))
+        return rows, slots, vals, lane, cols, built, depth
 
     def _classify_fast(self, drained):
         """The run-merge concurrency classifier: split one drained cycle
         into fast COLUMNS (every op a chained tail append — integrable by
         the append program) and slow columns (the full integrate).
         Returns (fast_pack | None, slow | None), `slow` shaped like a
-        _drain_ops result.
+        _drain_ops result (lane ops folded into the flat arrays, lane
+        None).
 
         An op is a pure tail append iff it is an INSERT with no right
         origin whose left origin is the column's current rank tail; for
         such ops the YATA window is empty, so the append program is
         bit-identical to the integrate. Chains verify inductively (op m's
         left must be op m-1's last unit), all in vectorized numpy."""
-        rows, slots, vals, cols, built, depth = drained
-        if not rows:
+        rows, slots, vals, lane, cols, built, depth = drained
+        if lane is None and not rows:
             return None, drained
-        op_row = np.asarray(rows, np.int64)
-        op_slot = np.asarray(slots, np.int64)
-        fields = [
-            np.asarray(vals[i], np.uint32 if i in (1, 4, 6) else np.int64)
-            for i in range(8)
-        ]
+        parts_row: list = []
+        parts_slot: list = []
+        parts_f: "list[list]" = [[] for _ in range(8)]
+        if rows:
+            parts_row.append(np.asarray(rows, np.int64))
+            parts_slot.append(np.asarray(slots, np.int64))
+            for i in range(8):
+                dtype = np.uint32 if i in (1, 4, 6) else np.int64
+                parts_f[i].append(np.asarray(vals[i], dtype))
+        if lane is not None:
+            # lane columns: client fields uint32, the rest int32
+            parts_row.append(np.frombuffer(lane[1], np.int64))
+            parts_slot.append(np.frombuffer(lane[2], np.int64))
+            for i, buf in enumerate(lane[3:11]):
+                if i in (1, 4, 6):
+                    parts_f[i].append(np.frombuffer(buf, np.uint32))
+                else:
+                    parts_f[i].append(np.frombuffer(buf, np.int32).astype(np.int64))
+        op_row = np.concatenate(parts_row)
+        op_slot = np.concatenate(parts_slot)
+        fields = [np.concatenate(p) for p in parts_f]
         n = op_slot.size
-        # column-major order: a slot's ops are contiguous, row-ordered
+        # column-major order: a slot's ops are contiguous, row-ordered (a
+        # slot drains from exactly one source, Python queue or lane, so
+        # the concatenation never interleaves within a column)
         order = np.lexsort((op_row, op_slot))
         s = op_slot[order]
         row_s = op_row[order]
@@ -1092,6 +1282,7 @@ class MergePlane:
                 kind_s[keep], cl_s[keep], ck_s[keep], rn_s[keep],
                 lc_s[keep], lk_s[keep], rc_s[keep], rk_s[keep],
             ),
+            None,
             s[col_starts][~col_ok],
             int(n - m),
             int(row_s[keep].max()) + 1,
@@ -1146,7 +1337,7 @@ class MergePlane:
         num_docs sentinel); dense (K, D) layout (column = arena slot)
         when every slot is effectively busy. Returns (slot_view | None,
         b)."""
-        rows, slots, vals, cols, _built, _depth = drained
+        rows, slots, vals, lane, cols, _built, _depth = drained
         if dense:
             b = self.num_docs
             col_idx = np.asarray(slots, np.intp)
@@ -1164,6 +1355,15 @@ class MergePlane:
                     view.view(np.uint32)[ri, col_idx] = np.asarray(vals[i], np.uint32)
                 else:
                     view[ri, col_idx] = vals[i]
+        if lane is not None:
+            ri = np.frombuffer(lane[1], np.int64)
+            lane_slots = np.frombuffer(lane[2], np.int64)
+            ci = lane_slots if dense else np.searchsorted(cols, lane_slots)
+            for i, (view, buf) in enumerate(zip(views, lane[3:11])):
+                if i in (1, 4, 6):
+                    view.view(np.uint32)[ri, ci] = np.frombuffer(buf, np.uint32)
+                else:
+                    view[ri, ci] = np.frombuffer(buf, np.int32)
         return slot_view, b
 
     # -- extraction --------------------------------------------------------
@@ -1214,6 +1414,7 @@ class MergePlane:
             return None
         if doc.lowerer.unsupported:
             return None
+        self.materialize_lane(doc)
         roots = [key for key in doc.seqs if key[0] == "root"]
         if len(doc.seqs) != len(roots) or len(roots) > 1:
             return None  # tree-shaped: byte-served, not materialized
@@ -1287,6 +1488,7 @@ class MergePlane:
         runs, not per-unit arrival indices, so payload lookup goes
         through the serve log (written at enqueue time, in dispatch
         order)."""
+        self.materialize_lane(doc)
         index: dict[int, list] = {}
         for rec in doc.serve_log:
             op = rec.op
@@ -1369,8 +1571,13 @@ class TpuMergeExtension(Extension):
     given (`device=None` means the card, and raises without CUDA).
     Sharding (`mesh=`) and arena residency (`evict_idle_secs`,
     `compact_threshold`) are not ported yet (ROADMAP.md, Queue A) and
-    raise NotImplementedError; the port has no native text lane, so
-    `native_lane` is accepted and stays off.
+    raise NotImplementedError. `native_lane` (default on, serve mode
+    only) runs every plain-text doc's host path in the port's C++ text
+    lane (`hocuspocus_tpu_torch/native`); a doc whose updates carry
+    rich content demotes to the Python path (`docs_retired_lane_demote`)
+    and is rebuilt there in place. `native_lane=False` keeps every doc
+    on the Python path. The lane's codec builds at construction and a
+    failed build raises.
     """
 
     priority = 900
@@ -1428,7 +1635,12 @@ class TpuMergeExtension(Extension):
         # post-flush reschedule check stays exact.
         self._depth_cache = 0
         self._depth_cache_at = 0.0
-        self.native_lane = bool(native_lane and serve and self.plane.enable_lane())
+        # native text lane: the C++ host path (lower+log+queue+window)
+        # for plain-text docs. Serve-mode only: its broadcast windows
+        # ride the lane
+        self.native_lane = bool(native_lane and serve)
+        if self.native_lane:
+            self.plane.enable_lane()
         self.flush_interval_ms = flush_interval_ms
         # broadcasts build from the HOST serve logs and run on their own
         # (shorter) coalescing window, decoupled from the device flush:
@@ -1518,9 +1730,22 @@ class TpuMergeExtension(Extension):
 
         self._instance = data.instance
         name = data.document_name
-        self.plane.register(name)
+        lane_doc = self.plane.register_lane(name) if self.native_lane else None
+        if lane_doc is None:
+            self.plane.register(name)
+        snapshot = encode_state_as_update(data.document)
         # receivers get pre-load state via sync, not broadcast
-        self.plane.enqueue_update(name, encode_state_as_update(data.document), presync=True)
+        self.plane.enqueue_update(name, snapshot, presync=True)
+        if lane_doc is not None and not self.plane.is_supported(name):
+            # load-time lane demote (the snapshot holds rich content):
+            # nothing is served yet, so retry on the Python path in
+            # place instead of the full fallback+recycle dance.
+            # flush_lock: release() rewrites device rows and must not
+            # race an executor-side flush
+            plane_doc = self.plane.docs.get(name)
+            if plane_doc is not None and plane_doc.retire_reason == "lane_demote":
+                async with self.plane.flush_lock:
+                    self._onboard_python(name, snapshot)
         if self.serve and self.plane.is_supported(name):
             self._attach_serving(name, data.document)
         self._schedule_flush()
@@ -1559,7 +1784,11 @@ class TpuMergeExtension(Extension):
                         return  # re-loaded while we waited: registration lives on
                     self._detach_serving(name, self._docs.pop(name, None))
                     self.plane.release(name)
-                    # a future incarnation starts with a fresh recycle budget
+                    # a future incarnation starts with a fresh recycle
+                    # budget. The plane's lane ban is deliberately NOT
+                    # cleared: a doc that demoted carries rich content in
+                    # its stored state, and re-trying the lane on every
+                    # reload would re-pay the demote each time
                     self._recycle_declined.discard(name)
                     return
             # A re-load is in flight. Wait for it OUTSIDE the lock: on
@@ -1597,11 +1826,19 @@ class TpuMergeExtension(Extension):
             return False
         plane = self.plane
         if not plane.is_supported(name):
+            plane_doc = plane.docs.get(name)
+            reason = plane_doc.retire_reason if plane_doc is not None else None
+            if reason == "lane_demote":
+                # keep serving attached; this update rides the CPU
+                # fan-out until the Python-plane registration lands.
+                # Re-spawn per update: an earlier attempt may have
+                # bailed, and the rebuild's guards make redundant
+                # spawns no-ops
+                self._spawn_tracked(self._rebuild_lane_doc(document))
+                return False
             # already degraded (e.g. a device OVERFLOW retire from the
             # post-flush health sweep, where no recycle seam runs) —
             # this fresh traffic is the signal the doc is still busy
-            plane_doc = plane.docs.get(name)
-            reason = plane_doc.retire_reason if plane_doc is not None else None
             self._fallback_to_cpu(document)
             self._maybe_recycle(document, reason)
             return False
@@ -1620,6 +1857,13 @@ class TpuMergeExtension(Extension):
             # this very update degraded the doc; it broadcasts via CPU
             plane_doc = plane.docs.get(name)
             reason = plane_doc.retire_reason if plane_doc is not None else None
+            if reason == "lane_demote":
+                # the doc outgrew the native text lane (first map/rich
+                # op): rebuild it on the Python plane IN PLACE — serving
+                # stays attached, this and subsequent updates ride the
+                # per-update CPU fan-out until the rebuild lands
+                self._spawn_tracked(self._rebuild_lane_doc(document))
+                return False
             self._fallback_to_cpu(document)
             self._maybe_recycle(document, reason)
             return False
@@ -1631,12 +1875,91 @@ class TpuMergeExtension(Extension):
         self._schedule_broadcast()
         return True
 
+    async def _rebuild_lane_doc(self, document) -> None:
+        """In-place re-onboard of a lane-demoted doc onto the Python
+        plane path.
+
+        Unlike capacity recycling there is no CPU-fallback broadcast:
+        receivers stay current through (1) the pending lane window,
+        shipped here before the log is dropped, and (2) per-update CPU
+        fan-out for every update between the demote and this rebuild
+        (try_capture returns False for a retired doc). The plane's ban
+        set routes register_lane() callers to the Python path."""
+        from ..crdt import encode_state_as_update
+
+        name = document.name
+        plane = self.plane
+        async with plane.flush_lock:
+            if document.get_connections_count() <= 0:
+                return  # unloading anyway
+            doc = plane.docs.get(name)
+            if (
+                doc is None
+                or not doc.retired
+                or doc.retire_reason != "lane_demote"
+                or name not in self._docs
+            ):
+                return  # state moved on; leave it be
+            try:
+                pair = self.serving.build_broadcast_pair(name)
+                if pair is not None:
+                    update, cross = pair
+                    document.broadcast_update_frame(update)
+                    if cross is not None and self._instance is not None:
+                        self._spawn_tracked(
+                            self._instance.hooks(
+                                "on_plane_broadcast",
+                                Payload(
+                                    instance=self._instance,
+                                    document_name=name,
+                                    document=document,
+                                    update=cross,
+                                ),
+                            )
+                        )
+                new_doc = self._onboard_python(name, encode_state_as_update(document))
+            except Exception:
+                # not a content verdict (a failed window encode, or
+                # release() writing the arena rows): on the card it
+                # raises; a CPU plane degrades this doc alone, as the
+                # JAX package's extension does
+                from ..server import logger as _logger_mod
+
+                if plane.device.type == "cuda":
+                    self._device_fault()
+                _logger_mod.logger.error(
+                    "lane-demote rebuild failed for %r; degrading to CPU", name, exc_info=True
+                )
+                self._fallback_to_cpu(document)
+                return
+            if new_doc is None or new_doc.lowerer.unsupported:
+                # genuinely unsupported content: the doc leaves the
+                # plane for the plain CPU path
+                self._fallback_to_cpu(document)
+                return
+            # the cursor still points into the LANE's op log; left stale
+            # it would swallow (or mis-slice) every window of the fresh
+            # Python-path registration
+            self.serving.broadcast_cursor[name] = len(new_doc.serve_log)
+        self._schedule_flush()
+
+    def _onboard_python(self, name: str, snapshot: bytes) -> "Optional[PlaneDoc]":
+        """Release `name` and register it again on the Python host path,
+        lowering `snapshot` as presync (a lane demote's retry: the ban
+        set keeps register_lane() off it). The caller holds flush_lock:
+        release() rewrites arena rows."""
+        plane = self.plane
+        plane.release(name)
+        plane.register(name)
+        plane.enqueue_update(name, snapshot, presync=True)
+        return plane.docs.get(name)
+
     def _maybe_recycle(self, document, reason: "Optional[str]") -> None:
         """Schedule a recycle for row-exhaustion retires ("capacity",
-        "plane_full", "overflow"): re-onboard with fresh rows lowered
-        from the live CPU snapshot. Content retires ("unsupported") and
-        desyncs never recycle."""
-        if reason not in ("capacity", "plane_full", "overflow"):
+        "plane_full", "overflow") and lane demotes: re-onboard with
+        fresh rows lowered from the live CPU snapshot. Content retires
+        ("unsupported") and desyncs never recycle."""
+        if reason not in ("capacity", "plane_full", "overflow", "lane_demote"):
             return
         if document.name in self._recycle_declined:
             return
@@ -1674,9 +1997,19 @@ class TpuMergeExtension(Extension):
                 return  # registration changed under us; leave it be
             try:
                 plane.release(name)
-                plane.register(name)
-                plane.enqueue_update(name, encode_state_as_update(document), presync=True)
+                # a hot plain-text doc keeps its native lane across the
+                # recycle (unless it demoted: the ban set routes it to
+                # the Python path inside register_lane)
+                if not (self.native_lane and plane.register_lane(name)):
+                    plane.register(name)
+                snapshot = encode_state_as_update(document)
+                plane.enqueue_update(name, snapshot, presync=True)
                 doc = plane.docs.get(name)
+                if doc is not None and doc.retired and doc.retire_reason == "lane_demote":
+                    # the doc had never tried the lane before (not
+                    # banned) and its snapshot is rich: retry in place on
+                    # the Python path instead of stranding it
+                    doc = self._onboard_python(name, snapshot)
                 if doc is None or doc.lowerer.unsupported:
                     self._recycle_declined.add(name)
                     return  # live content unsupported/too big: stays on CPU
@@ -1698,9 +2031,12 @@ class TpuMergeExtension(Extension):
                 self._attach_serving(name, document)
             except Exception:
                 # a half-recycled registration would silently swallow
-                # ops: mark it retired so the doc lives on the CPU path
+                # ops: mark it retired so the doc lives on the CPU path.
+                # On the card a failed step raises instead
                 from ..server import logger as _logger_mod
 
+                if plane.device.type == "cuda":
+                    self._device_fault()
                 _logger_mod.log_error(f"recycle failed for {name!r}; staying on CPU")
                 plane.retire_doc(name, "fallback", count=False)
                 return
@@ -1735,8 +2071,9 @@ class TpuMergeExtension(Extension):
     # -- flush ---------------------------------------------------------------
 
     def _device_fault(self) -> None:
-        """Called inside the handler of a failed device step (a flush, or
-        a sync serve's flush and encode). On the card the error
+        """Called inside the handler of a failed device step (a flush, a
+        sync serve's flush and encode, a lane-demote rebuild or a
+        recycle). On the card the error
         propagates: a kernel that does not build or launch fails the
         flush, the sync serve and the server loudly, and the CPU never
         serves in the plane's place. On a CPU plane every served doc

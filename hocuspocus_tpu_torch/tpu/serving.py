@@ -4,8 +4,12 @@ The counterpart of the JAX package's `tpu/serving.py`: for supported
 documents, SyncStep2 payloads and steady-state update broadcasts are
 PRODUCED from device state — arena ids and tombstones read back from the
 device, combined with the host-side serve/unit logs — instead of from
-the CPU document. Every encode takes the pure-Python path; the JAX
-package's native encoder emits the same bytes.
+the CPU document. Documents on the native text lane (`MergePlane.
+enable_lane`) build their windows and stale/cold SyncStep2 structs in
+C++ straight from the lane's log; the other documents encode their
+string/GC windows through the native `encode_text_window` and anything
+richer through the Python Items path. Every route emits the bytes the
+pure-Python encoder would.
 
 Safety model:
 - The CPU document stays the fallback: every serve checks the plane is
@@ -34,6 +38,7 @@ from ..crdt.encoding import Encoder
 from ..crdt.ids import ID
 from ..crdt.structs import GC, Item
 from ..crdt.update import _write_structs, decode_state_vector
+from ..native import get_codec
 from .kernels import KIND_DELETE, KIND_INSERT, NONE_CLIENT, catchup_pack, state_vector_diff
 from .kernels_rle import catchup_pack_rle
 from .lowering import units_to_text
@@ -191,6 +196,11 @@ class PlaneServing:
         if doc is not None:
             for slot in doc.seqs.values():
                 self._tombstone_cache.pop(slot, None)
+            if doc.lane_slot is not None:
+                # lane slots may predate root discovery (not yet in
+                # seqs): a stale entry left here would survive into the
+                # slot's next tenant's cache lookups
+                self._tombstone_cache.pop(doc.lane_slot, None)
 
     # -- health -------------------------------------------------------------
 
@@ -254,13 +264,25 @@ class PlaneServing:
         needs_check.extend(name for name, good in zip(candidates, ok) if not good)
         return fast_ok, needs_check
 
+    def _local_sv(self, doc: PlaneDoc) -> dict:
+        """The plane's integrated clocks for this doc (lane docs keep
+        them natively; others in the Python lowerer)."""
+        plane = self.plane
+        if doc.lane_slot is not None:
+            return plane._lane_codec.lane_known(plane._lane, doc.lane_slot)
+        return dict(doc.lowerer.known)
+
     def covers(self, name: str, document) -> bool:
         """Plane has integrated everything the CPU document has seen."""
-        doc = self.plane.docs.get(name)
+        plane = self.plane
+        doc = plane.docs.get(name)
         if doc is None:
             return False
+        sv = document.store.get_state_vector()
+        if doc.lane_slot is not None:
+            return bool(plane._lane_codec.lane_covers(plane._lane, doc.lane_slot, list(sv.items())))
         known = doc.lowerer.known
-        for client, clock in document.store.get_state_vector().items():
+        for client, clock in sv.items():
             if clock > known.get(client, 0):
                 return False
         return True
@@ -469,6 +491,74 @@ class PlaneServing:
         ds.sort_and_merge()
         return ds
 
+    def _encode_window_native(
+        self,
+        doc: PlaneDoc,
+        records: list[LogRec],
+        min_clock: Optional[dict[int, int]],
+    ) -> Optional[bytes]:
+        """Struct-section bytes via the native `encode_text_window`, or
+        None = use the Python path.
+
+        The semantic work of `_group_items` + `crdt/update._write_structs`
+        — cutoff trimming (the record filter below), group ordering,
+        the first-item offset with its origin rewrite and payload slice
+        — happens HERE; the C++ side is pure byte emission. Only the
+        shapes the plane serves hot qualify (string runs, deleted runs,
+        GC ranges, root parents); any rich content (formats, embeds,
+        maps, ID parents) returns None and the caller re-encodes via
+        Items."""
+        unit_logs = self.plane.unit_logs
+        by: dict[int, list[LogRec]] = {}
+        for rec in records:
+            op = rec.op
+            if op.kind != KIND_INSERT:
+                continue
+            if min_clock is not None:
+                cutoff = min_clock.get(op.client)
+                if cutoff is None or op.clock + op.run_len <= cutoff:
+                    continue
+            if op.content is not None or op.parent_sub is not None:
+                return None
+            if op.parent is not None and op.parent[0] != "root":
+                return None
+            by.setdefault(op.client, []).append(rec)
+        groups = []
+        for client in sorted(by, reverse=True):
+            recs = sorted(by[client], key=lambda r: r.op.clock)
+            cutoff = 0 if min_clock is None else min_clock[client]
+            # the filter above kept only records overlapping the cutoff,
+            # so recs[0] is the group's first emitted struct
+            write_clock = max(cutoff, recs[0].op.clock)
+            items = []
+            for j, rec in enumerate(recs):
+                op = rec.op
+                offset = max(write_clock - op.clock, 0) if j == 0 else 0
+                if op.gc:
+                    items.append((1, -1, 0, -1, 0, None, op.run_len - offset))
+                    continue
+                oc = -1 if op.left_client == NONE_CLIENT else op.left_client
+                ok = op.left_clock
+                rc = -1 if op.right_client == NONE_CLIENT else op.right_client
+                rk = op.right_clock
+                if offset > 0:
+                    # emitting a tail of the run: its origin is the unit
+                    # just before the cut (Item.write offset semantics)
+                    oc, ok = client, write_clock - 1
+                parent_name = None
+                if oc < 0 and rc < 0:
+                    if op.parent is None:
+                        return None
+                    parent_name = op.parent[1]
+                if op.deleted_content:
+                    items.append((2, oc, ok, rc, rk, parent_name, op.run_len - offset))
+                    continue
+                log = unit_logs[rec.slot]
+                payload = units_to_text(log[rec.unit_off + offset : rec.unit_off + op.run_len])
+                items.append((0, oc, ok, rc, rk, parent_name, payload))
+            groups.append((client, write_clock, items))
+        return get_codec().encode_text_window(groups)
+
     def _widen_surrogate_cutoffs(self, records: list[LogRec], sm: dict[int, int]) -> None:
         """A stale-sync cutoff landing mid-surrogate-pair would slice a
         text run so its first transmitted unit is a lone low surrogate;
@@ -509,9 +599,17 @@ class PlaneServing:
         through the join-storm sync cache (the payload is a pure function
         of serve log + cutoff map within one flush epoch)."""
         plane = self.plane
-        if any(clock > 0 for clock in sm.values()):
-            self._widen_surrogate_cutoffs(doc.serve_log, sm)
-        epoch_key = (len(doc.serve_log), len(doc.map_tombstones), plane.flush_epoch)
+        lane = doc.lane_slot is not None
+        if lane:
+            # native path: cutoff trimming, offset origin-rewrite and
+            # surrogate widening all happen in C — no materialization,
+            # so a reconnect storm never exports the log
+            log_key = plane._lane_codec.lane_log_len(plane._lane, doc.lane_slot)
+            epoch_key = (log_key, plane.flush_epoch)
+        else:
+            if any(clock > 0 for clock in sm.values()):
+                self._widen_surrogate_cutoffs(doc.serve_log, sm)
+            epoch_key = (len(doc.serve_log), len(doc.map_tombstones), plane.flush_epoch)
         sv_key = tuple(sorted(sm.items()))
         cached = self._sync_cache.get(doc.name, doc, epoch_key, sv_key)
         if cached is not None:
@@ -520,10 +618,19 @@ class PlaneServing:
             return cached
         plane.counters["sync_cache_misses"] += 1
         encoder = Encoder()
-        items_by_client = self._group_items(doc, doc.serve_log, sm)
-        encoder.write_var_uint(len(items_by_client))
-        for client in sorted(items_by_client, reverse=True):
-            _write_structs(encoder, items_by_client[client], client, sm[client])
+        if lane:
+            encoder.write_bytes(
+                plane._lane_codec.lane_window_sm(plane._lane, doc.lane_slot, list(sm.items()))
+            )
+        else:
+            body = self._encode_window_native(doc, doc.serve_log, sm)
+            if body is not None:
+                encoder.write_bytes(body)
+            else:
+                items_by_client = self._group_items(doc, doc.serve_log, sm)
+                encoder.write_var_uint(len(items_by_client))
+                for client in sorted(items_by_client, reverse=True):
+                    _write_structs(encoder, items_by_client[client], client, sm[client])
         self._device_delete_set(doc).write(encoder)
         plane.counters["sync_serves"] += 1
         payload = encoder.to_bytes()
@@ -555,7 +662,7 @@ class PlaneServing:
                 target_sv = decode_state_vector(sv_bytes) if sv_bytes else {}
             except (ValueError, IndexError):
                 return None
-            return self._encode_from_sm(doc, _cutoff_map(dict(doc.lowerer.known), target_sv))
+            return self._encode_from_sm(doc, _cutoff_map(self._local_sv(doc), target_sv))
 
     # -- batched catch-up (the storm path) -----------------------------------
 
@@ -618,7 +725,7 @@ class PlaneServing:
             if doc is None or not self.covers(name, document):
                 future.done() or future.set_result(None)
                 continue
-            local_sv = dict(doc.lowerer.known)
+            local_sv = self._local_sv(doc)
             try:
                 target_sv = decode_state_vector(sv_bytes) if sv_bytes else {}
             except (ValueError, IndexError):
@@ -694,11 +801,15 @@ class PlaneServing:
         if not has_inserts and not window_ds.clients:
             return None
         encoder = Encoder()
-        by = self._group_items(doc, window)
-        encoder.write_var_uint(len(by))
-        for client in sorted(by, reverse=True):
-            items = by[client]
-            _write_structs(encoder, items, client, items[0].id.clock)
+        body = self._encode_window_native(doc, window, None)
+        if body is not None:
+            encoder.write_bytes(body)
+        else:
+            by = self._group_items(doc, window)
+            encoder.write_var_uint(len(by))
+            for client in sorted(by, reverse=True):
+                items = by[client]
+                _write_structs(encoder, items, client, items[0].id.clock)
         window_ds.sort_and_merge()
         window_ds.write(encoder)
         return encoder.to_bytes()
@@ -706,17 +817,38 @@ class PlaneServing:
     def build_broadcast_pairs(
         self, names: "list[str]"
     ) -> "tuple[list[tuple[str, Optional[tuple[bytes, Optional[bytes]]]]], list[str]]":
-        """Batched window drain -> (pairs, failed_names), with per-doc
-        isolation: one doc's encode failure lands it in failed_names
-        instead of aborting the other docs' windows."""
+        """Batched window drain -> (pairs, failed_names).
+
+        Lane docs resolve in ONE native call (a missing slot yields a
+        None entry, not an exception); Python-path docs go through
+        build_broadcast_pair each, with per-doc isolation: one doc's
+        encode failure lands it in failed_names instead of aborting the
+        other docs' windows."""
+        plane = self.plane
         out: list = []
         failed: list[str] = []
+        lane_names: list = []
+        lane_args: list = []
         for name in names:
+            doc = plane.docs.get(name)
+            if doc is not None and doc.lane_slot is not None:
+                lane_names.append(name)
+                lane_args.append((doc.lane_slot, self.broadcast_cursor.get(name, 0)))
+                continue
             try:
                 out.append((name, self.build_broadcast_pair(name)))
             except Exception:
                 logger.exception("broadcast encode failed for %r", name)
                 failed.append(name)
+        if lane_args:
+            results = plane._lane_codec.lane_windows_batch(plane._lane, lane_args)
+            for name, (full, cross, new_idx) in zip(lane_names, results):
+                self.broadcast_cursor[name] = new_idx
+                if full is None:
+                    out.append((name, None))
+                else:
+                    plane.counters["plane_broadcasts"] += 1
+                    out.append((name, (full, cross)))
         return out, failed
 
     def build_broadcast_pair(self, name: str) -> "Optional[tuple[bytes, Optional[bytes]]]":
@@ -729,6 +861,16 @@ class PlaneServing:
         doc = plane.docs.get(name)
         if doc is None:
             return None
+        if doc.lane_slot is not None:
+            # native path: one C call builds both frames' update bytes
+            full, cross, new_idx, _ = plane._lane_codec.lane_window(
+                plane._lane, doc.lane_slot, self.broadcast_cursor.get(name, 0)
+            )
+            self.broadcast_cursor[name] = new_idx
+            if full is None:
+                return None
+            plane.counters["plane_broadcasts"] += 1
+            return full, cross
         log = doc.serve_log
         cursor = min(self.broadcast_cursor.get(name, 0), len(log))
         window = [rec for rec in log[cursor:] if not rec.op.presync]

@@ -458,3 +458,71 @@ def test_a_failed_launch_on_the_card_fails_the_flush_and_the_sync_serve(cuda, ar
             await core.hooks("on_destroy", Payload(instance=core))
 
     asyncio.run(body())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arena", ["unit", "rle"])
+def test_lane_plane_on_the_card_matches_a_cpu_python_twin(cuda, arena):
+    """Text-lane docs on the card (lane drain -> the fast/slow split ->
+    K1/K2) against a CPU plane on the Python host path: arena element
+    for element and served bytes byte for byte after every flush, with
+    client ids at and above 2**31 and the integrate kernel launched."""
+    from hocuspocus_tpu_torch.crdt import Doc, apply_update
+    from hocuspocus_tpu_torch.tpu import MergePlane, PlaneServing
+
+    rng = np.random.default_rng(13)
+    lane = MergePlane(num_docs=16, capacity=1024, device=cuda, arena=arena)
+    lane.enable_lane()
+    twin = MergePlane(num_docs=16, capacity=1024, device="cpu", arena=arena)
+    servings = PlaneServing(lane), PlaneServing(twin)
+    to_numpy = tr.rle_state_to_numpy if arena == "rle" else tk.doc_state_to_numpy
+    names = [f"d{i}" for i in range(6)]
+    editors = {}
+    for i, name in enumerate(names):
+        assert lane.register_lane(name) is not None
+        pair = []
+        for client in (0x80000001 + i, 17 + i):
+            doc = Doc()
+            doc.client_id = client
+            sent = []
+            doc.on("update", lambda u, *r, sent=sent: sent.append(u))
+            pair.append((doc, sent))
+        editors[name] = pair
+    if arena == "rle":
+        dispatchers = (ti.integrate_op_slots_rle_fast, ti.integrate_op_slots_rle_sparse_fast)
+    else:
+        dispatchers = (ti.integrate_op_slots_fast, ti.integrate_op_slots_sparse_fast)
+    launches = sum(d.launches for d in dispatchers)
+    for round_no in range(6):
+        for name in names:
+            (a, sent_a), (b, sent_b) = editors[name]
+            ta, tb = a.get_text("t"), b.get_text("t")
+            ta.insert(len(ta), f"a{round_no} ")  # a tail append: the fast path
+            if round_no % 2:  # a concurrent insert: the integrate kernel
+                tb.insert(int(rng.integers(0, len(tb) + 1)), f"B{round_no}\U0001f600")
+            stream = sent_a + sent_b
+            for u in sent_a:
+                apply_update(b, u)
+            for u in sent_b:
+                apply_update(a, u)
+            sent_a.clear()
+            sent_b.clear()
+            for u in stream:
+                assert lane.enqueue_update(name, u) == twin.enqueue_update(name, u)
+        windows = [serving.build_broadcast_pairs(names) for serving in servings]
+        assert windows[0] == windows[1]
+        assert lane.flush() == twin.flush()
+        for ours, theirs in zip(to_numpy(lane.state), to_numpy(twin.state)):
+            np.testing.assert_array_equal(ours, theirs)
+        for serving in servings:
+            serving.refresh()
+        for name in names:
+            a = editors[name][0][0]
+            replies = [s.encode_state_as_update(name, a, None) for s in servings]
+            assert replies[0] is not None and replies[0] == replies[1]
+            assert lane.text(name) == twin.text(name) == a.get_text("t").to_string()
+    assert lane.counters["flush_fast_ops"] == twin.counters["flush_fast_ops"] > 0
+    assert lane.counters["flush_slow_ops"] == twin.counters["flush_slow_ops"] > 0
+    assert all(lane.docs[name].lane_slot is not None for name in names)
+    assert not any(v for k, v in lane.counters.items() if k.startswith("docs_retired_"))
+    assert sum(d.launches for d in dispatchers) > launches

@@ -6,6 +6,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parent.parent
 
 IMPORT_EVERYTHING = """
@@ -113,3 +115,56 @@ def test_chip_smoke_refuses_to_run_without_cuda():
     )
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+NATIVE_LOAD = """
+import sys
+before = list(sys.path)
+from hocuspocus_tpu_torch.native import get_codec
+codec = get_codec()
+print("NAME", codec.__name__)
+print("FILE", codec.__file__)
+print("PATH_UNCHANGED", sys.path == before)
+print("NO_JAX_CODEC", "_codec" not in sys.modules)
+"""
+
+
+def test_native_codec_loads_from_build_under_its_own_name():
+    out = _run(NATIVE_LOAD)
+    assert "NAME _hocuspocus_torch_codec" in out, out
+    loaded = next(line.split(" ", 1)[1] for line in out.splitlines() if line.startswith("FILE "))
+    path = Path(loaded)
+    assert path.parent == ROOT / "build" / "torch_native", loaded
+    assert path.name.startswith("_hocuspocus_torch_codec_"), loaded
+    assert "PATH_UNCHANGED True" in out, out
+    assert "NO_JAX_CODEC True" in out, out
+
+
+def test_no_port_file_names_the_jax_native_package():
+    offenders = []
+    for path in [ROOT / "chip_smoke.py", *sorted((ROOT / "hocuspocus_tpu_torch").rglob("*"))]:
+        if path.suffix not in (".py", ".cpp", ".cu"):
+            continue
+        text = path.read_text(encoding="utf-8")
+        for needle in ("hocuspocus_tpu/native", "hocuspocus_tpu.native"):
+            if needle in text:
+                offenders.append(f"{path.relative_to(ROOT)}: {needle}")
+    assert not offenders, offenders
+
+
+def test_a_failed_codec_build_raises_with_the_compilers_output(monkeypatch, tmp_path):
+    from hocuspocus_tpu_torch import native
+
+    compiler = tmp_path / "broken-cxx"
+    compiler.write_text("#!/bin/sh\necho 'broken-cxx: no such header Python.h' >&2\nexit 1\n")
+    compiler.chmod(0o755)
+    monkeypatch.setattr(native, "_codec", None)
+    monkeypatch.setattr(native, "_BUILD_DIR", tmp_path / "out")
+    monkeypatch.setattr(native, "CXX", str(compiler))
+    with pytest.raises(RuntimeError, match="no such header Python.h"):
+        native.get_codec()
+    assert native._codec is None  # nothing to fall back to
+    assert not list((tmp_path / "out").glob("*.so"))
+    monkeypatch.setattr(native, "CXX", str(tmp_path / "missing-cxx"))
+    with pytest.raises(RuntimeError, match="cannot run"):
+        native.get_codec()

@@ -428,6 +428,52 @@ async def test_device_fault_on_a_card_plane_raises_instead_of_degrading():
             ext.plane.flush, ext.plane.device = real_flush, real_device
 
 
+@pytest.mark.parametrize("card", [False, True])
+async def test_failed_lane_demote_rebuild_is_a_fault_not_a_content_verdict(card):
+    """A map edit demotes a lane doc and the extension rebuilds it on the
+    Python path in place. When the rebuild itself fails (here the pending
+    lane window's encode), a card plane raises out of the rebuild and
+    keeps the doc off the CPU document; a CPU plane degrades that doc
+    alone. Neither drops the window quietly and rebuilds over it."""
+    import torch
+
+    ext = _served_ext(flush_interval_ms=60_000, governor=False)
+    assert ext.native_lane
+    async with Served(ext) as served:
+        a, b = served.provider("demote"), served.provider("demote")
+        await served.synced(a, b)
+        a.document.get_text("t").insert(0, "plain ")
+        await until(lambda: _assert(b.document.get_text("t").to_string() == "plain "))
+        assert ext.plane.docs["demote"].lane_slot is not None
+        real_device = ext.plane.device
+
+        def failing_pair(name):
+            raise RuntimeError("simulated window encode failure")
+
+        ext.serving.build_broadcast_pair = failing_pair
+        if card:
+            ext.plane.device = torch.device("cuda")
+        try:
+            a.document.get_map("m").set("k", "v")
+            await until(lambda: _assert(ext.plane.counters["docs_retired_lane_demote"] == 1))
+            if card:
+                # the capture seam spawned the rebuild already; run it
+                # here too to see it raise
+                with pytest.raises(RuntimeError, match="window encode failure"):
+                    await ext._rebuild_lane_doc(served.core.documents["demote"])
+                assert ext.plane.counters["cpu_fallbacks"] == 0
+                assert "demote" in ext._docs
+                # the window is still pending: nothing was rebuilt over it
+                doc = ext.plane.docs["demote"]
+                assert doc.retire_reason == "lane_demote" and doc.lane_slot is not None
+            else:
+                await until(lambda: _assert(ext.plane.counters["cpu_fallbacks"] == 1))
+            # the update that demoted the doc rode the CPU fan-out
+            await until(lambda: _assert(b.document.get_map("m").get("k") == "v"))
+        finally:
+            ext.plane.device = real_device
+
+
 async def test_catchup_storm_batches_sync_triage_on_device(monkeypatch):
     """Concurrent SyncStep1s share state_vector_diff calls."""
     import hocuspocus_tpu_torch.tpu.serving as serving_mod
@@ -485,7 +531,10 @@ async def test_serve_mode_survives_doc_churn_under_load():
 
             def known(name):
                 doc = ext.plane.docs.get(name)
-                return doc is not None and bool(doc.lowerer.known)
+                if doc is None:
+                    return False
+                ext.plane.materialize_lane(doc)  # lane docs keep known in C++
+                return bool(doc.lowerer.known)
 
             await until(
                 lambda wave=wave: _assert(sum(known(f"churn-{wave}-{i}") for i in range(4)) == 4)
@@ -576,7 +625,11 @@ def test_extension_refuses_what_is_not_ported():
     for knob in ("evict_idle_secs", "compact_threshold"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TpuMergeExtension(device="cpu", **{knob: 1.0})
-    assert TpuMergeExtension(device="cpu", serve=True, native_lane=True).native_lane is False
+    # the native text lane is ported: on by default in serve mode, off in
+    # shadow mode and when the caller asks for the Python host path
+    assert TpuMergeExtension(device="cpu", serve=True).native_lane is True
+    assert TpuMergeExtension(device="cpu", serve=True, native_lane=False).native_lane is False
+    assert TpuMergeExtension(device="cpu", serve=False).native_lane is False
 
 
 # -- DeviceLane / BatchGovernor (twins of tests/tpu/test_scheduler.py) ----------

@@ -2,9 +2,10 @@
 
 The same seeded stream of Yjs updates (16 docs, 4 concurrent editors
 each, mixed content) goes through the JAX package's Hocuspocus core with
-its TpuMergeExtension (serve mode, no native lane, no governor, no
-timers: broadcasts and flushes are explicit) and through the port's, in
-the same order, over direct connections. After every flush the arena
+its TpuMergeExtension (serve mode, with and without the native text
+lane, no governor, no timers: broadcasts and flushes are explicit) and
+through the port's with the same settings, in the same order, over
+direct connections. After every flush the arena
 tensors must be equal element for element, the broadcast frames and the
 SyncStep2 bytes served for an empty and a mid-stream state vector equal
 byte for byte, and the plane counters equal. Cross-wire tests run each
@@ -25,7 +26,7 @@ from hocuspocus_tpu_torch import crdt as port_crdt
 from hocuspocus_tpu_torch.server import Configuration, Hocuspocus
 from hocuspocus_tpu_torch.tpu import TpuMergeExtension
 from tests.test_torch_plane import COUNTERS, assert_planes_equal
-from tests.tpu.test_plane_fuzz import _doc_fingerprint, _random_edit
+from tests.tpu.test_plane_fuzz import WORDS, _doc_fingerprint, _pair_align, _random_edit
 
 DOCS = 16
 CLIENTS = 4
@@ -57,20 +58,21 @@ class _Recorder:
 class _Side:
     """One package's core + extension, fed through direct connections."""
 
-    def __init__(self, ext_cls, config_cls, core_cls, crdt, arena, **kwargs) -> None:
+    def __init__(self, ext_cls, config_cls, core_cls, crdt, arena, native_lane, **kwargs) -> None:
         self.crdt = crdt
         self.ext = ext_cls(
             num_docs=256,
             capacity=512,
             serve=True,
             arena=arena,
-            native_lane=False,
+            native_lane=native_lane,
             governor=False,
             flush_interval_ms=1e6,
             **kwargs,
         )
         # broadcasts only when the test runs a pass
         self.ext._schedule_broadcast = lambda: None
+        assert self.ext.native_lane is native_lane
         self.recorder = _Recorder()
         self.core = core_cls(config_cls(quiet=True, extensions=[self.ext, self.recorder]))
         self.directs = {}
@@ -98,7 +100,9 @@ class _Side:
             await asyncio.gather(*list(self.ext._flush_tasks))
 
     async def serve(self, name: str, sv):
-        return await self.core.documents[name].sync_source.encode_state_as_update_async(sv)
+        source = self.core.documents[name].sync_source
+        assert source is not None, f"{name} left the plane for the CPU document"
+        return await source.encode_state_as_update_async(sv)
 
     async def close(self) -> None:
         for direct in self.directs.values():
@@ -122,12 +126,28 @@ def _editors(rng):
     return groups
 
 
-def _round(rng, group, step: int) -> list:
-    """Every editor edits its own replica, then the updates are exchanged;
-    returns them shuffled, the order in which the servers receive them."""
+def _plain_edit(rng, doc) -> None:
+    """A text-only edit: the shape that stays on the native text lane."""
+    text = doc.get_text("t")
+    if len(text) > 2 and rng.random() < 0.3:
+        pos = _pair_align(text, int(rng.integers(0, len(text) - 1)))
+        end = _pair_align(text, min(pos + int(rng.integers(1, 4)), len(text)))
+        if end > pos:
+            text.delete(pos, end - pos)
+        return
+    text.insert(_pair_align(text, int(rng.integers(0, len(text) + 1))), WORDS[rng.integers(0, len(WORDS))])
+
+
+def _round(rng, group, step: int, plain: bool = False) -> list:
+    """Every editor edits its own replica (text only when `plain`), then
+    the updates are exchanged; returns them shuffled, the order in which
+    the servers receive them."""
     for doc, _box in group:
         for k in range(int(rng.integers(1, 4))):
-            _random_edit(rng, doc, step * 10 + k)
+            if plain:
+                _plain_edit(rng, doc)
+            else:
+                _random_edit(rng, doc, step * 10 + k)
     sent = [(j, update) for j, (_doc, box) in enumerate(group) for update in box]
     for _doc, box in group:
         box.clear()
@@ -144,21 +164,27 @@ def _assert_counters_equal(jax_plane, plane) -> None:
         assert jax_plane.counters[key] == plane.counters[key], key
 
 
+@pytest.mark.parametrize("native_lane", [False, True])
 @pytest.mark.parametrize("seed", [5, 23])
 @pytest.mark.parametrize("arena", ["unit", "rle"])
-async def test_served_path_matches_jax_after_every_flush(arena, seed):
+async def test_served_path_matches_jax_after_every_flush(arena, seed, native_lane):
     rng = np.random.default_rng(seed)
     names = [f"doc-{i}" for i in range(DOCS)]
-    jax_side = _Side(JaxExtension, JaxConfiguration, JaxHocuspocus, jax_crdt, arena)
-    port = _Side(TpuMergeExtension, Configuration, Hocuspocus, port_crdt, arena, device="cpu")
+    jax_side = _Side(JaxExtension, JaxConfiguration, JaxHocuspocus, jax_crdt, arena, native_lane)
+    port = _Side(
+        TpuMergeExtension, Configuration, Hocuspocus, port_crdt, arena, native_lane, device="cpu"
+    )
     await jax_side.open(names)
     await port.open(names)
     groups = _editors(rng)
     stale = {}
     try:
         for step in range(ROUNDS):
-            for name, group in zip(names, groups):
-                for update in _round(rng, group, step):
+            for i, (name, group) in enumerate(zip(names, groups)):
+                # with the lane on, half the docs stay plain text (the
+                # lane's shape) and half carry mixed content (the demote
+                # and in-place rebuild)
+                for update in _round(rng, group, step, plain=native_lane and i % 2 == 0):
                     await jax_side.feed(name, update)
                     await port.feed(name, update)
             # broadcasts build from the host logs, before the flush
@@ -181,7 +207,7 @@ async def test_served_path_matches_jax_after_every_flush(arena, seed):
                         continue
                     ours = await port.serve(name, sv)
                     assert ours == await jax_side.serve(name, sv)
-                    if sv is None and ours is not None:
+                    if sv is None and isinstance(ours, bytes):
                         rebuilt = port_crdt.Doc()
                         port_crdt.apply_update(rebuilt, ours)
                         assert _doc_fingerprint(rebuilt) == want
@@ -189,7 +215,26 @@ async def test_served_path_matches_jax_after_every_flush(arena, seed):
                     stale[name] = jax_crdt.encode_state_vector(group[0][0])
             _assert_counters_equal(jax_side.ext.plane, port.ext.plane)
         assert port.recorder.frames and port.ext.plane.counters["sync_serves"] > 0
-        assert sorted(port.ext._docs) == sorted(jax_side.ext._docs)
+        # every doc is still served from the plane on both sides: a lane
+        # demote rebuilds in place, it never hands a doc to the CPU
+        for side in (jax_side, port):
+            assert side.ext.plane.counters["cpu_fallbacks"] == 0
+            assert sorted(side.ext._docs) == sorted(names)
+        lane_docs = sorted(n for n, d in port.ext.plane.docs.items() if d.lane_slot is not None)
+        assert lane_docs == sorted(
+            n for n, d in jax_side.ext.plane.docs.items() if d.lane_slot is not None
+        )
+        for key in ("docs_retired_lane_demote", "docs_retired_unsupported"):
+            assert port.ext.plane.counters[key] == jax_side.ext.plane.counters[key], key
+        if native_lane:
+            # the plain-text half stays on the lane, the mixed half demotes
+            assert lane_docs == sorted(names[::2])
+            assert port.ext.plane.counters["docs_retired_lane_demote"] == DOCS // 2
+            for name in names[1::2]:
+                doc = port.ext.plane.docs[name]
+                assert doc.lane_slot is None and not doc.retired, name
+        else:
+            assert not lane_docs
     finally:
         await jax_side.close()
         await port.close()
