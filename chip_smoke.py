@@ -83,26 +83,26 @@ OPS_RLE_BOUND = 6  # :207-215 each id bound's scan: ==, <, add, <, two ands
 OPS_RLE_COVER = 6  # :224-230 tombstone pass: ==, >=, add, <=, two ands
 RLE_BYTES_PER_ENTRY = 21  # 5 int32 fields + a bool
 # plane rounds per arena: a round's host work grows with the docs and the
-# planes (three since the text lane: about 15 s a round on the card), cut
-# so that the whole script keeps to about 13 minutes there
+# planes (three since the text lane), so the rounds are cut to 8; the 50 ms
+# flush budget is read per flush over these
 UNIT_PLANE_ROUNDS = 8
 RLE_PLANE_ROUNDS = 8
 # the served path (phases server, rle_server): BASELINE config 2's 1,024
 # docs x 10 clients at capacity 4,096, uncut; only the rounds are cut
 # (each round is 10,240 edits through the server core on one host thread)
 SERVER_CLIENTS = 10
-SERVER_ROUNDS = 6
-SERVER_CUTS = {"rounds": "6 rounds of one edit per provider"}
+SERVER_ROUNDS = 1
+SERVER_CUTS = {"rounds": "1 round of one edit per provider (6 before the supervised phases)"}
 # the served path on the Python host path (native_lane=False), kept driven
 # at full width so that its host timings stand beside the lane's; only
 # the rounds are cut further
-PYTHON_SERVER_ROUNDS = 3
-PYTHON_SERVER_CUTS = {"rounds": "3 rounds of one edit per provider"}
+PYTHON_SERVER_ROUNDS = 1
+PYTHON_SERVER_CUTS = {"rounds": "1 round of one edit per provider (3 before the supervised phases)"}
 # PERF.md's budget for one flush cycle of the plane phases
 FLUSH_BUDGET_MS = 50.0
 # the main path's parts, in the kernels' record: plane (the lane and the
 # Python card planes), server (native lane), server_python
-PATHS = ("plane", "server", "server_python")
+PATHS = ("plane", "server", "server_python", "supervised_server", "compact_plane")
 
 CLIENTS = np.asarray([7, 0x9000_0001], np.uint32)
 NONE = 0xFFFFFFFF
@@ -1187,7 +1187,7 @@ def phase_replay(recorded, arena, reps):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def phase_served_replay(recorded, arena, suffix=""):
+def phase_served_replay(recorded, arena, suffix="", path="server"):
     """The served path's integrate batch with the most ops, replayed
     through the dispatcher the plane calls (the kernel) and through the
     plain version, each on its own copy of the same arena snapshot: the
@@ -1198,7 +1198,7 @@ def phase_served_replay(recorded, arena, suffix=""):
     from hocuspocus_tpu_torch.tpu import kernels as tk
     from hocuspocus_tpu_torch.tpu import kernels_rle as tr
 
-    tag = ARENAS[arena]["tag"] + "server" + suffix + "_replay"
+    tag = ARENAS[arena]["tag"] + path + suffix + "_replay"
     check(recorded is not None, f"{tag}: no integrate batch was recorded")
     count, state0, ops, slots = recorded
     dense_name, sparse_name = ARENAS[arena]["wrap"]
@@ -1652,15 +1652,15 @@ async def _idle_flush(ext, core, groups, rng, flush) -> dict:
     }
 
 
-async def _join_waves(core, names, plane):
-    """Two waves of one late joiner per doc, each on a socket of its own:
-    (per-wave join -> synced numbers, the joiners)."""
+async def _join_waves(core, names, plane, waves=2):
+    """`waves` waves of one late joiner per doc, each on a socket of its
+    own: (per-wave join -> synced numbers, the joiners)."""
 
     from hocuspocus_tpu_torch.provider import HocuspocusProvider, InProcessProviderSocket
 
     joins = []
     joiners = []
-    for wave in range(2):
+    for wave in range(waves):
         serves_before = plane.counters["sync_serves"]
         hits_before = plane.counters["sync_cache_hits"]
         synced_at = {}
@@ -1754,6 +1754,777 @@ def phase_server(rng, arena, num_docs, capacity, clients, rounds, cuts, native_l
     return launches, err
 
 
+# -- the supervised, self-compacting served plane ------------------------------
+
+# the JAX package's CLI defaults (hocuspocus_tpu/cli.py): the runtime's init
+# within 30 s, a canary every 5 s, the breaker open after 3 failures,
+# compaction at 75% of a row, hydration rounds of 64 docs
+SUPERVISOR_DEFAULTS = {
+    "init_timeout": 30.0,
+    "watchdog_interval": 5.0,
+    "breaker_threshold": 3,
+    "compact_threshold": 0.75,
+    "hydrate_batch": 64,
+}
+# eviction after 2 s idle: the JAX package evicts 16 docs a maintenance
+# tick of a quarter of this, so all 1,024 docs leave in about 40 s (100 s
+# at 5 s). A doc back from the storm may idle out again before the check
+# loop sees it served (a gen-2 pause of the loop lasts 2-3 s): such a doc
+# is checked as it evicts
+EVICT_IDLE_SECS = 2.0
+SUPERVISED_ROUNDS = 1
+SUPERVISED_CUTS = {"rounds": "1 round of one edit per provider"}
+
+
+async def run_supervised_server(rng, arena, num_docs, capacity, clients, rounds,
+                                evict_idle_secs, device=None, recorder=None):
+    """The JAX CLI's default deployment over one arena: the port's
+    Hocuspocus core with SupervisedTpuMergeExtension(serve=True) at the
+    CLI's defaults (SUPERVISOR_DEFAULTS, text lane and governor on, no
+    `device`: the card) and eviction after `evict_idle_secs`, `clients`
+    providers per doc on in-process sockets. Four steps: (1) wait for
+    READY (the runtime factory builds the plane, g++ and nvcc under the
+    init deadline); (2) the served rounds, as run_server's; (3) a quiet
+    wait until every doc has evicted to a host snapshot; (4) one edit a
+    doc, the catch-up storm: each cold doc's edit rides the CPU fan-out
+    while its doc queues for hydration, then a wave of one fresh provider
+    per doc. The kernel launch counts are set to 0 once READY and read
+    after the join wave. Returns (the extension, the phase's numbers)."""
+    import contextlib
+
+    from hocuspocus_tpu_torch.provider import HocuspocusProvider, InProcessProviderSocket
+    from hocuspocus_tpu_torch.server import Configuration, Hocuspocus
+    from hocuspocus_tpu_torch.server.types import Payload
+    from hocuspocus_tpu_torch.tpu import SupervisedTpuMergeExtension
+    from hocuspocus_tpu_torch.tpu import integrate as ti
+    from hocuspocus_tpu_torch.tpu.scheduler import reset_device_lane
+    from hocuspocus_tpu_torch.tpu.supervisor import STATE_INITIALIZING, STATE_READY
+
+    tag = ARENAS[arena]["tag"] + "supervised_server"
+    reset_device_lane()
+    started = time.perf_counter()
+    ext = SupervisedTpuMergeExtension(
+        num_docs=num_docs, capacity=capacity, serve=True, arena=arena,
+        evict_idle_secs=evict_idle_secs, **SUPERVISOR_DEFAULTS,
+        **({} if device is None else {"device": device}),
+    )
+    canaries = []
+    ext.supervisor.on_canary.append(canaries.append)
+    core = Hocuspocus(Configuration(quiet=True, extensions=[ext]))
+    await core.ensure_configured()
+    await core.hooks("on_listen", Payload(instance=core, configuration=core.configuration, port=None))
+    # (1) READY: anything else (init overdue, a failed init) fails the run
+    deadline = time.perf_counter() + 120
+    while ext.supervisor.state != STATE_READY:
+        check(
+            ext.supervisor.state == STATE_INITIALIZING,
+            f"{tag}: the supervisor is {ext.supervisor.state}: {ext.health_status()}",
+        )
+        check(time.perf_counter() < deadline, f"{tag}: the plane never attached")
+        await asyncio.sleep(0.02)
+    runtime = ext.runtime
+    await runtime.warmup_task
+    check(runtime.plane.compile_watch.warmed, f"{tag}: the warm grid did not finish")
+    ready_seconds = time.perf_counter() - started
+    plane, manager = runtime.plane, runtime.residency
+    check(manager is not None and runtime.native_lane, f"{tag}: residency or the lane is off")
+    # a sync answered by the CPU document is a fallback (`cpu_fallbacks`);
+    # one whose doc was evicted while the request waited, or waits in the
+    # hydration queue, is eviction's, any other is the plane's
+    from hocuspocus_tpu_torch.tpu.serving import TpuSyncSource
+
+    fallbacks = {"evicted": 0, "other": []}
+    real_counted = TpuSyncSource._counted
+
+    def counted(source, payload):
+        if payload is None:
+            if manager.is_evicted(source.name) or source.name in manager._queued:
+                fallbacks["evicted"] += 1
+            else:
+                fallbacks["other"].append(source.name)
+        return real_counted(source, payload)
+
+    TpuSyncSource._counted = counted
+    dense_name, sparse_name = ARENAS[arena]["wrap"]
+    dense_fn, sparse_fn = getattr(ti, dense_name), getattr(ti, sparse_name)
+    dense_fn.launches = sparse_fn.launches = 0
+
+    cycles, hydration_rounds = [], []
+    real_flush = plane.flush
+    real_publish = manager._publish_stats
+
+    def publish(**extra):
+        # the hydration drain publishes each round's batch size once
+        if "last_hydration_batch" in extra:
+            hydration_rounds.append((extra["last_hydration_batch"], time.perf_counter()))
+        return real_publish(**extra)
+
+    manager._publish_stats = publish
+
+    def timed_flush(max_batches=None):
+        inflight = manager.inflight
+        t0 = time.perf_counter()
+        count = real_flush(max_batches)
+        wall = time.perf_counter() - t0
+        if count and not inflight:
+            cycles.append(wall)
+        if recorder is not None:
+            recorder.after_flush(plane.state)
+        return count
+
+    plane.flush = timed_flush
+    names = [f"doc-{i}" for i in range(num_docs)]
+    groups = []
+    for name in names:
+        group = []
+        for _client in range(clients):
+            provider = HocuspocusProvider(name=name, websocket_provider=InProcessProviderSocket(core))
+            provider.attach()
+            group.append(provider)
+        groups.append(group)
+    everyone = [p for group in groups for p in group]
+    await asyncio.wait_for(_all_synced(everyone), 600)
+    setup_seconds = time.perf_counter() - started
+
+    # (2) the served rounds
+    clock = EditClock(asyncio.Event())
+    for group in groups:
+        clock.watch(group[0])
+        clock.watch(group[1])
+    if recorder is not None:
+        recorder.before = clone_state(plane.state)
+    recording = recorder if recorder is not None else contextlib.nullcontext()
+    counters0 = dict(plane.counters)
+    with recording:
+        traffic_started = time.perf_counter()
+        for _round in range(rounds):
+            for d, group in enumerate(groups):
+                for j, provider in enumerate(group):
+                    if _server_edit(rng, provider.document.get_text("t")):
+                        clock.expect(group[1] if j == 0 else group[0], provider)
+                if d % 16 == 15:
+                    await asyncio.sleep(0)
+            await asyncio.wait_for(clock.idle.wait(), 300)
+            await _converge(
+                [(p, core.documents[p.name]) for p in everyone],
+                time.perf_counter() + 120, tag,
+            )
+        traffic_seconds = time.perf_counter() - traffic_started
+        traffic_samples = len(clock.samples)
+        traffic_counters = {
+            key: plane.counters[key] - counters0[key]
+            for key in ("docs_evicted", "docs_hydrated", "docs_compacted", "plane_broadcasts")
+        }
+
+        # (3) quiet: every doc evicts (16 a maintenance tick, the JAX
+        # package's evict_batch), the CPU documents serve meanwhile
+        quiet_started = time.perf_counter()
+        deadline = quiet_started + evict_idle_secs + 4 * num_docs / manager.evict_batch * manager.maintenance_interval + 60
+        while any(runtime.is_served(name) for name in names):
+            check(ext.supervisor.state == STATE_READY, f"{tag}: {_books(ext)}")
+            check(time.perf_counter() < deadline, f"{tag}: {sum(map(runtime.is_served, names))} docs never evicted")
+            await asyncio.sleep(0.05)
+        quiet_seconds = time.perf_counter() - quiet_started
+        evicted = sum(manager.is_evicted(name) for name in names)
+        check(evicted == num_docs, f"{tag}: {evicted} of {num_docs} docs evicted: {_books(ext)}")
+        check(not any(name in plane.docs for name in names), f"{tag}: an evicted doc kept its rows")
+
+        # (4) the catch-up storm: one edit a doc, observed on the CPU fan-out.
+        # Every doc must come back on the plane and the lane with served
+        # bytes rebuilding it; each is checked the moment it is seen served
+        # (synchronously, so no eviction can come between), or, if it idles
+        # out again first, just before it evicts
+        pending = set(names)
+        early_failures = []
+        real_evict = manager.evict
+
+        async def checked_evict(name, document):
+            if name in pending and runtime.is_served(name):
+                try:
+                    _check_served(tag, core, plane, name)
+                except SmokeFailure as failure:
+                    early_failures.append(str(failure))
+                pending.discard(name)
+            return await real_evict(name, document)
+
+        manager.evict = checked_evict
+        hydrated0 = plane.counters["docs_hydrated"]
+        storm_rounds0 = len(hydration_rounds)
+        storm_started = time.perf_counter()
+        for d, group in enumerate(groups):
+            text = group[0].document.get_text("t")
+            text.insert(int(rng.integers(0, len(text) + 1)), WORDS[rng.integers(0, len(WORDS))])
+            clock.expect(group[1], group[0])
+            if d % 16 == 15:
+                await asyncio.sleep(0)
+        await asyncio.wait_for(clock.idle.wait(), 300)
+        storm_samples = clock.samples[traffic_samples:]
+        deadline = time.perf_counter() + 120
+        while pending:
+            check(not early_failures, early_failures[:1])
+            check(ext.supervisor.state == STATE_READY, f"{tag}: {_books(ext)}")
+            check(time.perf_counter() < deadline, f"{tag}: {len(pending)} docs not hydrated: {_books(ext)}")
+            back = [name for name in pending if runtime.is_served(name)]
+            for name in back:
+                _check_served(tag, core, plane, name)
+            pending.difference_update(back)
+            await asyncio.sleep(0.005)
+        check(not early_failures, early_failures[:1])
+        manager.evict = real_evict
+        hydrate_seconds = time.perf_counter() - storm_started
+        storm_rounds = [n for n, _t in hydration_rounds[storm_rounds0:]]
+        hydrated = plane.counters["docs_hydrated"] - hydrated0
+        joins, joiners = await _join_waves(core, names, plane, waves=1)
+    launches = {dense_name: dense_fn.launches, sparse_name: sparse_fn.launches}
+    await _converge(
+        [(p, core.documents[p.name]) for p in everyone + joiners],
+        time.perf_counter() + 120, tag,
+    )
+    health = ext.health_status()
+    counters = dict(plane.counters)
+    supervisor = {
+        "state": ext.supervisor.state,
+        "counters": dict(ext.supervisor.counters),
+        "breaker_transitions": dict(ext.supervisor.breaker.transitions),
+        "transitions": dict(ext.supervisor.transitions),
+        "init_seconds": ext.supervisor.init_elapsed,
+    }
+    TpuSyncSource._counted = real_counted
+    # one canary launch held against the plain version (not counted)
+    canary_err = _canary_vs_plain(plane, arena, dense_name, sparse_name)
+    for p in everyone + joiners:
+        p.destroy()
+        p.websocket_provider.destroy()
+    await core.hooks("on_destroy", Payload(instance=core))
+    return ext, {
+        "init_seconds": supervisor["init_seconds"],
+        "ready_seconds": round(ready_seconds, 3),
+        "setup_seconds": round(setup_seconds, 3),
+        "traffic_seconds": round(traffic_seconds, 3),
+        "seconds": round(time.perf_counter() - started, 3),
+        "edit_observe": percentiles_ms(clock.samples[:traffic_samples]),
+        "traffic_residency": traffic_counters,
+        "flush_cycles": percentiles_ms(cycles),
+        "quiet_seconds": round(quiet_seconds, 3),
+        "evicted": evicted,
+        "storm_edit_observe": percentiles_ms(storm_samples),
+        "storm_hydrated": hydrated,
+        "storm_hydrate_seconds": round(hydrate_seconds, 3),
+        "storm_rounds": len(storm_rounds),
+        "storm_round_docs": storm_rounds,
+        "join_wave": joins[0],
+        "canaries": len(canaries),
+        "canary_latency": {
+            **percentiles_ms(canaries),
+            "max_ms": float(max(canaries) * 1e3) if canaries else None,
+        },
+        "canary_max_abs_err": canary_err,
+        "integrate_launches": launches,
+        "residency_stats": dict(plane.residency_stats),
+        "memory_stats": plane.memory_stats(),
+        "health_degraded": health["degraded"],
+        "cpu_fallbacks_by_cause": {"evicted": fallbacks["evicted"], "other": len(fallbacks["other"])},
+        "cpu_fallback_docs_other": fallbacks["other"][:8],
+        "supervisor": supervisor,
+        "counters": counters,
+    }
+
+
+def _check_served(tag, core, plane, name) -> None:
+    """`name` is on the plane and the lane, and the bytes its sync source
+    serves for an empty state vector rebuild its server document."""
+    from hocuspocus_tpu_torch.crdt import Doc, apply_update, encode_state_vector
+
+    doc = plane.docs.get(name)
+    check(doc is not None and doc.lane_slot is not None and not doc.retired,
+          f"{tag}: {name} is not back on the lane")
+    document = core.documents[name]
+    served = document.sync_source.encode_state_as_update(None)
+    check(served is not None, f"{tag}: {name} was not served from the plane")
+    rebuilt = Doc()
+    apply_update(rebuilt, served)
+    check(rebuilt.get_text("t").to_string() == document.get_text("t").to_string(),
+          f"{tag}: {name}: served bytes rebuild another text")
+    check(encode_state_vector(rebuilt) == encode_state_vector(document),
+          f"{tag}: {name}: served bytes rebuild another state vector")
+
+
+def _books(ext) -> str:
+    """The supervised phase's books, for a failure's message."""
+    plane = ext.plane
+    keys = ("docs_evicted", "docs_hydrated", "hydrations_declined", "cpu_fallbacks",
+            "docs_compacted", "compactions_declined")
+    return json.dumps({
+        "supervisor": ext.health_status(),
+        "plane": None if plane is None else {k: plane.counters[k] for k in keys},
+        "retired": None if plane is None else {
+            k: v for k, v in plane.counters.items() if k.startswith("docs_retired_") and v
+        },
+        "lane": None if ext.runtime is None else ext.runtime.lane.snapshot()["counters"],
+    })
+
+
+def _canary_vs_plain(plane, arena, dense_name, sparse_name) -> int:
+    """The canary's launch, the sparse dispatcher at (K_max, 1) with one
+    padding column, on a copy of the arena, against the plain version on
+    another copy: the max abs difference over the arena (0 when equal)."""
+    import torch
+
+    from hocuspocus_tpu_torch.tpu import integrate as ti
+    from hocuspocus_tpu_torch.tpu import kernels as tk
+    from hocuspocus_tpu_torch.tpu import kernels_rle as tr
+
+    k_max = plane._k_buckets()[-1]
+    plain = tr.integrate_op_slots_rle_sparse if arena == "rle" else tk.integrate_op_slots_sparse
+    dispatcher = getattr(ti, sparse_name)
+    launches = dispatcher.launches
+    with plane._step_lock, plane.device_scope():
+        kernel, reference = clone_state(plane.state), clone_state(plane.state)
+        dispatcher(kernel, plane._noop_ops(k_max, 1), plane._padding_slots(1))
+        plain(reference, plane._noop_ops(k_max, 1), plane._padding_slots(1))
+        if plane.device.type == "cuda":
+            torch.cuda.synchronize()
+    dispatcher.launches = launches  # a comparison launch, not the path's
+    return max_abs_err(kernel, reference)
+
+
+def phase_supervised_server(rng, arena, num_docs, capacity, clients, rounds, evict_idle_secs, cuts):
+    """The supervised served path on the card (run_supervised_server),
+    with the checks that hold it: READY, every doc evicted then back on
+    the plane and the lane, the served bytes rebuild each doc, no CPU
+    fallback and no retired doc, no breaker trip, at least one canary,
+    `health_status()["degraded"]` false, and the arena's kernel launched.
+    Then the path's biggest integrate batch is replayed through the
+    kernel and the plain version. Returns (launches, max_abs_err over
+    the replay and the canary)."""
+    from hocuspocus_tpu_torch.tpu import merge_plane as mp
+
+    tag = ARENAS[arena]["tag"] + "supervised_server"
+    recorder = Recorder(mp, *ARENAS[arena]["wrap"])
+    _ext, out = asyncio.run(
+        run_supervised_server(rng, arena, num_docs, capacity, clients, rounds,
+                              evict_idle_secs, recorder=recorder)
+    )
+    counters = out["counters"]
+    supervisor = out["supervisor"]
+    retired = {k: v for k, v in counters.items() if k.startswith("docs_retired_")}
+    launches = sum(out["integrate_launches"].values())
+    emit(
+        tag,
+        gpu=nvidia_smi_line(),
+        config="BASELINE config 2: 1k Y.Text docs, 10 clients each, random-position insert/delete",
+        deployment={**SUPERVISOR_DEFAULTS, "evict_idle_secs": evict_idle_secs,
+                    "native_lane": True, "governor": True},
+        arena=arena,
+        docs=num_docs,
+        capacity=capacity,
+        clients=clients,
+        rounds=rounds,
+        cuts=cuts,
+        docs_retired=retired,
+        **{k: v for k, v in out.items() if k != "counters"},
+        cpu_fallbacks=counters["cpu_fallbacks"],
+        docs_evicted=counters["docs_evicted"],
+        docs_hydrated=counters["docs_hydrated"],
+        hydrations_declined=counters["hydrations_declined"],
+        sync_serves=counters["sync_serves"],
+    )
+    check(supervisor["state"] == "ready", f"{tag}: the supervisor ended {supervisor['state']}")
+    check(out["cpu_fallbacks_by_cause"]["other"] == 0,
+          f"{tag}: CPU fallbacks outside eviction: {out['cpu_fallback_docs_other']}")
+    check(not any(retired.values()), f"{tag}: docs retired {retired}")
+    check(supervisor["counters"]["degrades"] == 0 and not supervisor["breaker_transitions"],
+          f"{tag}: the breaker tripped: {supervisor}")
+    check(supervisor["counters"]["canary_probes"] >= 1 and out["canaries"] >= 1,
+          f"{tag}: no canary ran: {supervisor}")
+    # a canary that raised is a card fault (the supervisor stops serving on
+    # it); the failures left are overruns of the deadline, which the
+    # breaker counts and which are printed
+    check(supervisor["counters"]["canary_errors"] == 0 and supervisor["counters"]["card_faults"] == 0,
+          f"{tag}: a canary raised: {supervisor}")
+    check(not out["health_degraded"], f"{tag}: health_status() reports degraded")
+    check(out["evicted"] == num_docs, f"{tag}: {out['evicted']} evictions")
+    check(out["storm_hydrated"] >= num_docs, f"{tag}: {out['storm_hydrated']} hydrations in the storm")
+    check(launches > 0, f"{tag}: the integrate kernel never launched from the supervised path")
+    check(out["canary_max_abs_err"] == 0, f"{tag}: the canary's launch differs from the plain version")
+    err = phase_served_replay(recorder.best, arena, path="supervised_server")
+    recorder.best = recorder.before = None
+    return launches, max(err, out["canary_max_abs_err"])
+
+
+# The compaction phases' stream: BASELINE config 2's random-position
+# inserts and deletes, a doc's edits of a round in one transaction, deletes
+# more likely as a doc's live text passes `live` units, so the rows fill
+# with tombstones (unit arena: capacity counts units, so inserts are
+# pastes of 10-60 words) or split runs (run-length arena: capacity counts
+# entries, one or two a small edit) while the live text stays near a tenth
+# of the row. COMPACT_TEMPLATES editing docs make the updates; doc i of the
+# plane takes template i % COMPACT_TEMPLATES's.
+COMPACT_STREAMS = {
+    "unit": {"edits": 4, "live": 400, "words": (10, 61), "delete": (20, 201)},
+    "rle": {"edits": 64, "live": 400, "words": (1, 6), "delete": (1, 5)},
+}
+COMPACT_TEMPLATES = 8
+# the twin each arena's compaction phase holds the card plane against: a
+# CPU plane (the unit arena's stream takes a batch or two a round), or on
+# the run-length arena, whose rows take about 4,000 ops each to fill, a
+# shadow arena on the card (_ShadowArena). A CPU twin there would run the
+# plain integrate over the whole 1,024-row arena for some 800 batches,
+# several seconds each on an 8-core host, and a second plane on the card
+# would lower every update a second time on the host
+COMPACT_TWINS = {"unit": "cpu", "rle": "shadow"}
+
+
+class _ShadowArena:
+    """A twin arena for `plane` on its device: every step the plane
+    launches (integrate, run append, compaction) is applied to this copy
+    too, with the same inputs, through the plain PyTorch version. One host
+    path (lowering, queues, logs, residency) feeds both, so the twin costs
+    no second lowering; `serve` encodes a SyncStep2 from the copy."""
+
+    def __init__(self, plane, plain_steps: dict) -> None:
+        self.plane = plane
+        self.state = clone_state(plane.state)
+        for seam, plain in plain_steps.items():
+            setattr(plane, seam, self._wrap(getattr(plane, seam), plain))
+
+    def _wrap(self, real, plain):
+        def factory():
+            step = real()
+
+            def run(state, *args):
+                out = step(state, *args)
+                plain(self.state, *args)  # in place, like the step
+                return out
+
+            return run
+
+        return factory
+
+    def serve(self, serving, name: str, document):
+        plane = self.plane
+        with plane._step_lock:
+            check(plane.pending_ops() == 0, "shadow serve with ops queued")
+            real, plane.state = plane.state, self.state
+            try:
+                return serving.encode_state_as_update(name, document)
+            finally:
+                plane.state = real
+COMPACT_MAX_ROUNDS = 160
+COMPACT_SERVE_SAMPLE = 8  # docs whose served bytes are compared after a flush
+
+
+def _compact_edit(rng, text, stream) -> None:
+    length = len(text)
+    if length > 16 and rng.random() < min(0.95, length / stream["live"]):
+        pos = int(rng.integers(0, length - 1))
+        text.delete(pos, min(int(rng.integers(*stream["delete"])), length - pos))
+    else:
+        words = rng.integers(0, len(WORDS), int(rng.integers(*stream["words"])))
+        text.insert(int(rng.integers(0, length + 1)), "".join(WORDS[w] for w in words))
+
+
+def compact_bound(plane, rows: int) -> tuple[float, str, dict]:
+    """The compaction program's least time for `rows` routed rows: each
+    row's fields read once and written once (the routing vector and the
+    packed sizes besides); the integer work is a few operations a lane,
+    far under the bytes' time."""
+    width = plane.capacity
+    per_lane = RLE_BYTES_PER_ENTRY if plane.arena == "rle" else ROW_BYTES_PER_UNIT
+    scalars = 9 if plane.arena == "rle" else 5  # per-row scalar bytes
+    moved = 2 * rows * (per_lane * width + scalars) + 8 * rows
+    return _bound(moved, 8 * rows * width)
+
+
+async def run_compact_plane(rng, arena, num_docs, capacity, device="cuda", twin="cpu",
+                            max_rounds=COMPACT_MAX_ROUNDS):
+    """MergePlane + PlaneServing + ResidencyManager(compact_threshold=0.75)
+    on `device`, beside a twin: a CPU plane fed the same updates with a
+    manager of its own (`twin="cpu"`), or a shadow arena on `device` that
+    every step of the plane also updates through the plain PyTorch
+    version (`twin="shadow"`, _ShadowArena). Each round every doc takes
+    one update of the compaction stream, both flush, the arenas must be
+    equal element for element and a rotating sample of docs must serve
+    equal bytes from both, which rebuild the doc. A doc whose row passed
+    capacity (host projection) or overflowed (the device flag, read by the
+    health check) retires with its logs kept, and both managers recycle it
+    through compact-and-replay; after every compaction the arenas are
+    compared again. On the unit arena a compaction whose rebuilt serve log
+    would not decode is declined (ResidencyManager._rebuild_decodable):
+    the doc stays retired, on the CPU document, as the extension leaves it
+    once the snapshot recycle finds no headroom either. A template's docs
+    stop editing once each has compacted or declined; the rounds end when
+    every doc has. Returns the phase's numbers."""
+    import torch
+
+    from hocuspocus_tpu_torch.crdt import Doc, apply_update
+    from hocuspocus_tpu_torch.tpu import MergePlane, PlaneServing, ResidencyManager
+    from hocuspocus_tpu_torch.tpu import integrate as ti
+    from hocuspocus_tpu_torch.tpu import kernels as tk
+    from hocuspocus_tpu_torch.tpu import kernels_rle as tr
+
+    tag = ARENAS[arena]["tag"] + "compact_plane"
+    stream = COMPACT_STREAMS[arena]
+    started = time.perf_counter()
+    plane = MergePlane(num_docs=num_docs, capacity=capacity, arena=arena, device=device)
+    compact_calls = []  # (routed rows, wall seconds) of the card plane's compaction launches
+    real_compact = plane._compact_step_fn
+
+    def counted_compact():
+        program = real_compact()
+
+        def run(state, slots):
+            t0 = time.perf_counter()
+            out = program(state, slots)
+            compact_calls.append((int(slots.numel()), time.perf_counter() - t0))
+            return out
+
+        return run
+
+    plane._compact_step_fn = counted_compact
+    shadow = other = None
+    if twin == "cpu":
+        other = MergePlane(num_docs=num_docs, capacity=capacity, arena=arena, device="cpu")
+        planes = (plane, other)
+    else:
+        module = tr if arena == "rle" else tk
+        shadow = _ShadowArena(plane, {
+            "_step_fn": module.integrate_op_slots_rle if arena == "rle" else tk.integrate_op_slots,
+            "_sparse_step_fn": (
+                tr.integrate_op_slots_rle_sparse if arena == "rle" else tk.integrate_op_slots_sparse
+            ),
+            "_append_step_fn": (
+                tr.append_run_slots_rle_sparse if arena == "rle" else tk.append_run_slots_sparse
+            ),
+            "_compact_step_fn": tr.compact_doc_rows_rle if arena == "rle" else tk.compact_doc_rows,
+        })
+        planes = (plane,)
+    servings = tuple(PlaneServing(p) for p in planes)
+    managers = tuple(
+        ResidencyManager(plane=p, serving=s, compact_threshold=0.75) for p, s in zip(planes, servings)
+    )
+    twin_serving = servings[1] if other is not None else PlaneServing(plane)
+
+    def twin_state():
+        return other.state if other is not None else shadow.state
+
+    def serve_both(name, document):
+        ours = servings[0].encode_state_as_update(name, document)
+        if other is not None:
+            return ours, twin_serving.encode_state_as_update(name, document)
+        twin_serving.refresh()
+        return ours, shadow.serve(twin_serving, name, document)
+
+    names = [f"doc-{i}" for i in range(num_docs)]
+    for p in planes:
+        for name in names:
+            p.register(name)
+    templates, outboxes = [], []
+    for _ in range(COMPACT_TEMPLATES):
+        doc = Doc()
+        doc.client_id = int(rng.integers(1, 2**32))
+        box: list = []
+        doc.on("update", lambda update, *rest, box=box: box.append(update))
+        templates.append(doc)
+        outboxes.append(box)
+    dense_name, sparse_name = ARENAS[arena]["wrap"]
+    dense_fn, sparse_fn = getattr(ti, dense_name), getattr(ti, sparse_name)
+    dense_fn.launches = sparse_fn.launches = 0
+    retires = {name: 0 for name in names}
+    recycles = {name: 0 for name in names}
+    declined = set()  # unit rows whose rebuild would not decode: left retired
+    undecodable = {"n": 0}
+    real_decodable = managers[0]._rebuild_decodable
+
+    def decodable(doc, plans):
+        ok = real_decodable(doc, plans)
+        undecodable["n"] += not ok
+        return ok
+
+    managers[0]._rebuild_decodable = decodable
+
+    def done(name) -> bool:
+        return recycles[name] > 0 or name in declined
+
+    decoded = {}  # served bytes -> the text they rebuild (a template's docs serve alike)
+
+    def rebuilds(name, served, template) -> None:
+        if served not in decoded:
+            rebuilt = Doc()
+            try:
+                apply_update(rebuilt, served)
+            except (KeyError, RuntimeError) as error:
+                raise SmokeFailure(f"{tag}: {name}: a decoder refuses the served bytes ({error!r})")
+            decoded[served] = rebuilt.get_text("t").to_string()
+        check(decoded[served] == template.get_text("t").to_string(),
+              f"{tag}: {name}: served bytes rebuild another text")
+
+    compact_ms, flush_ms, arena_checks, serve_checks = [], [], 0, 0
+    max_err = 0
+    rounds = 0
+    while not all(map(done, names)):
+        check(rounds < max_rounds, f"{tag}: {sum(not done(n) for n in names)} docs never compacted")
+        for t, doc in enumerate(templates):
+            # a template's docs stop editing once each has compacted: on
+            # the run-length arena a second or third refill of a row can
+            # outgrow what the defragmenter reclaims
+            if all(map(done, names[t::COMPACT_TEMPLATES])):
+                continue
+            doc.transact(
+                lambda _tr, doc=doc: [
+                    _compact_edit(rng, doc.get_text("t"), stream) for _ in range(stream["edits"])
+                ]
+            )
+        for i, name in enumerate(names):
+            for update in outboxes[i % COMPACT_TEMPLATES]:
+                counts = [p.enqueue_update(name, update) for p in planes]
+                check(counts[0] == counts[-1], f"{tag}: the planes lowered an update differently")
+        for box in outboxes:
+            box.clear()
+        t0 = time.perf_counter()
+        plane.flush()
+        flush_ms.append((time.perf_counter() - t0) * 1e3)
+        for p in planes[1:]:
+            p.flush()
+        for serving in servings:
+            serving.refresh()
+        check(states_equal(plane.state, twin_state()), f"{tag}: round {rounds}: the arenas differ")
+        arena_checks += 1
+        # the health check retires overflowed rows (logs kept for compaction)
+        for name in names:
+            healthy = [s.doc_healthy(name) is not None for s in servings]
+            check(healthy[0] == healthy[-1], f"{tag}: {name}: the planes judged health differently")
+        retired = [name for name in names if plane.docs[name].retired and name not in declined]
+        check(retired == [name for name in names if planes[-1].docs[name].retired and name not in declined],
+              f"{tag}: round {rounds}: the planes retired different docs")
+        compacted = []
+        for name in retired:
+            retires[name] += 1
+            check(plane.docs[name].retire_reason in ("capacity", "overflow"),
+                  f"{tag}: {name} retired for {plane.docs[name].retire_reason}")
+            template = templates[names.index(name) % COMPACT_TEMPLATES]
+            results = []
+            refused = undecodable["n"]
+            for p, manager in zip(planes, managers):
+                async with p.flush_lock:
+                    results.append(await manager.compact_and_replay_locked(name, template))
+            check(results[0] == results[-1], f"{tag}: {name}: the compactions disagree")
+            if not results[0]:
+                check(arena == "unit" and undecodable["n"] == refused + 1,
+                      f"{tag}: {name}: compact-and-replay declined (round {rounds})")
+                declined.add(name)
+                continue
+            compact_ms.append(plane.residency_stats["last_compaction_ms"])
+            recycles[name] += 1
+            compacted.append(name)
+        if compacted:
+            # the replays are queued: flush them, then hold the arenas
+            for p in planes:
+                p.flush()
+            for serving in servings:
+                serving.refresh()
+            check(states_equal(plane.state, twin_state()), f"{tag}: after compaction the arenas differ")
+            max_err = max(max_err, max_abs_err(plane.state, twin_state()))
+            arena_checks += 1
+        # a rotating sample, and a sample of the docs compacted this round
+        # (the arenas were compared whole), whose bytes must rebuild them
+        rotating = names[(rounds * COMPACT_SERVE_SAMPLE) % num_docs:][:COMPACT_SERVE_SAMPLE]
+        for name in rotating + compacted[:COMPACT_SERVE_SAMPLE]:
+            if name in declined:
+                continue  # on the CPU document
+            template = templates[names.index(name) % COMPACT_TEMPLATES]
+            replies = serve_both(name, template)
+            check(replies[0] is not None and replies[0] == replies[1],
+                  f"{tag}: {name}: served bytes differ (round {rounds})")
+            if name in compacted:
+                rebuilds(name, replies[0], template)
+            serve_checks += 1
+        rounds += 1
+    launches = {dense_name: dense_fn.launches, sparse_name: sparse_fn.launches}
+    # every doc at the end: on the plane, served equal bytes on both sides
+    # that rebuild its text; or declined, still retired on both
+    for i, name in enumerate(names):
+        template = templates[i % COMPACT_TEMPLATES]
+        if name in declined:
+            check(plane.docs[name].retired and planes[-1].docs[name].retired,
+                  f"{tag}: {name}: a declined doc came back")
+            continue
+        check(not plane.docs[name].retired, f"{tag}: {name} ended retired")
+        replies = serve_both(name, template)
+        check(replies[0] is not None and replies[0] == replies[1], f"{tag}: {name}: final serves differ")
+        rebuilds(name, replies[0], template)
+    # the compaction program's device time a launch at the path's shape
+    # (one doc's row), CUDA events around the call, on a copy of the arena
+    rows = compact_calls[0][0] if compact_calls else 1
+    routed = torch.arange(rows, dtype=torch.int32, device=plane.device)
+    program = real_compact()
+    compact_device_ms = None
+    if plane.device.type == "cuda":
+        copy = Copies(plane.state, 1)
+        compact_device_ms = event_ms(lambda: program(copy[0], routed), reps=9, setup=copy.reset)
+        copy.clear()
+    bound_ms, bound_by, bound_work = compact_bound(plane, rows)
+    counters = dict(plane.counters)
+    return {
+        "twin": twin,
+        "rounds": rounds,
+        "seconds": round(time.perf_counter() - started, 3),
+        "docs_retired_at_least_once": sum(v > 0 for v in retires.values()),
+        "retires": sum(retires.values()),
+        "recycles": sum(recycles.values()),
+        "compactions": counters["docs_compacted"],
+        "compactions_declined": counters["compactions_declined"],
+        "declined_undecodable": len(declined),
+        "retired_now": sum(plane.docs[name].retired for name in names),
+        "compact_ms": percentiles_ms(np.asarray(compact_ms) / 1e3),
+        "compact_launches": len(compact_calls),
+        "compact_routed_rows": rows,
+        "compact_host_ms": percentiles_ms([w for _n, w in compact_calls]),
+        "compact_device_ms": compact_device_ms,
+        "compact_bound_ms": bound_ms,
+        "compact_bound_by": bound_by,
+        "compact_bound_work": bound_work,
+        "flush": percentiles_ms(np.asarray(flush_ms) / 1e3),
+        "arena_checks": arena_checks,
+        "serve_checks": serve_checks,
+        "max_abs_err": max_err,
+        "integrate_launches": launches,
+        "counters": {k: v for k, v in counters.items() if v},
+    }
+
+
+def phase_compact_plane(rng, arena, num_docs, capacity, twin):
+    """The self-compacting plane on the card (run_compact_plane), with its
+    checks: every doc retired at least once and recycled through
+    compact-and-replay, or on the unit arena declined because the rebuild
+    would not decode (then it is the only kind of doc left retired), the
+    arenas equal after every flush and every compaction, the served bytes
+    equal and rebuilding each served doc. Returns (integrate launches,
+    max_abs_err)."""
+    tag = ARENAS[arena]["tag"] + "compact_plane"
+    out = asyncio.run(run_compact_plane(rng, arena, num_docs, capacity, twin=twin))
+    launches = sum(out["integrate_launches"].values())
+    emit(
+        tag,
+        gpu=nvidia_smi_line(),
+        config="BASELINE config 2's random-position insert/delete stream, deletes outweighing inserts",
+        stream=COMPACT_STREAMS[arena],
+        templates=COMPACT_TEMPLATES,
+        arena=arena,
+        docs=num_docs,
+        capacity=capacity,
+        compact_threshold=0.75,
+        **out,
+    )
+    check(out["docs_retired_at_least_once"] == num_docs, f"{tag}: {out['docs_retired_at_least_once']} docs retired")
+    declined = out["declined_undecodable"]
+    check(arena == "unit" or declined == 0, f"{tag}: the run-length defragmenter declined")
+    check(out["retired_now"] == declined, f"{tag}: {out['retired_now']} docs ended retired, {declined} declined")
+    check(out["compactions"] >= num_docs - declined, f"{tag}: {out['compactions']} compactions")
+    check(launches > 0, f"{tag}: the integrate kernel never launched")
+    return launches, out["max_abs_err"]
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=7)
@@ -1807,6 +2578,19 @@ def main(argv=None) -> int:
                 rng, arena, num_docs=1024, capacity=4096, clients=SERVER_CLIENTS,
                 rounds=PYTHON_SERVER_ROUNDS, cuts=PYTHON_SERVER_CUTS, native_lane=False,
             )
+        for arena in ("unit", "rle"):
+            # the JAX CLI's default deployment: supervised, evicting, compacting
+            results[arena]["supervised_server"], results[arena]["supervised_server_err"] = (
+                phase_supervised_server(
+                    rng, arena, num_docs=1024, capacity=4096, clients=SERVER_CLIENTS,
+                    rounds=SUPERVISED_ROUNDS, evict_idle_secs=EVICT_IDLE_SECS,
+                    cuts=SUPERVISED_CUTS,
+                )
+            )
+        for arena in ("unit", "rle"):
+            results[arena]["compact_plane"], results[arena]["compact_plane_err"] = phase_compact_plane(
+                rng, arena, num_docs=1024, capacity=4096, twin=COMPACT_TWINS[arena]
+            )
         smi = nvidia_smi_line()
     except SmokeFailure as failure:
         print(f"chip_smoke: FAILED: {failure}", file=sys.stderr)
@@ -1828,8 +2612,7 @@ def main(argv=None) -> int:
                 "launches_by_path": {path: results[arena][path] for path in PATHS},
                 "max_abs_err": max(
                     results[arena]["max_abs_err"],
-                    results[arena]["server_err"],
-                    results[arena]["server_python_err"],
+                    *(results[arena][f"{path}_err"] for path in PATHS[1:]),
                 ),
                 "ms": results[arena]["ms"],
                 "plain_ms": results[arena]["plain_ms"],

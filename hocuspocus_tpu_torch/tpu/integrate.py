@@ -10,9 +10,10 @@ path. For a tensor on the CPU they call the plain PyTorch version in
 `kernels.py` / `kernels_rle.py`. Each dispatcher counts the kernel
 launches it makes in its `launches` attribute.
 
-The run-append fast paths are plain tensor code on every device (the JAX
-package wrote no kernel for them either); their dispatchers keep the
-plane's call seam uniform.
+The run-append fast paths and the compaction programs are plain tensor
+code on every device (the JAX package wrote no kernel for them either);
+their dispatchers keep the plane's call seam uniform. The compaction
+dispatchers count their calls in `launches` too.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from .kernels import (
     DocState,
     OpBatch,
     append_run_slots_sparse,
+    compact_doc_rows,
     integrate_op_slots,
     integrate_op_slots_sparse,
     op_count,
@@ -39,6 +41,7 @@ from .kernels import (
 from .kernels_rle import (
     RleState,
     append_run_slots_rle_sparse,
+    compact_doc_rows_rle,
     integrate_op_slots_rle,
     integrate_op_slots_rle_sparse,
 )
@@ -314,3 +317,31 @@ def append_run_slots_rle_sparse_fast(
     """The RLE run-append fast path (EXTEND the rank-tail entry, APPEND
     the other runs): plain tensor code on every device."""
     return append_run_slots_rle_sparse(state, client, clock, run_len, slots)
+
+
+# -- on-device compaction -------------------------------------------------------
+
+
+def compact_doc_rows_fast(state: DocState, slots: torch.Tensor) -> tuple[DocState, torch.Tensor]:
+    """The unit arena's tombstone GC over the rows `slots` routes to
+    (num_docs = padding sentinel), in place; returns the packed live
+    lengths (B,). A single-pass permutation (scatter, cumsum, gather)
+    that reads and writes the routed rows once: plain tensor code on
+    every device, as the JAX package's dispatcher runs its XLA program
+    on every backend."""
+    compact_doc_rows_fast.launches += 1
+    return compact_doc_rows(state, slots)
+
+
+compact_doc_rows_fast.launches = 0
+
+
+def compact_doc_rows_rle_fast(state: RleState, slots: torch.Tensor) -> tuple[RleState, torch.Tensor]:
+    """The run-length arena's defragmenter (sort and segment merge) over
+    the rows `slots` routes to, in place; returns the packed entry counts
+    (B,). Plain tensor code on every device."""
+    compact_doc_rows_rle_fast.launches += 1
+    return compact_doc_rows_rle(state, slots)
+
+
+compact_doc_rows_rle_fast.launches = 0

@@ -265,6 +265,83 @@ def integrate_op_slots_rle_sparse(
     return scatter_doc_rows(state, sub, slots), op_count(ops)
 
 
+# -- on-device compaction (the defragmenter) ----------------------------------
+# Every mid-run insert or delete splits a run (and a zero-length head
+# lingers as a dead lane), so a churning row's entry count creeps toward
+# capacity while its logical state is a handful of runs. The defragmenter
+# is id-PRESERVING: it drops zero-length lanes and merges entries that are
+# rank-adjacent, id-consecutive, same-client and same-deleted, exactly the
+# fragments splitting made. No rank changes and no id range disappears,
+# so the host rewrites no serve log and keeps no origin remap.
+
+
+def _compact_rle_rows(sub: RleState) -> RleState:
+    """Defragment every row of `sub`: the JAX package's `_compact_one_rle`
+    over a batch of rows."""
+    rows, r = sub.run_client.shape
+    device = sub.run_client.device
+    idx = torch.arange(r, dtype=torch.int32, device=device)[None, :]
+    keep = (idx < sub.num_runs[:, None]) & (sub.run_len > 0)
+    # rank-order the kept entries, dropped lanes (key _INF) last; stable,
+    # as jnp.argsort is, so tied keys keep their lane order
+    order = torch.argsort(torch.where(keep, sub.run_rank, _INF), dim=1, stable=True)
+    cl, ck, ln, rk, ok, dl, kept = (
+        field.gather(1, order)
+        for field in (
+            sub.run_client, sub.run_clock, sub.run_len, sub.run_rank,
+            sub.run_orank, sub.run_deleted, keep,
+        )
+    )
+
+    def prev(a: torch.Tensor) -> torch.Tensor:
+        return torch.cat([a[:, :1], a[:, :-1]], dim=1)
+
+    # an entry continues the previous one when splitting could have made
+    # the pair: same author, consecutive clocks AND ranks (int32 sums
+    # wrap, as the JAX program's do), same tombstone verdict
+    merge = (
+        kept
+        & torch.cat([torch.zeros_like(kept[:, :1]), kept[:, :-1]], dim=1)
+        & (cl == prev(cl))
+        & (ck == prev(ck) + prev(ln))
+        & (rk == prev(rk) + prev(ln))
+        & (dl == prev(dl))
+    )
+    head = kept & ~merge
+    seg = torch.cumsum(head.to(torch.int32), dim=1, dtype=torch.int32) - 1
+    num_segs = head.sum(dim=1, dtype=torch.int32)
+    # column r is the drop bucket
+    seg_dst = torch.where(kept, seg, r).long()
+    seg_len = torch.zeros((rows, r + 1), dtype=torch.int32, device=device)
+    seg_len.scatter_add_(1, seg_dst, ln)
+    head_dst = torch.where(head, seg, r).long()  # unique: one head per segment
+
+    def pack(vals: torch.Tensor, fill) -> torch.Tensor:
+        out = torch.full((rows, r + 1), fill, dtype=vals.dtype, device=device)
+        out.scatter_(1, head_dst, vals)
+        return out[:, :r]
+
+    return RleState(
+        run_client=pack(cl, NONE_CLIENT_I32),
+        run_clock=pack(ck, 0),
+        run_len=seg_len[:, :r],
+        run_rank=pack(rk, _INF),
+        run_orank=pack(ok, -1),
+        run_deleted=pack(dl, False),
+        num_runs=num_segs,
+        total_units=sub.total_units,  # rank space untouched
+        overflow=torch.zeros_like(sub.overflow),
+    )
+
+
+def compact_doc_rows_rle(state: RleState, slots: torch.Tensor) -> tuple[RleState, torch.Tensor]:
+    """Defragment the B rows `slots` routes to (int32 (B,), num_docs =
+    padding sentinel: the gather clips, the scatter drops). Updates
+    `state` in place; returns it and the packed entry counts (B,)."""
+    sub = _compact_rle_rows(gather_doc_rows(state, slots))
+    return scatter_doc_rows(state, sub, slots), sub.num_runs
+
+
 # -- minimal-work run merge (the sequential fast path) -----------------------
 
 

@@ -52,6 +52,8 @@ from ..server.types import Extension, Payload
 from .integrate import (
     append_run_slots_rle_sparse_fast,
     append_run_slots_sparse_fast,
+    compact_doc_rows_fast,
+    compact_doc_rows_rle_fast,
     integrate_op_slots_fast,
     integrate_op_slots_rle_fast,
     integrate_op_slots_rle_sparse_fast,
@@ -105,6 +107,11 @@ class PlaneDoc:
     # the cold serving paths, cached under lane_cache_key
     lane_slot: Optional[int] = None
     lane_cache_key: Optional[tuple] = None
+    # residency compaction (tpu/residency.py): client -> ([starts],
+    # [(start, end, left_id, right_id)]) for id ranges the tombstone GC
+    # removed from the device; a later op whose origin lands in one
+    # re-anchors to the recorded live neighbour
+    origin_remap: dict = field(default_factory=dict)
 
 
 class _Staging:
@@ -296,6 +303,14 @@ class MergePlane:
             "docs_retired_plane_full": 0,
             "docs_retired_lane_demote": 0,
             "docs_recycled": 0,
+            # arena residency (tpu/residency.py): idle docs snapshot off,
+            # cold docs re-admit through the hydration queue, pressured
+            # rows compact in place
+            "docs_evicted": 0,
+            "docs_hydrated": 0,
+            "docs_compacted": 0,
+            "hydrations_declined": 0,
+            "compactions_declined": 0,
             "sync_serves": 0,
             "sync_cache_hits": 0,
             "sync_cache_misses": 0,
@@ -352,6 +367,29 @@ class MergePlane:
         # extension: the plane never admits itself, its dispatch sites
         # only account each launch as in-lane or bypass
         self.lane = None
+        # residency manager seam (tpu/residency.py), set by the manager:
+        # retire_doc asks it whether to keep a doc's host logs for a
+        # compaction attempt
+        self.residency = None
+        self.residency_stats: dict[str, float] = {
+            "evicted_docs": 0,
+            "evicted_bytes": 0,
+            "hydration_queue_depth": 0,
+            "hydration_queue_peak": 0,
+            "hydrations_inflight": 0,
+            "hydration_p50_ms": 0.0,
+            "hydration_p99_ms": 0.0,
+            "last_hydration_batch": 0,
+            "last_eviction_ms": 0.0,
+            "last_compaction_ms": 0.0,
+        }
+        # memory side of the flush cycles (memory_stats): the biggest
+        # single-cycle upload and the cumulative readback barrier time
+        self.device_stats: dict[str, float] = {
+            "upload_bytes_peak": 0,
+            "readback_stall_ms_total": 0.0,
+            "readback_stalls": 0,
+        }
 
     def _note_dispatch(self, site: str, batches: int = 1) -> None:
         if self.lane is not None:
@@ -394,12 +432,31 @@ class MergePlane:
             return append_run_slots_rle_sparse_fast
         return append_run_slots_sparse_fast
 
+    def _compact_step_fn(self):
+        """The compaction program (tombstone GC on the unit arena, the
+        defragmenter on the run-length arena): (state, (B,) slot routing)
+        -> (state, per-row packed sizes). Called by the residency manager
+        (tpu/residency.py) under the step lock."""
+        if self.arena == "rle":
+            return compact_doc_rows_rle_fast
+        return compact_doc_rows_fast
+
     def _tail_probe_fn(self):
         """The rank-tail id readback: (state, (W,) slots) -> (2W,) int32
         [clients..., clocks...]."""
         if self.arena == "rle":
             return tail_probe_rle
         return tail_probe
+
+    def load_kernels(self) -> None:
+        """Build (nvcc, at first use) and load the arena's kernel library
+        now rather than at the first launch: the supervisor's runtime
+        factory does this under its init deadline. Nothing to do on the
+        CPU, where the plain versions run."""
+        if self.device.type == "cuda":
+            from .integrate import LIBRARY, RLE_LIBRARY
+
+            (RLE_LIBRARY if self.arena == "rle" else LIBRARY).get()
 
     # -- native text lane --------------------------------------------------
 
@@ -593,8 +650,21 @@ class MergePlane:
             get_flight_recorder().record(name, "retire", reason=reason)
         self.update_traces.drop(name)
         doc.lowerer.unsupported = True
-        doc.serve_log = []
-        doc.map_tombstones = []
+        # residency seam: a row-exhaustion retire keeps its host logs so
+        # the compaction path (tpu/residency.py) can rebuild the doc in
+        # place; a declined attempt calls drop_doc_logs to finish this.
+        # Judged on the sticky FIRST reason: the CPU fallback re-retires
+        # with "fallback" and must not drop the logs a capacity retire
+        # just kept
+        preserve = self.residency is not None and self.residency.wants_logs(
+            doc, doc.retire_reason
+        )
+        if preserve:
+            # the residency sweep visits preserved docs proactively
+            self.residency.note_preserved(doc.name)
+        else:
+            doc.serve_log = []
+            doc.map_tombstones = []
         self.dirty.discard(name)
         # lock-free: ops a concurrent drain captured before this clear
         # still dispatch, but into rows whose generation is bumped below,
@@ -603,9 +673,14 @@ class MergePlane:
         for slot in doc.seqs.values():
             self._tail_known[slot] = False  # rows go inert: never fast-path
             self._tail_dirty.discard(slot)
-            self.queues[slot].clear()
-            self._busy_slots.discard(slot)
-            self.unit_logs[slot] = []
+            if not preserve:
+                # preserve mode keeps the QUEUES too: their ops are in the
+                # serve and unit logs and the lowerer's known clocks
+                # already, so the compaction path drains them into the
+                # (inert, uncleared) rows before it rebuilds
+                self.queues[slot].clear()
+                self._busy_slots.discard(slot)
+                self.unit_logs[slot] = []
             self.slot_live[slot] = False
             self.slot_gen[slot] += 1
         if doc.lane_slot is not None:
@@ -638,6 +713,33 @@ class MergePlane:
         self._tail_known[slot] = True
         self._tail_dirty.discard(slot)
 
+    def invalidate_tails(self, slots) -> None:
+        """Forget the tracked rank tails of `slots` and queue the live ones
+        for the probe re-arm at the next flush readback. Called by the
+        residency manager after a compaction: tombstone GC remaps ranks,
+        so the host-tracked tail id may no longer be the rank tail."""
+        for slot in slots:
+            slot = int(slot)
+            self._tail_known[slot] = False
+            if self.slot_live[slot]:
+                self._tail_dirty.add(slot)
+
+    def drop_doc_logs(self, name: str) -> None:
+        """Finish a log-preserving retire (see retire_doc): the compaction
+        attempt declined, so free the host memory (and the retained
+        queues) the ordinary retire would have freed."""
+        doc = self.docs.get(name)
+        if doc is None:
+            return
+        doc.serve_log = []
+        doc.map_tombstones = []
+        for slot in doc.seqs.values():
+            self.unit_logs[slot] = []
+            queue = self.queues.get(slot)
+            if queue:
+                queue.clear()
+            self._busy_slots.discard(slot)
+
     def is_supported(self, name: str) -> bool:
         doc = self.docs.get(name)
         if doc is None:
@@ -664,6 +766,8 @@ class MergePlane:
             return 0
         count = 0
         for seq_key, ops in seq_ops.items():
+            if doc.origin_remap:
+                self._remap_origins(doc, seq_key, ops)
             slot = self._alloc_seq(doc, seq_key)
             if slot is None:
                 self.retire_doc(name, "plane_full")
@@ -722,6 +826,64 @@ class MergePlane:
         if count:
             self.dirty.add(name)
         return count
+
+    def _remap_origins(self, doc: PlaneDoc, seq_key: tuple, ops: list) -> None:
+        """Re-anchor op origins that name ids the tombstone GC removed
+        from the device (tpu/residency.py): a left origin falls back to
+        the nearest live unit that preceded the removed range when it was
+        compacted, a right origin to the nearest that followed (the same
+        positional approximation yjs accepts once tombstones are garbage
+        collected). An op whose both origins dissolve into the row's ends
+        gets the sequence as its explicit wire parent."""
+        from bisect import bisect_right
+
+        remap = doc.origin_remap
+
+        def removed(client: int, clock: int):
+            entry = remap.get(client)
+            if entry is None:
+                return None
+            starts, rows = entry
+            i = bisect_right(starts, clock) - 1
+            if i >= 0 and rows[i][0] <= clock < rows[i][1]:
+                return rows[i]
+            return None
+
+        def resolve(client: int, clock: int, side: int):
+            """Chase the remap transitively: a recorded neighbour may sit
+            in a range a LATER compaction removed. Each hop follows the
+            same side and lands in a strictly newer removed range, so the
+            walk ends."""
+            moved = False
+            while client != NONE_CLIENT:
+                row = removed(client, clock)
+                if row is None:
+                    break
+                moved = True
+                repl = row[side]
+                if repl is None:
+                    client, clock = NONE_CLIENT, 0
+                    break
+                client, clock = repl
+            return moved, client, clock
+
+        for op in ops:
+            if op.kind != KIND_INSERT:
+                continue
+            if op.left_client != NONE_CLIENT:
+                moved, client, clock = resolve(op.left_client, op.left_clock, 2)
+                if moved:
+                    op.left_client, op.left_clock = client, clock
+            if op.right_client != NONE_CLIENT:
+                moved, client, clock = resolve(op.right_client, op.right_clock, 3)
+                if moved:
+                    op.right_client, op.right_clock = client, clock
+            if (
+                op.left_client == NONE_CLIENT
+                and op.right_client == NONE_CLIENT
+                and op.parent is None
+            ):
+                op.parent = seq_key
 
     def pending_ops(self) -> int:
         total = 0
@@ -864,6 +1026,31 @@ class MergePlane:
         if full_grid:
             self.compile_watch.mark_warmed()
         return dispatched
+
+    def canary_probe(self) -> float:
+        """One tiny no-op integrate and a data-dependent readback: the
+        plane supervisor's liveness probe (tpu/supervisor.py). Returns
+        the elapsed seconds. Takes the step lock on purpose: a wedged
+        flush holding it blocks the probe, which is exactly what the
+        watchdog's deadline detects. The smallest sparse shape (K_max, 1)
+        keeps the device work O(1) rows; it is the warm grid's first
+        entry, so a warmed plane's probes launch a warm shape. Runs on
+        the plane's device and its current stream, and ends in `.item()`
+        on the op count, so the probe returns only after the card ran it."""
+        started = time.perf_counter()
+        with self._step_lock, self.device_scope():
+            if self.num_docs > 1:
+                k_max = self._k_buckets()[-1]
+                self.state, count = self._sparse_step_fn()(
+                    self.state, self._noop_ops(k_max, 1), self._padding_slots(1)
+                )
+                self.compile_watch.observe("integrate_sparse", (k_max, 1))
+            else:
+                self.state, count = self._step_fn()(self.state, self._noop_ops(1, self.num_docs))
+                self.compile_watch.observe("integrate_dense", (1, self.num_docs))
+            count.item()  # completion barrier (data-dependent readback)
+            self._note_dispatch("canary")
+        return time.perf_counter() - started
 
     def _bucket_b(self, busy: int) -> int:
         """Round a busy width up to its sparse bucket (powers of four);
@@ -1023,6 +1210,10 @@ class MergePlane:
                 # the cycle's single readback barrier closes every
                 # in-flight trace's device and readback stages
                 book.complete_cycle(trace_batches, t_sync)
+            self.device_stats["readback_stall_ms_total"] += (t_sync - t3) * 1000.0
+            self.device_stats["readback_stalls"] += 1
+            if upload_bytes > self.device_stats["upload_bytes_peak"]:
+                self.device_stats["upload_bytes_peak"] = upload_bytes
             self.flush_stats.update(
                 build_ms=round(build_ms, 3),
                 upload_ms=round(upload_ms, 3),
@@ -1039,6 +1230,23 @@ class MergePlane:
                 fast_path_fraction=round(fast_total / max(total, 1), 6),
             )
         return total
+
+    def memory_stats(self) -> dict:
+        """Device and host memory footprint: the arena's bytes (constant
+        after construction), the staging buffers' bytes, the biggest
+        single-cycle upload and the cumulative readback barrier time.
+        Reads only tensor metadata: no transfer."""
+        staging_bytes = 0
+        for buffers in (self._staging, self._append_staging):
+            for staging in buffers or ():
+                staging_bytes += staging.buffer.numel() * staging.buffer.element_size()
+        return {
+            "arena_bytes": sum(field.numel() * field.element_size() for field in self.state),
+            "staging_bytes": staging_bytes,
+            "upload_bytes_peak": self.device_stats["upload_bytes_peak"],
+            "readback_stall_ms_total": round(self.device_stats["readback_stall_ms_total"], 3),
+            "readback_stalls": self.device_stats["readback_stalls"],
+        }
 
     def _record_upload(self):
         """An event on the current stream after an upload, so the staging
@@ -1569,15 +1777,24 @@ class TpuMergeExtension(Extension):
     The counterpart of the JAX package's extension of the same name on
     one device. The plane runs on the card unless `device="cpu"` is
     given (`device=None` means the card, and raises without CUDA).
-    Sharding (`mesh=`) and arena residency (`evict_idle_secs`,
-    `compact_threshold`) are not ported yet (ROADMAP.md, Queue A) and
-    raise NotImplementedError. `native_lane` (default on, serve mode
+    Sharding (`mesh=`) is not ported yet (ROADMAP.md, Queue A) and
+    raises NotImplementedError. `native_lane` (default on, serve mode
     only) runs every plain-text doc's host path in the port's C++ text
     lane (`hocuspocus_tpu_torch/native`); a doc whose updates carry
     rich content demotes to the Python path (`docs_retired_lane_demote`)
     and is rebuilt there in place. `native_lane=False` keeps every doc
     on the Python path. The lane's codec builds at construction and a
     failed build raises.
+
+    Arena residency (serve mode, `tpu/residency.py`): `evict_idle_secs`
+    evicts a doc idle that long to a host snapshot and frees its rows,
+    `hydrate_batch` bounds the docs re-admitted per hydration round, and
+    `compact_threshold` compacts rows on the device as they fill and
+    recycles capacity- or overflow-retired docs in place. Either knob
+    above 0 builds a `ResidencyManager`. The supervisor
+    (`SupervisedTpuMergeExtension`, tpu/supervisor.py) drives the
+    surface `planes()`, `servings()`, `degrade_all()`, `cancel_timers()`,
+    `reonboard()` and `is_served()`.
     """
 
     priority = 900
@@ -1595,24 +1812,22 @@ class TpuMergeExtension(Extension):
         arena: str = "unit",
         native_lane: bool = True,
         evict_idle_secs: float = 0.0,
+        hydrate_batch: int = 64,
         compact_threshold: float = 0.0,
         governor: bool = True,
+        lane=None,
     ) -> None:
         """governor — arrival-aware batching (tpu/scheduler.py): the
         flush cadence and the kernel calls per cycle follow the
         op-arrival EWMA, queue depth and lane congestion instead of the
         fixed flush_interval_ms (which stays the governor's BASE
-        cadence). False restores the fixed timer exactly. The device
-        work admits through the process-global device lane.
+        cadence). False restores the fixed timer exactly. lane — the
+        DeviceLane the device work admits through (None: the
+        process-global one).
         """
         if mesh is not None:
             raise NotImplementedError(
-                "mesh= (a sharded plane) is not ported yet: ROADMAP.md, Queue A"
-            )
-        if evict_idle_secs > 0 or compact_threshold > 0:
-            raise NotImplementedError(
-                "arena residency (evict_idle_secs, compact_threshold) is not "
-                "ported yet: ROADMAP.md, Queue A"
+                "mesh= (a sharded plane) is not ported yet: ROADMAP.md, Queue A item 7"
             )
         if plane is not None and device is not None:
             raise ValueError(
@@ -1627,7 +1842,7 @@ class TpuMergeExtension(Extension):
         )
         from .scheduler import BatchGovernor, get_device_lane
 
-        self.lane = self.plane.lane = get_device_lane()
+        self.lane = self.plane.lane = get_device_lane() if lane is None else lane
         self.governor = BatchGovernor(base_interval_ms=flush_interval_ms) if governor else None
         # governor policy inputs ride a short-TTL depth cache:
         # pending_ops() is O(busy slots) and the capture seam calls the
@@ -1671,9 +1886,75 @@ class TpuMergeExtension(Extension):
             from .serving import PlaneServing
 
             self.serving = PlaneServing(self.plane)
+        # arena residency manager (tpu/residency.py): idle-doc eviction,
+        # admission-controlled hydration, on-device compaction. Serve
+        # mode with a nonzero knob; otherwise rows stay a permanent lease
+        self.residency = None
+        self._residency_handle: Optional[asyncio.TimerHandle] = None
+        if serve and (evict_idle_secs > 0 or compact_threshold > 0):
+            from .residency import ResidencyManager
+
+            self.residency = ResidencyManager(
+                self,
+                evict_idle_secs=evict_idle_secs,
+                hydrate_batch=hydrate_batch,
+                compact_threshold=compact_threshold,
+            )
 
     def _spawn_tracked(self, coro) -> "asyncio.Task":
         return spawn_tracked(self._flush_tasks, coro)
+
+    # -- supervisor surface (tpu/supervisor.py) ------------------------------
+
+    def planes(self) -> "list[MergePlane]":
+        return [self.plane]
+
+    def servings(self) -> list:
+        return [] if self.serving is None else [self.serving]
+
+    def is_served(self, document_name: str) -> bool:
+        return document_name in self._docs
+
+    def degrade_all(self) -> None:
+        """Drain every served doc to the CPU document, a full-state
+        fallback broadcast each: the supervisor's breaker-open action."""
+        recorder = get_flight_recorder()
+        for name in list(self._docs):
+            recorder.record(name, "breaker_degrade")
+        self._degrade_all_served()
+
+    def cancel_timers(self) -> None:
+        """Teardown without touching the device (the supervisor's
+        non-READY shutdown: a wedged device must not hang destroy)."""
+        if self._flush_handle is not None:
+            self._flush_handle.cancel()
+            self._flush_handle = None
+        if self._broadcast_handle is not None:
+            self._broadcast_handle.cancel()
+            self._broadcast_handle = None
+        if self._residency_handle is not None:
+            self._residency_handle.cancel()
+            self._residency_handle = None
+
+    async def reonboard(self, document, instance=None) -> None:
+        """Fresh plane registration for a live document (the supervisor's
+        hot attach and breaker recovery): drop any earlier registration
+        and run the ordinary load-time onboarding."""
+        name = document.name
+        async with self.plane.flush_lock:
+            self._detach_serving(name, self._docs.pop(name, None))
+            if name in self.plane.docs:
+                self.plane.release(name)
+            self._recycle_declined.discard(name)
+            if self.residency is not None:
+                self.residency.forget_doc(name)
+        await self.after_load_document(
+            Payload(
+                instance=instance if instance is not None else self._instance,
+                document_name=name,
+                document=document,
+            )
+        )
 
     # -- hooks ---------------------------------------------------------------
 
@@ -1687,10 +1968,14 @@ class TpuMergeExtension(Extension):
         fails ends the task with its error (await `warmup_task` to see
         it); the flushes that follow meet the same error."""
 
-        async def warm_one(work) -> None:
-            from .scheduler import CLASS_WARM
+        async def warm_one(work) -> bool:
+            from .scheduler import CLASS_CANARY, LaneDeferred
 
-            ticket = await self.lane.admit(CLASS_WARM, site="warmup")
+            try:
+                # the lowest class; weight 1 lets a queued canary go first
+                ticket = await self.lane.admit(CLASS_CANARY, site="warmup", weight=1)
+            except LaneDeferred:
+                return False  # parked (breaker open): the re-attach warms again
             try:
                 async with self.plane.flush_lock:
                     await asyncio.get_event_loop().run_in_executor(None, work)
@@ -1701,17 +1986,21 @@ class TpuMergeExtension(Extension):
                 raise
             finally:
                 ticket.release()
+            return True
 
         async def warm() -> None:
             for shape in self.plane.warmup_shapes() + self.plane.warmup_aux_shapes():
-                await warm_one(lambda s=shape: self.plane.warmup_compiles(s, shared=True))
+                if not await warm_one(lambda s=shape: self.plane.warmup_compiles(s, shared=True)):
+                    return
             # from here every flush shape has launched once
             self.plane.compile_watch.mark_warmed()
             if self.serving is not None:
                 for width in self.serving._gather_widths():
-                    await warm_one(lambda w=width: self.serving.warmup_gathers(w))
+                    if not await warm_one(lambda w=width: self.serving.warmup_gathers(w)):
+                        return
 
         self.warmup_task = self._spawn_tracked(warm())
+        self._schedule_residency()
 
     def _attach_serving(self, name: str, document) -> None:
         """Hook a document into the plane's serving seams (shared by
@@ -1730,6 +2019,15 @@ class TpuMergeExtension(Extension):
 
         self._instance = data.instance
         name = data.document_name
+        if self.residency is not None:
+            self.residency.touch(name)
+            if self.residency.is_evicted(name):
+                # cold load of an evicted doc: re-enter through the
+                # admission-controlled hydration queue (a storm of cold
+                # loads must not stampede the device); the doc serves
+                # from the CPU document until its batch lands
+                self.residency.request_hydration(name, data.document)
+                return
         lane_doc = self.plane.register_lane(name) if self.native_lane else None
         if lane_doc is None:
             self.plane.register(name)
@@ -1753,6 +2051,14 @@ class TpuMergeExtension(Extension):
     async def on_change(self, data: Payload) -> None:
         if self.serve and data.document_name in self._docs:
             return  # already captured synchronously in try_capture
+        if self.residency is not None:
+            self.residency.touch(data.document_name)
+            if self.residency.is_evicted(data.document_name):
+                # fresh traffic on an evicted doc: updates ride the CPU
+                # fan-out while the doc queues for hydration (the live
+                # document's tail, replayed at admission, carries them)
+                self.residency.request_hydration(data.document_name, data.document)
+                return
         if self.serve:
             # fresh traffic on a doc that degraded off the plane (e.g. a
             # device OVERFLOW retire from the health sweep, a seam
@@ -1790,6 +2096,8 @@ class TpuMergeExtension(Extension):
                     # its stored state, and re-trying the lane on every
                     # reload would re-pay the demote each time
                     self._recycle_declined.discard(name)
+                    if self.residency is not None:
+                        self.residency.forget_doc(name)
                     return
             # A re-load is in flight. Wait for it OUTSIDE the lock: on
             # success its own eventual unload fires this hook again; on
@@ -1809,6 +2117,9 @@ class TpuMergeExtension(Extension):
             self._flush_handle.cancel()
         if self._broadcast_handle is not None:
             self._broadcast_handle.cancel()
+        if self._residency_handle is not None:
+            self._residency_handle.cancel()
+            self._residency_handle = None
         # flush the broadcast tail (local only), then fully drain the
         # device queues: no timer fires after teardown to pick up
         # either. final=True: the drain is pause-exempt
@@ -1824,6 +2135,13 @@ class TpuMergeExtension(Extension):
         name = document.name
         if not self.serve or name not in self._docs:
             return False
+        if self.residency is not None:
+            self.residency.touch(name)
+            if self.residency.is_compacting(name):
+                # an executor-side compaction is rewriting this doc's rows:
+                # an enqueue would race the serve-log rebuild. Ride the CPU
+                # fan-out; the post-compaction tail replay re-syncs the plane
+                return False
         plane = self.plane
         if not plane.is_supported(name):
             plane_doc = plane.docs.get(name)
@@ -1971,10 +2289,14 @@ class TpuMergeExtension(Extension):
         presync. If the live state itself nearly fills a row or the
         plane has no spare rows, the doc stays on the CPU path rather
         than thrash through recycles."""
-        from .scheduler import CLASS_CATCHUP
+        from .scheduler import CLASS_CATCHUP, LaneDeferred
 
-        # catch-up class: recovery work for a live busy doc
-        ticket = await self.lane.admit(CLASS_CATCHUP, site="recycle")
+        try:
+            # catch-up class: recovery work for a live busy doc, ahead of
+            # compaction sweeps and behind live flushes
+            ticket = await self.lane.admit(CLASS_CATCHUP, site="recycle")
+        except LaneDeferred:
+            return  # parked: the next capture on this doc retries
         try:
             await self._recycle_capacity_doc_admitted(document)
         finally:
@@ -1995,6 +2317,13 @@ class TpuMergeExtension(Extension):
             existing = plane.docs.get(name)
             if existing is None or not existing.retired:
                 return  # registration changed under us; leave it be
+            if self.residency is not None and existing.retire_reason in ("capacity", "overflow"):
+                # compaction on the device first: when the doc's LIVE state
+                # fits its rows, the compaction program recycles it in
+                # place (no release, no snapshot re-lower). When it
+                # declines, fall through to the snapshot recycle
+                if await self.residency.compact_and_replay_locked(name, document):
+                    return
             try:
                 plane.release(name)
                 # a hot plain-text doc keeps its native lane across the
@@ -2070,6 +2399,21 @@ class TpuMergeExtension(Extension):
 
     # -- flush ---------------------------------------------------------------
 
+    def _degrade_all_served(self) -> None:
+        """Every served doc falls back to the CPU document, each with a
+        full-state broadcast (the supervisor's breaker trip, and a CPU
+        plane's failed step). Each is logged and counted in
+        `cpu_fallbacks`."""
+        from ..server import logger as _logger_mod
+
+        _logger_mod.log_error("degrading every served doc to the CPU document")
+        for document in list(self._docs.values()):
+            try:
+                self._fallback_to_cpu(document)
+                _logger_mod.log_error(f"{document.name!r} now served by the CPU document")
+            except Exception:
+                _logger_mod.log_error(f"CPU fallback failed for {document.name!r}")
+
     def _device_fault(self) -> None:
         """Called inside the handler of a failed device step (a flush, a
         sync serve's flush and encode, a lane-demote rebuild or a
@@ -2086,11 +2430,7 @@ class TpuMergeExtension(Extension):
             _logger_mod.logger.error("plane device step failed on the card", exc_info=True)
             raise
         _logger_mod.logger.error("plane device step failed; degrading served docs to CPU", exc_info=True)
-        for document in list(self._docs.values()):
-            try:
-                self._fallback_to_cpu(document)
-            except Exception:
-                _logger_mod.log_error(f"CPU fallback failed for {document.name!r}")
+        self._degrade_all_served()
 
     def _broadcast_served(self, cross_instance: bool = True) -> None:
         """One broadcast pass: every doc with new serve-log records gets
@@ -2212,18 +2552,26 @@ class TpuMergeExtension(Extension):
         try:
             try:
                 ticket = await self.lane.admit(
-                    CLASS_INTERACTIVE, site="flush", deadline_s=5.0 if final else None
+                    CLASS_INTERACTIVE,
+                    site="flush",
+                    ignore_pause=final,
+                    deadline_s=5.0 if final else None,
                 )
             except LaneDeferred as deferred:
-                # only the final drain has a deadline: teardown proceeds
-                # unarbitrated
                 get_flight_recorder().record(
                     "__plane__",
                     "flush_deferred",
                     lane_class=CLASS_NAMES[deferred.lane_class],
                     wait_ms=round(deferred.waited_s * 1000.0, 3),
+                    reason=deferred.reason,
                 )
-                ticket = None
+                if not final:
+                    # parked (breaker open): retry on a slow cadence; the
+                    # supervisor resumes the lane at re-attach
+                    if self.plane.pending_ops() > 0:
+                        self._schedule_flush(delay_override=0.25)
+                    return
+                ticket = None  # the teardown drain goes on unarbitrated
             try:
                 if self.governor is not None and max_batches == 1:
                     congested = self.lane.contended()
@@ -2277,7 +2625,7 @@ class TpuMergeExtension(Extension):
                 if document is not None:
                     self._fallback_to_cpu(document)
 
-    def _schedule_flush(self) -> None:
+    def _schedule_flush(self, delay_override: Optional[float] = None) -> None:
         if self._flush_handle is not None:
             return
 
@@ -2285,7 +2633,9 @@ class TpuMergeExtension(Extension):
             self._flush_handle = None
             self._spawn_tracked(self._flush_now())
 
-        if self.governor is not None:
+        if delay_override is not None:
+            delay = delay_override
+        elif self.governor is not None:
             # arrival-aware cadence: immediate full drain past the
             # queue-depth watermark, base cadence under steady load or
             # lane congestion, stretched ticks when arrivals are sparse
@@ -2301,6 +2651,31 @@ class TpuMergeExtension(Extension):
             self._depth_cache = self.plane.pending_ops()
             self._depth_cache_at = now
         return self._depth_cache
+
+    def _schedule_residency(self) -> None:
+        """Periodic residency maintenance (eviction and the compaction
+        sweeps) on its own timer, like the flush and broadcast cadences."""
+        if self.residency is None or self._residency_handle is not None:
+            return
+
+        def run() -> None:
+            self._residency_handle = None
+            self._spawn_tracked(self._residency_tick())
+
+        self._residency_handle = asyncio.get_event_loop().call_later(
+            self.residency.maintenance_interval, run
+        )
+
+    async def _residency_tick(self) -> None:
+        try:
+            await self.residency.run_maintenance()
+        except Exception:
+            from ..server import logger as _logger_mod
+
+            _logger_mod.logger.error("residency maintenance failed", exc_info=True)
+            if self.plane.device.type == "cuda":
+                raise  # a card fault stops the maintenance, as it fails a flush
+        self._schedule_residency()
 
     def _schedule_broadcast(self) -> None:
         if not self.serve or self._broadcast_handle is not None:

@@ -7,11 +7,19 @@ arXiv:2409.14252). This module is that scheduling layer, in three parts:
 
 1. **`DeviceLane`** — the admission arbiter every device client of a
    plane passes through before dispatching: flush cycles and batched
-   sync serves (interactive), capacity recycles (catch-up) and the
-   listen-time warm grid (lowest). One holder at a time (one card);
-   waiters are granted strictly by priority class, FIFO within a class.
-   The warm grid admits once per shape, so an early client flush waits
-   for one shape at most, never for the grid.
+   sync serves (interactive), hydration rounds and capacity recycles
+   (catch-up), eviction snapshots and compaction sweeps (background),
+   the supervisor's canary probes and the listen-time warm grid
+   (canary, the lowest). One holder at a time (one card); waiters are
+   granted strictly by priority class, FIFO within a class (a canary
+   passes queued warm shapes by its lower weight). The warm grid admits
+   once per shape, so an early client flush waits for one shape at
+   most, never for the grid. A starvation guard promotes a waiter that
+   has queued past `promote_after_s` (250 ms) to the interactive class,
+   so background work and the supervisor's canary progress under a
+   sustained interactive load. The supervisor parks the lane when its
+   breaker opens (`pause()`: queued and new admissions defer, only
+   pause-exempt canary probes pass) and resumes it at re-attach.
 
 2. **`BatchGovernor`** — arrival-aware batching: an EWMA of op-arrival
    rate plus the measured per-cycle device time pick the flush cadence
@@ -35,12 +43,13 @@ arXiv:2409.14252). This module is that scheduling layer, in three parts:
    shapes (seeding its warm watch).
 
 A port of the JAX package's `tpu/scheduler.py` for one plane on one
-card, the only deployment the port runs: the lane keeps its priority
-classes, FIFO grants, queue-wait deadline and accounting. What only
-several planes or the supervisor use is not ported (ROADMAP.md, Queue
-A): the supervisor's pause/park, the starvation promotion, holder
-preemption, the canary and background classes, and one lane per device.
-The warm registry's backend name is read from torch instead of jax.
+card, the only deployment the port runs: the lane keeps its four
+priority classes (numbered as there), FIFO grants, the starvation
+guard, park and resume, queue-wait deadline and accounting. What only
+several planes use is not ported (ROADMAP.md, Queue A): holder
+preemption, a promotion threshold set per extension, and one lane per
+device. The warm registry's backend name is read from torch instead of
+jax.
 """
 
 from __future__ import annotations
@@ -50,21 +59,24 @@ import math
 import time
 from typing import Optional
 
+from ..observability.flight_recorder import get_flight_recorder
 from ..observability.metrics import Counter, Gauge, Histogram
 
 # -- priority classes --------------------------------------------------------
 # Lower value = higher priority. Interactive flushes and sync serves go
-# first; a capacity recycle (recovery work for a live busy doc) next; the
-# warm grid rides last.
+# first; catch-up (hydration, recycles) outranks background (eviction,
+# compaction); canary probes and warm launches ride last: a probe's job
+# is to measure the device the real traffic sees, not to displace it.
 
 CLASS_INTERACTIVE = 0
 CLASS_CATCHUP = 1
-CLASS_WARM = 2
+CLASS_BACKGROUND = 2
+CLASS_CANARY = 3
 
-CLASS_NAMES = ("interactive", "catchup", "warm")
+CLASS_NAMES = ("interactive", "catchup", "background", "canary")
 
-# lane-wait buckets: sub-millisecond grants are the common case; a
-# recycle or warm shape can wait whole seconds behind an interactive burst
+# lane-wait buckets: sub-millisecond grants are the common case; parked
+# background work can wait whole seconds behind an interactive burst
 _WAIT_BUCKETS = (
     0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025,
     0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
@@ -72,25 +84,40 @@ _WAIT_BUCKETS = (
 
 
 class LaneDeferred(Exception):
-    """Admission declined: the waiter's queue-wait deadline passed.
-    Carries the class + wait so the caller can record a
-    `flush_deferred` flight event."""
+    """Admission declined: the lane is parked (supervisor pause) or the
+    waiter's queue-wait deadline passed. Carries the class, the wait and
+    the reason ("parked" or "deadline") so the caller can record a
+    `flush_deferred` flight event and reschedule."""
 
-    def __init__(self, lane_class: int, waited_s: float) -> None:
-        super().__init__(f"{CLASS_NAMES[lane_class]} deferred (deadline)")
+    def __init__(self, lane_class: int, waited_s: float, reason: str = "deadline") -> None:
+        super().__init__(f"{CLASS_NAMES[lane_class]} deferred ({reason})")
         self.lane_class = lane_class
         self.waited_s = waited_s
+        self.reason = reason
 
 
 class LaneTicket:
     """One granted (or queued) admission. Always release() in finally."""
 
-    __slots__ = ("lane", "lane_class", "site", "enqueued_at", "granted_at", "seq", "future")
+    __slots__ = (
+        "lane", "lane_class", "effective_class", "promoted", "site", "ignore_pause",
+        "weight", "enqueued_at", "granted_at", "seq", "future",
+    )
 
-    def __init__(self, lane: "DeviceLane", lane_class: int, site: str, seq: int) -> None:
+    def __init__(
+        self, lane: "DeviceLane", lane_class: int, site: str, seq: int,
+        ignore_pause: bool = False, weight: int = 0,
+    ) -> None:
         self.lane = lane
         self.lane_class = lane_class
+        # the class the grant order uses: the starvation guard raises it
+        self.effective_class = lane_class
+        self.promoted = False
         self.site = site
+        self.ignore_pause = ignore_pause
+        # tie-break within a class (lower first): canary probes pass
+        # queued warm shapes so the watchdog's latency stays timely
+        self.weight = weight
         self.enqueued_at = time.monotonic()
         self.granted_at: Optional[float] = None
         self.seq = seq
@@ -108,7 +135,11 @@ class DeviceLane:
     arbiter. Construct instances directly for tests that need isolation.
     """
 
-    def __init__(self) -> None:
+    def __init__(self, promote_after_s: float = 0.25) -> None:
+        # a waiter queued longer than this is promoted to the interactive
+        # class (the starvation guard)
+        self.promote_after_s = float(promote_after_s)
+        self.paused = False
         self._holder: Optional[LaneTicket] = None
         self._waiters: list[LaneTicket] = []
         self._seq = 0
@@ -118,6 +149,7 @@ class DeviceLane:
         self.counters: dict[str, int] = {
             "admissions": 0,
             "deferrals": 0,
+            "starved_promotions": 0,
             "dispatches_in_lane": 0,
             "dispatches_bypass": 0,
         }
@@ -137,7 +169,7 @@ class DeviceLane:
         )
         self.deferrals_total = Counter(
             "hocuspocus_tpu_lane_deferrals_total",
-            "Admissions deferred (deadline passed), by class",
+            "Admissions deferred (lane parked or deadline passed), by class",
         )
         self.queue_depth = Gauge(
             "hocuspocus_tpu_lane_queue_depth",
@@ -170,6 +202,16 @@ class DeviceLane:
     def contended(self) -> bool:
         return bool(self._waiters)
 
+    def holder_info(self) -> "Optional[tuple[str, int, float]]":
+        """(site, class, held seconds) of the active holder, None when
+        idle: lets the supervisor's watchdog tell a lane busy with the
+        accounted warm grid from one held by a wedged flush."""
+        holder = self._holder
+        if holder is None:
+            return None
+        held = 0.0 if holder.granted_at is None else time.monotonic() - holder.granted_at
+        return (holder.site, holder.lane_class, held)
+
     def queue_depths(self) -> "list[int]":
         depths = [0] * len(CLASS_NAMES)
         for waiter in self._waiters:
@@ -177,16 +219,26 @@ class DeviceLane:
         return depths
 
     async def admit(
-        self, lane_class: int, site: str = "", deadline_s: Optional[float] = None
+        self,
+        lane_class: int,
+        site: str = "",
+        ignore_pause: bool = False,
+        deadline_s: Optional[float] = None,
+        weight: int = 0,
     ) -> LaneTicket:
         """Wait for the device lane; returns the held ticket.
 
-        Raises `LaneDeferred` after `deadline_s` of queue wait, so a
-        caller that must not block (the teardown drain) can go on
-        without the lane.
+        Raises `LaneDeferred` at once when the lane is parked and the
+        admission is not pause-exempt (`ignore_pause`), or after
+        `deadline_s` of queue wait: the caller records the deferral and
+        reschedules (or, for the teardown drain, goes on without the
+        lane) rather than pile blocked tasks onto a wedged device.
         """
+        if self.paused and not ignore_pause:
+            self._defer(lane_class)
+            raise LaneDeferred(lane_class, 0.0, "parked")
         self._seq += 1
-        ticket = LaneTicket(self, lane_class, site, self._seq)
+        ticket = LaneTicket(self, lane_class, site, self._seq, ignore_pause, weight)
         if self._holder is None and not self._waiters:
             self._grant(ticket)
             return ticket
@@ -208,9 +260,10 @@ class DeviceLane:
                 # granted in the same tick the deadline fired: keep it
                 return ticket
             self._discard(ticket)
-            self.counters["deferrals"] += 1
-            self.deferrals_total.inc(**{"class": CLASS_NAMES[lane_class]})
-            raise LaneDeferred(lane_class, waited) from None
+            self._defer(lane_class)
+            raise LaneDeferred(lane_class, waited, "deadline") from None
+        except LaneDeferred:
+            raise  # parked while queued (pause() removed the waiter)
         except asyncio.CancelledError:
             if ticket.granted_at is not None:
                 # granted and cancelled in the same tick: hand the lane on
@@ -245,7 +298,27 @@ class DeviceLane:
     def _grant_next(self) -> None:
         if self._holder is not None or not self._waiters:
             return
-        best = min(self._waiters, key=lambda w: (w.lane_class, w.seq))
+        now = time.monotonic()
+        # starvation guard: promote aged waiters before picking
+        for waiter in self._waiters:
+            if (
+                not waiter.promoted
+                and waiter.effective_class > CLASS_INTERACTIVE
+                and now - waiter.enqueued_at > self.promote_after_s
+            ):
+                waiter.promoted = True
+                waiter.effective_class = CLASS_INTERACTIVE
+                self.counters["starved_promotions"] += 1
+                get_flight_recorder().record(
+                    "__plane__",
+                    "lane_starved_promoted",
+                    lane_class=CLASS_NAMES[waiter.lane_class],
+                    wait_ms=round((now - waiter.enqueued_at) * 1000.0, 3),
+                )
+        eligible = [w for w in self._waiters if not self.paused or w.ignore_pause]
+        if not eligible:
+            return
+        best = min(eligible, key=lambda w: (w.effective_class, w.weight, w.seq))
         self._waiters.remove(best)
         self._refresh_depth_gauge()
         self._grant(best)
@@ -259,6 +332,37 @@ class DeviceLane:
             pass
         self._refresh_depth_gauge()
 
+    def _defer(self, lane_class: int) -> None:
+        self.counters["deferrals"] += 1
+        self.deferrals_total.inc(**{"class": CLASS_NAMES[lane_class]})
+
+    # -- park / resume (the supervisor's seam) -------------------------------
+
+    def pause(self) -> None:
+        """Park the lane (breaker open): queued waiters that are not
+        pause-exempt defer at once, so their tasks reschedule instead of
+        stacking onto a wedged device, and new admissions defer at the
+        door. The active holder is untouched (its launch is already
+        queued; it releases on its own)."""
+        if self.paused:
+            return
+        self.paused = True
+        for waiter in list(self._waiters):
+            if waiter.ignore_pause:
+                continue
+            self._waiters.remove(waiter)
+            waited = time.monotonic() - waiter.enqueued_at
+            self._defer(waiter.lane_class)
+            if waiter.future is not None and not waiter.future.done():
+                waiter.future.set_exception(LaneDeferred(waiter.lane_class, waited, "parked"))
+        self._refresh_depth_gauge()
+
+    def resume(self) -> None:
+        if not self.paused:
+            return
+        self.paused = False
+        self._grant_next()
+
     def _refresh_depth_gauge(self) -> None:
         depths = self.queue_depths()
         for i, name in enumerate(CLASS_NAMES):
@@ -268,7 +372,8 @@ class DeviceLane:
 
     def note_dispatch(self, site: str, batches: int = 1) -> None:
         """Called by the plane at every device dispatch site (flush
-        cycle, warm launch, sync triage). A dispatch while no ticket is
+        cycle, warm launch, canary, compaction, sync triage). A dispatch
+        while no ticket is
         held bypassed the arbiter — counted, and pinned to zero by the
         warm-grid test for the extension's scheduled paths."""
         if self._holder is not None:
@@ -301,6 +406,8 @@ class DeviceLane:
             }
         return {
             "held": self._holder is not None,
+            "paused": self.paused,
+            "promote_after_ms": round(self.promote_after_s * 1000.0, 3),
             "holder_class": (
                 None
                 if self._holder is None

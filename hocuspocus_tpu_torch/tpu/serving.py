@@ -163,6 +163,11 @@ class PlaneServing:
         self._catchup_queue: list[tuple] = []  # (name, document, sv_bytes, future)
         self._catchup_scheduled = False
         self._drain_tasks: set = set()
+        # supervisor drain seam (tpu/supervisor.py): while paused (breaker
+        # open) every sync request is answered by the CPU document, and
+        # abort_pending resolves the waiters already in flight
+        self.paused = False
+        self._inflight: set = set()
 
     # -- device readback cache ---------------------------------------------
 
@@ -650,6 +655,8 @@ class PlaneServing:
         Holds the plane's step lock across its own flush AND the state
         reads, so a concurrent flush can neither interleave between the
         drain and the encode nor change the rows mid-read."""
+        if self.paused:
+            return None  # supervisor drain: serve from the CPU document
         plane = self.plane
         with plane._step_lock:  # reentrant: flush() re-acquires
             if plane.pending_ops() > 0:
@@ -672,7 +679,11 @@ class PlaneServing:
         Resolves to SyncStep2 bytes, or None = CPU fallback."""
         import asyncio
 
+        if self.paused:
+            return None  # supervisor drain: serve from the CPU document
         future = asyncio.get_event_loop().create_future()
+        self._inflight.add(future)
+        future.add_done_callback(self._inflight.discard)
         self._catchup_queue.append((name, document, sv_bytes, future))
         if not self._catchup_scheduled:
             self._catchup_scheduled = True
@@ -680,6 +691,18 @@ class PlaneServing:
             self._drain_tasks.add(task)
             task.add_done_callback(self._drain_tasks.discard)
         return await future
+
+    def abort_pending(self) -> None:
+        """Resolve every outstanding batched-sync waiter to CPU fallback.
+
+        The supervisor's breaker-open drain: a wedge mid-flight leaves
+        drain tasks blocked on the flush lock with their waiters' futures
+        unresolved, and clients would wait on SyncStep2 forever. The
+        drain's own `future.done() or ...` guards make its eventual
+        (post-unwedge) resolution a no-op."""
+        for future in list(self._inflight):
+            if not future.done():
+                future.set_result(None)
 
     async def _drain_catchup(self) -> None:
         self._catchup_scheduled = False
@@ -689,12 +712,18 @@ class PlaneServing:
         plane = self.plane
         # device-lane admission (tpu/scheduler.py): the drain flushes and
         # runs the triage — interactive class, a joiner is blocked on the
-        # reply
+        # reply. A parked lane (breaker open) resolves the batch to CPU
+        # fallback, as abort_pending does
         ticket = None
         if plane.lane is not None:
-            from .scheduler import CLASS_INTERACTIVE
+            from .scheduler import CLASS_INTERACTIVE, LaneDeferred
 
-            ticket = await plane.lane.admit(CLASS_INTERACTIVE, site="sync")
+            try:
+                ticket = await plane.lane.admit(CLASS_INTERACTIVE, site="sync")
+            except LaneDeferred:
+                for *_rest, future in batch:
+                    future.done() or future.set_result(None)
+                return
         try:
             # the whole drain — flush, refresh, triage, encode — holds the
             # flush lock: every step reads device state

@@ -526,3 +526,200 @@ def test_lane_plane_on_the_card_matches_a_cpu_python_twin(cuda, arena):
     assert all(lane.docs[name].lane_slot is not None for name in names)
     assert not any(v for k, v in lane.counters.items() if k.startswith("docs_retired_"))
     assert sum(d.launches for d in dispatchers) > launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arena", ["unit", "rle"])
+def test_compaction_on_the_card_matches_the_plain_version(cuda, arena):
+    """The compaction program on arena rows the kernel integrated, against
+    the same program on the plain version's rows on the CPU: routed rows
+    (the num_docs sentinel padding the routing) and the packed sizes equal,
+    unrouted rows untouched."""
+    rng = np.random.default_rng(41)
+    num_docs, width, num_slots = 32, 512, 8
+    next_clock = np.zeros((2, num_docs), np.int64)
+    module = tr if arena == "rle" else tk
+    make = module.make_empty_rle_state if arena == "rle" else module.make_empty_state
+    dispatcher = ti.integrate_op_slots_rle_fast if arena == "rle" else ti.integrate_op_slots_fast
+    compact = ti.compact_doc_rows_rle_fast if arena == "rle" else ti.compact_doc_rows_fast
+    state_g, state_c = make(num_docs, width, cuda), make(num_docs, width, CPU)
+    for _ in range(4):
+        fields = random_ops(rng, next_clock, num_slots)
+        dispatcher(state_g, tk.ops_from_numpy(fields, cuda))
+        dispatcher(state_c, tk.ops_from_numpy(fields, CPU))
+    slots = np.asarray([3, 0, 17, 31, 9, num_docs, num_docs, num_docs], np.int32)
+    launches = compact.launches
+    state_g, sizes_g = compact(state_g, torch.from_numpy(slots).to(cuda))
+    state_c, sizes_c = compact(state_c, torch.from_numpy(slots))
+    torch.cuda.synchronize()
+    assert compact.launches == launches + 2
+    assert torch.equal(sizes_g.cpu(), sizes_c)
+    for g, c in zip(state_g, state_c):
+        assert torch.equal(g.cpu(), c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arena", ["unit", "rle"])
+def test_canary_on_the_card(cuda, arena):
+    """The supervisor's canary on a card plane: one sparse kernel launch at
+    (K_max, 1) on the plane's stream, a readback, and the arena unchanged
+    (equal to a CPU twin fed the same traffic)."""
+    from hocuspocus_tpu_torch.crdt import Doc, encode_state_as_update
+    from hocuspocus_tpu_torch.tpu import MergePlane
+
+    card = MergePlane(num_docs=16, capacity=1024, device=cuda, arena=arena)
+    twin = MergePlane(num_docs=16, capacity=1024, device="cpu", arena=arena)
+    for i in range(5):
+        doc = Doc()
+        doc.get_text("t").insert(0, f"canary doc {i}")
+        for plane in (card, twin):
+            plane.register(f"d{i}")
+            plane.enqueue_update(f"d{i}", encode_state_as_update(doc), presync=True)
+            plane.flush()
+    sparse = ti.integrate_op_slots_rle_sparse_fast if arena == "rle" else ti.integrate_op_slots_sparse_fast
+    launches = sparse.launches
+    seconds = card.canary_probe()
+    assert seconds > 0 and sparse.launches == launches + 1
+    for g, c in zip(card.state, twin.state):
+        assert torch.equal(g.cpu(), c)
+    assert card.text("d3") == "canary doc 3"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arena", ["unit", "rle"])
+def test_supervised_and_compaction_phases_on_the_card(cuda, arena):
+    """chip_smoke's supervised deployment (no `device`: the card) and its
+    compaction phase at a few docs: READY, every doc evicted and hydrated
+    back, no fallback; every row compacted (or declined on the unit arena
+    where the rebuild would not decode), card and twin equal."""
+    import asyncio
+
+    from chip_smoke import COMPACT_TWINS, run_compact_plane, run_supervised_server
+
+    _ext, out = asyncio.run(
+        run_supervised_server(np.random.default_rng(5), arena, 8, 1024, 3, 1, evict_idle_secs=0.5)
+    )
+    assert out["supervisor"]["state"] == "ready" and out["evicted"] == 8
+    assert out["storm_hydrated"] >= 8 and out["cpu_fallbacks_by_cause"]["other"] == 0
+    assert sum(out["integrate_launches"].values()) > 0
+    compacted = asyncio.run(
+        run_compact_plane(np.random.default_rng(3), arena, 4, 2048, device=cuda, twin=COMPACT_TWINS[arena])
+    )
+    declined = compacted["declined_undecodable"]  # unit rows whose rebuild would not decode
+    assert declined == 0 or arena == "unit"
+    assert compacted["retired_now"] == declined and compacted["compactions"] == 4 - declined
+    assert compacted["max_abs_err"] == 0 and compacted["compact_device_ms"] > 0
+    assert sum(compacted["integrate_launches"].values()) > 0
+
+
+async def _supervised_on_the_card(arena):
+    """A SupervisedTpuMergeExtension without `device` (the card) in the
+    port's core, its listen hook fired: (extension, core)."""
+    from hocuspocus_tpu_torch.server import Configuration, Hocuspocus
+    from hocuspocus_tpu_torch.server.types import Payload
+    from hocuspocus_tpu_torch.tpu import SupervisedTpuMergeExtension
+    from hocuspocus_tpu_torch.tpu.scheduler import reset_device_lane
+
+    reset_device_lane()
+    ext = SupervisedTpuMergeExtension(
+        num_docs=8, capacity=1024, serve=True, arena=arena, watchdog_interval=0.1,
+    )
+    core = Hocuspocus(Configuration(quiet=True, extensions=[ext]))
+    await core.ensure_configured()
+    await core.hooks("on_listen", Payload(instance=core, port=None))
+    return ext, core
+
+
+async def _until(condition, what):
+    import asyncio
+
+    for _ in range(6000):
+        if condition():
+            return
+        await asyncio.sleep(0.01)
+    raise AssertionError(f"{what} not met in 60 s")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arena", ["unit", "rle"])
+def test_a_failed_kernel_build_stops_the_supervised_server(cuda, arena, monkeypatch):
+    """A kernel library that does not build (injected into the runtime
+    factory's `load_kernels`) stops the supervised server on the card: the
+    supervisor goes BROKEN with the error, and no plane is served."""
+    import asyncio
+
+    from hocuspocus_tpu_torch.server.types import Payload
+
+    def failing_build(self):
+        raise RuntimeError(f"nvcc failed for {self.source.name}: injected")
+
+    monkeypatch.setattr(ti.KernelLibrary, "get", failing_build)
+
+    async def body():
+        ext, core = await _supervised_on_the_card(arena)
+        try:
+            await _until(lambda: ext.supervisor.state == "broken", "a BROKEN supervisor")
+            assert "injected" in str(ext.supervisor.fault)
+            assert ext.supervisor.counters["card_faults"] == 1 and ext.runtime is None
+            assert ext.health_status()["degraded"]
+        finally:
+            await core.hooks("on_destroy", Payload(instance=core))
+
+    asyncio.run(body())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arena", ["unit", "rle"])
+def test_a_failed_canary_launch_stops_the_supervised_server(cuda, arena, monkeypatch):
+    """A canary whose kernel launch fails on the card (a nonzero
+    cudaError_t from the C entry, injected) raises out of the canary and
+    stops serving: BROKEN, no breaker trip, the served doc not moved to the
+    CPU document, new connections refused."""
+    import asyncio
+
+    from hocuspocus_tpu_torch.provider import HocuspocusProvider, InProcessProviderSocket
+    from hocuspocus_tpu_torch.server.types import Payload
+
+    async def body():
+        ext, core = await _supervised_on_the_card(arena)
+        providers = []
+
+        def provider():
+            p = HocuspocusProvider(name="d", websocket_provider=InProcessProviderSocket(core))
+            p.attach()
+            providers.append(p)
+            return p
+
+        try:
+            await _until(lambda: ext.supervisor.state == "ready", "READY")
+            await ext.runtime.warmup_task
+            first = provider()
+            await _until(lambda: first.synced and ext.runtime.is_served("d"), "a served doc")
+            probes = ext.supervisor.counters["canary_probes"]
+
+            def failing_launch(self, *args):
+                raise RuntimeError(f"{self.source.stem} kernel launch failed: injected")
+
+            # the next launch is the watchdog's canary (no edit is pending)
+            monkeypatch.setattr(ti.KernelLibrary, "launch", failing_launch)
+            await _until(lambda: ext.supervisor.state == "broken", "a BROKEN supervisor")
+            monkeypatch.undo()
+            assert "injected" in str(ext.supervisor.fault)
+            assert ext.supervisor.counters["canary_probes"] > probes
+            assert ext.supervisor.counters["canary_errors"] == 1
+            assert ext.supervisor.counters["card_faults"] == 1
+            assert not ext.supervisor.breaker.transitions
+            assert ext.plane.counters["cpu_fallbacks"] == 0 and ext.runtime.is_served("d")
+            refused = []
+            late = provider()
+            late.on("authentication_failed", refused.append)
+            await _until(lambda: refused, "the refusal")
+            assert not late.synced
+        finally:
+            monkeypatch.undo()
+            for p in providers:
+                p.destroy()
+                p.websocket_provider.destroy()
+            await core.hooks("on_destroy", Payload(instance=core))
+
+    asyncio.run(body())

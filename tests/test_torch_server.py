@@ -19,9 +19,9 @@ from hocuspocus_tpu_torch.server import Configuration, Hocuspocus
 from hocuspocus_tpu_torch.server.types import Payload
 from hocuspocus_tpu_torch.tpu import TpuMergeExtension
 from hocuspocus_tpu_torch.tpu.scheduler import (
+    CLASS_CANARY,
     CLASS_CATCHUP,
     CLASS_INTERACTIVE,
-    CLASS_WARM,
     BatchGovernor,
     DeviceLane,
     LaneDeferred,
@@ -573,7 +573,7 @@ async def test_listen_warms_the_grid_through_the_lane():
         assert watch.unwarmed_launches == 0
         assert lane.counters["dispatches_in_lane"] > len(grid)
         assert lane.counters["dispatches_bypass"] == 0, lane.snapshot()
-        assert lane.class_admissions[CLASS_WARM] > 0, "the warm grid rode the lane"
+        assert lane.class_admissions[CLASS_CANARY] > 0, "the warm grid rode the lane"
         assert lane.class_admissions[CLASS_INTERACTIVE] > 0
 
 
@@ -607,8 +607,10 @@ async def test_teardown_drain_goes_on_when_the_lane_stays_held():
         started = loop.time()
         real_admit = ext.lane.admit
 
-        async def short_deadline(lane_class, site="", deadline_s=None):
-            return await real_admit(lane_class, site, None if deadline_s is None else 0.05)
+        async def short_deadline(lane_class, site="", ignore_pause=False, deadline_s=None):
+            return await real_admit(
+                lane_class, site, ignore_pause, None if deadline_s is None else 0.05
+            )
 
         ext.lane.admit = short_deadline
         await ext._flush_now(max_batches=None, final=True)
@@ -620,11 +622,24 @@ async def test_teardown_drain_goes_on_when_the_lane_stays_held():
 
 
 def test_extension_refuses_what_is_not_ported():
+    from hocuspocus_tpu_torch.tpu import ResidencyManager, SupervisedTpuMergeExtension
+
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TpuMergeExtension(device="cpu", mesh=object())
+    for kwargs in ({"devices": 2}, {"devices": 0}, {"shards": 2}):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
+            SupervisedTpuMergeExtension(device="cpu", serve=True, **kwargs)
+    # the residency knobs are ported: in serve mode either one builds a
+    # working ResidencyManager with the extension's settings
     for knob in ("evict_idle_secs", "compact_threshold"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TpuMergeExtension(device="cpu", **{knob: 1.0})
+        ext = TpuMergeExtension(device="cpu", serve=True, hydrate_batch=8, **{knob: 1.0})
+        manager = ext.residency
+        assert isinstance(manager, ResidencyManager) and manager.extension is ext
+        assert manager.plane is ext.plane and manager.serving is ext.serving
+        assert ext.plane.residency is manager and manager.hydrate_batch == 8
+        assert getattr(manager, knob) == 1.0
+    assert TpuMergeExtension(device="cpu", serve=True).residency is None
+    assert TpuMergeExtension(device="cpu", compact_threshold=0.75).residency is None
     # the native text lane is ported: on by default in serve mode, off in
     # shadow mode and when the caller asks for the Python host path
     assert TpuMergeExtension(device="cpu", serve=True).native_lane is True
@@ -646,14 +661,14 @@ async def test_lane_grants_by_priority_then_fifo():
         ticket.release()
 
     tasks = [
-        asyncio.ensure_future(wait_for(CLASS_WARM, "warm-1")),
+        asyncio.ensure_future(wait_for(CLASS_CANARY, "warm-1")),
         asyncio.ensure_future(wait_for(CLASS_CATCHUP, "recycle")),
         asyncio.ensure_future(wait_for(CLASS_INTERACTIVE, "live-1")),
-        asyncio.ensure_future(wait_for(CLASS_WARM, "warm-2")),
+        asyncio.ensure_future(wait_for(CLASS_CANARY, "warm-2")),
         asyncio.ensure_future(wait_for(CLASS_INTERACTIVE, "live-2")),
     ]
     await asyncio.sleep(0)  # queue them all
-    assert lane.contended() and lane.queue_depths() == [2, 1, 2]
+    assert lane.contended() and lane.queue_depths() == [2, 1, 0, 2]
     holder.release()
     await asyncio.gather(*tasks)
     assert order == ["live-1", "live-2", "recycle", "warm-1", "warm-2"]
@@ -670,7 +685,7 @@ async def test_lane_deadline_defers_a_waiter_and_keeps_the_queue():
         await lane.admit(CLASS_INTERACTIVE, deadline_s=0.01)
     assert deferred.value.lane_class == CLASS_INTERACTIVE
     assert lane.counters["deferrals"] == 1
-    assert lane.queue_depths() == [0, 1, 0], "the deferred waiter left the queue"
+    assert lane.queue_depths() == [0, 1, 0, 0], "the deferred waiter left the queue"
     holder.release()
     ticket = await queued
     ticket.release()
