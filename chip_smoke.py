@@ -22,7 +22,12 @@ and 10,240 in-process providers editing 1,024 docs, then two join waves
 (phases `server`, `rle_server`), and the same path with
 `native_lane=False` (`server_python`, `rle_server_python`),
 each path's biggest integrate batch replayed through the kernel and the
-plain version (`server_replay`, `rle_server_replay`, ...). Each phase prints
+plain version (`server_replay`, `rle_server_replay`, ...). Then the JAX
+CLI's `--tpu-serve --metrics --wal-dir D` deployment over each arena
+(`supervised_server`, `rle_supervised_server`: the supervised plane with
+eviction and hydration, `Metrics` scraped and held to the books, the
+99 Hz profiler's top stacks, every doc replayed from the WAL) and the
+self-compacting plane (`compact_plane`, `rle_compact_plane`). Each phase prints
 one line; any failure exits nonzero. A kernel phase's `ms` is the
 kernels' device time per launch: the launch entry (`integrate_rows_cuda`
 / `integrate_rle_rows_cuda`) is timed with CUDA events, 8 launches back
@@ -42,9 +47,12 @@ import asyncio
 import collections
 import gc
 import json
+import os
 import random
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -97,7 +105,11 @@ SERVER_CUTS = {"rounds": "1 round of one edit per provider (6 before the supervi
 # at full width so that its host timings stand beside the lane's; only
 # the rounds are cut further
 PYTHON_SERVER_ROUNDS = 1
-PYTHON_SERVER_CUTS = {"rounds": "1 round of one edit per provider (3 before the supervised phases)"}
+PYTHON_SERVER_JOIN_WAVES = 1
+PYTHON_SERVER_CUTS = {
+    "rounds": "1 round of one edit per provider (3 before the supervised phases)",
+    "join_waves": "1 join wave of 1,024 (2 before Metrics and the WAL joined the supervised phases)",
+}
 # PERF.md's budget for one flush cycle of the plane phases
 FLUSH_BUDGET_MS = 50.0
 # the main path's parts, in the kernels' record: plane (the lane and the
@@ -970,10 +982,13 @@ ARENAS = {
     "unit": {
         "tag": "",
         "wrap": ("integrate_op_slots_fast", "integrate_op_slots_sparse_fast"),
+        # the kernels' names in a torch.profiler trace (csrc/integrate.cu)
+        "kernels": ("integrate_warp_kernel", "integrate_block_kernel"),
     },
     "rle": {
         "tag": "rle_",
         "wrap": ("integrate_op_slots_rle_fast", "integrate_op_slots_rle_sparse_fast"),
+        "kernels": ("integrate_rle_warp_kernel", "integrate_rle_block_kernel"),
     },
 }
 
@@ -1403,7 +1418,7 @@ class _TimedExecutor(ThreadPoolExecutor):
 
 
 async def run_server(rng, arena, num_docs, capacity, clients, rounds, device="cuda",
-                     profile_kernels=False, recorder=None, native_lane=True):
+                     profile_kernels=False, recorder=None, native_lane=True, join_waves=2):
     """The served path over one arena: the port's Hocuspocus core with
     TpuMergeExtension(serve=True, every scheduling knob at its default)
     and `clients` HocuspocusProviders per doc, each on an in-process
@@ -1527,7 +1542,7 @@ async def run_server(rng, arena, num_docs, capacity, clients, rounds, device="cu
             integrated = sum(plane.counters[key] - base[key] for key in base)
             host_traffic = seams.summary()
             seams.reset()
-            joins, joiners = await _join_waves(core, names, plane)
+            joins, joiners = await _join_waves(core, names, plane, waves=join_waves)
             host_joins = seams.summary()
     finally:
         gc.callbacks.remove(seams.collected)
@@ -1694,7 +1709,8 @@ async def _all_synced(providers) -> None:
     await await_synced(providers, timeout=600, what="providers")
 
 
-def phase_server(rng, arena, num_docs, capacity, clients, rounds, cuts, native_lane=True):
+def phase_server(rng, arena, num_docs, capacity, clients, rounds, cuts, native_lane=True,
+                 join_waves=2):
     """The served path on the card over one arena (run_server), with the
     checks that hold it: every provider converged, the served bytes
     rebuild every doc, broadcasts went through the plane, every join was
@@ -1714,11 +1730,12 @@ def phase_server(rng, arena, num_docs, capacity, clients, rounds, cuts, native_l
         run_server(
             rng, arena, num_docs, capacity, clients, rounds,
             profile_kernels=True, recorder=recorder, native_lane=native_lane,
+            join_waves=join_waves,
         )
     )
     counters = out["counters"]
     retired = {k: v for k, v in counters.items() if k.startswith("docs_retired_")}
-    joins = 2 * num_docs
+    joins = join_waves * num_docs
     launches = sum(out["integrate_launches"].values())
     check(counters["plane_broadcasts"] > 0, f"{tag}: no broadcast went through the plane")
     check(counters["sync_serves"] >= joins, f"{tag}: {counters['sync_serves']} sync serves for {joins} joins")
@@ -1773,11 +1790,163 @@ SUPERVISOR_DEFAULTS = {
 # is checked as it evicts
 EVICT_IDLE_SECS = 2.0
 SUPERVISED_ROUNDS = 1
+# one /debug/profile capture (torch.profiler, CPU and CUDA) in the unit
+# phase, at the quiet wait's end
+DEVICE_PROFILE_ARENA = "unit"
+DEVICE_PROFILE_SECS = 1.0
+DEVICE_PROFILE_ATTEMPTS = 3
 SUPERVISED_CUTS = {"rounds": "1 round of one edit per provider"}
 
 
+# the JAX CLI's `--metrics --wal-dir D` (hocuspocus_tpu/cli.py:513-558):
+# the sampling profiler at --profile-hz 99, Metrics with the CLI's SLO
+# defaults, Durability with --wal-fsync tick
+PROFILE_HZ = 99
+METRICS_DEFAULTS = {"slo_e2e_p99_ms": 50.0, "slo_error_rate": 0.001, "slo_fleet_e2e_ms": 250.0}
+WAL_FSYNC = "tick"
+PROFILE_TOP = 15  # collapsed stacks printed per thread
+PROFILE_FRAMES = 12  # leaf-side frames kept of each printed stack
+
+
+async def scrape(metrics, path: str, **query):
+    """One request through `Metrics.on_request`, as the websocket server
+    routes it: (HTTP status, body text)."""
+    from types import SimpleNamespace
+
+    from hocuspocus_tpu_torch.server.types import Payload
+
+    data = Payload(request=SimpleNamespace(rel_url=SimpleNamespace(path=path, query=query)))
+    try:
+        await metrics.on_request(data)
+    except Exception as served:
+        response = getattr(served, "response", None)
+        if response is None:
+            raise
+        return response.status, response.body.decode("utf-8")
+    raise SmokeFailure(f"Metrics did not answer {path}")
+
+
+def parse_prometheus(text: str, what: str) -> dict:
+    """Prometheus text exposition 0.0.4 -> {(name, ((label, value), ...)): value}.
+    Fails on any line that is neither a comment nor a sample."""
+    import re
+
+    sample = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{(.*)\})? (\S+)$')
+    label = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+    series = {}
+    for line in text.splitlines():
+        if not line or line.startswith("# HELP ") or line.startswith("# TYPE "):
+            continue
+        match = sample.match(line)
+        check(match is not None, f"{what}: not Prometheus text: {line[:200]!r}")
+        labels = tuple(sorted(label.findall(match.group(3) or "")))
+        key = (match.group(1), labels)
+        check(key not in series, f"{what}: series {key} twice")
+        series[key] = float(match.group(4))
+    return series
+
+
+def _compile_series() -> dict:
+    """The device watch's first-launch series, {(site, shape): count}."""
+    from hocuspocus_tpu_torch.observability.device_watch import compile_metrics
+
+    events = compile_metrics()[1]
+    return {
+        (labels["site"], labels["shape"]): value
+        for labels, value in ((dict(key), v) for key, v in events._values.items())
+        if labels.get("kind") == "compile"
+    }
+
+
+async def _checked_scrape(tag, metrics, plane, supervisor, min_appends, grid, compiles0) -> dict:
+    """Scrape /metrics with the plane's flushes held off, and hold the
+    text to the books: it parses; every plane counter gauge equals
+    `plane.counters` (a scrape during which a counter moved is taken
+    again); the supervisor reads READY and the breaker closed; the WAL
+    appended at least `min_appends` records; the first launches since
+    the phase began are warm-grid shapes (the canary's is the grid's
+    first), as many as the plane's watch counted. Returns the series."""
+    from hocuspocus_tpu_torch.observability.device_watch import shape_label
+    from hocuspocus_tpu_torch.tpu.supervisor import BREAKER_CODES, STATE_CODES, STATE_READY
+
+    for _attempt in range(20):
+        async with plane.flush_lock:
+            with plane._step_lock:
+                before = dict(plane.counters)
+                status, text = await scrape(metrics, "/metrics")
+                after = dict(plane.counters)
+        if before == after:
+            break
+        await asyncio.sleep(0.01)
+    check(before == after, f"{tag}: the plane's counters moved during every scrape")
+    check(status == 200, f"{tag}: /metrics answered {status}")
+    series = parse_prometheus(text, f"{tag} /metrics")
+    for key, value in after.items():
+        metric = f"hocuspocus_tpu_plane_{key.removeprefix('plane_')}"
+        got = series.get((metric, ()))
+        check(got == float(value), f"{tag}: /metrics {metric} {got} against the counter {value}")
+    state = series.get(("hocuspocus_tpu_supervisor_state", ()))
+    check(state == STATE_CODES[STATE_READY] == supervisor.state_code(), f"{tag}: supervisor state {state}")
+    breaker = series.get(("hocuspocus_tpu_supervisor_breaker_state", ()))
+    check(breaker == BREAKER_CODES["closed"], f"{tag}: breaker state {breaker}")
+    appended = series.get(("hocuspocus_wal_appended_records", ()))
+    check(min_appends is None or (appended is not None and appended >= min_appends),
+          f"{tag}: the WAL appended {appended} records for {min_appends} edits")
+    warm = {(site, shape_label(shape)) for site, shape in map(plane._warm_site, grid)}
+    fresh = {
+        key: value - compiles0.get(key, 0.0)
+        for key, value in _compile_series().items()
+        if value > compiles0.get(key, 0.0)
+    }
+    scraped = {
+        (dict(labels)["site"], dict(labels)["shape"]): value
+        for (name, labels), value in series.items()
+        if name == "hocuspocus_tpu_compile_events_total" and dict(labels).get("kind") == "compile"
+    }
+    check(set(fresh) <= warm, f"{tag}: first launches off the warm grid: {sorted(set(fresh) - warm)}")
+    check(sum(fresh.values()) == plane.compile_watch.fresh_compiles,
+          f"{tag}: {sum(fresh.values())} first launches on /metrics, the watch counted "
+          f"{plane.compile_watch.fresh_compiles}")
+    check(scraped == _compile_series(), f"{tag}: /metrics shows other first-launch series")
+    return series
+
+
+def profile_tops(collapsed: str, roots=("MainThread", "flush_N")) -> dict:
+    """Per thread label: its samples and its PROFILE_TOP heaviest
+    collapsed stacks with their share of the thread's samples (the stack
+    cut to its PROFILE_FRAMES leaf-side frames)."""
+    by_root = collections.defaultdict(list)
+    for line in collapsed.splitlines():
+        stack, _, count = line.rpartition(" ")
+        if not stack:
+            continue
+        by_root[stack.split(";", 1)[0]].append((int(count), stack))
+    out = {}
+    for root in roots:
+        rows = sorted(by_root.get(root, ()), reverse=True)
+        total = sum(n for n, _stack in rows)
+        out[root] = {
+            "samples": total,
+            "top": [
+                {"share": round(n / total, 4), "samples": n,
+                 "stack": ";".join(stack.split(";")[-PROFILE_FRAMES:])}
+                for n, stack in rows[:PROFILE_TOP]
+            ],
+        }
+    return out
+
+
+def _gc2_share(seams, seconds: float) -> dict:
+    """Gen-2 collections in a window, as HostSeams times them."""
+    summary = seams.summary()
+    total_ms = sum(v["total_ms"] for k, v in summary.items() if k.startswith("gc2."))
+    n = sum(v["n"] for k, v in summary.items() if k.startswith("gc2."))
+    return {"n": n, "seconds": total_ms / 1e3, "share": total_ms / 1e3 / seconds if seconds else None}
+
+
 async def run_supervised_server(rng, arena, num_docs, capacity, clients, rounds,
-                                evict_idle_secs, device=None, recorder=None):
+                                evict_idle_secs, device=None, recorder=None, device_profile_secs=None,
+                                durable=True):
     """The JAX CLI's default deployment over one arena: the port's
     Hocuspocus core with SupervisedTpuMergeExtension(serve=True) at the
     CLI's defaults (SUPERVISOR_DEFAULTS, text lane and governor on, no
@@ -1789,12 +1958,29 @@ async def run_supervised_server(rng, arena, num_docs, capacity, clients, rounds,
     doc, the catch-up storm: each cold doc's edit rides the CPU fan-out
     while its doc queues for hydration, then a wave of one fresh provider
     per doc. The kernel launch counts are set to 0 once READY and read
-    after the join wave. Returns (the extension, the phase's numbers)."""
+    after the join wave.
+
+    The deployment is the JAX CLI's `--tpu-serve --metrics --wal-dir D`:
+    the sampling profiler at 99 Hz, `Metrics` and `Durability` (a fresh
+    WAL directory, group commit each tick) beside the plane. /metrics is
+    scraped and held to the books at the quiet wait's end and after the
+    join wave (_checked_scrape); at the quiet wait's end every doc's log
+    must be its eviction checkpoint alone; after the phase a fresh
+    WalManager replays every doc into an empty Doc, which must equal the
+    served doc. `device_profile_secs` takes one /debug/profile capture of
+    that many seconds at the quiet wait's end (_device_capture). The profiler's top stacks
+    of the loop and flush threads are kept for the rounds and for the
+    storm with its join wave, each beside its gen-2 share. `durable=False`
+    leaves Durability out (the CLI without `--wal-dir`), to split the
+    WAL's cost from the rest. Returns (the extension, the phase's
+    numbers)."""
     import contextlib
 
+    from hocuspocus_tpu_torch.observability import Metrics, get_profiler
     from hocuspocus_tpu_torch.provider import HocuspocusProvider, InProcessProviderSocket
     from hocuspocus_tpu_torch.server import Configuration, Hocuspocus
     from hocuspocus_tpu_torch.server.types import Payload
+    from hocuspocus_tpu_torch.storage import REC_SNAPSHOT, Durability
     from hocuspocus_tpu_torch.tpu import SupervisedTpuMergeExtension
     from hocuspocus_tpu_torch.tpu import integrate as ti
     from hocuspocus_tpu_torch.tpu.scheduler import reset_device_lane
@@ -1802,6 +1988,8 @@ async def run_supervised_server(rng, arena, num_docs, capacity, clients, rounds,
 
     tag = ARENAS[arena]["tag"] + "supervised_server"
     reset_device_lane()
+    seams = HostSeams()
+    asyncio.get_running_loop().set_default_executor(_TimedExecutor(seams))
     started = time.perf_counter()
     ext = SupervisedTpuMergeExtension(
         num_docs=num_docs, capacity=capacity, serve=True, arena=arena,
@@ -1810,7 +1998,15 @@ async def run_supervised_server(rng, arena, num_docs, capacity, clients, rounds,
     )
     canaries = []
     ext.supervisor.on_canary.append(canaries.append)
-    core = Hocuspocus(Configuration(quiet=True, extensions=[ext]))
+    profiler = get_profiler().configure(hz=PROFILE_HZ)
+    metrics = Metrics(**METRICS_DEFAULTS)
+    extensions = [metrics, ext]
+    if durable:
+        wal_dir = tempfile.mkdtemp(prefix="chip-smoke-wal-")
+        durability = Durability(wal_dir=wal_dir, fsync=WAL_FSYNC)
+        extensions.insert(1, durability)
+    compiles0 = _compile_series()
+    core = Hocuspocus(Configuration(quiet=True, extensions=extensions))
     await core.ensure_configured()
     await core.hooks("on_listen", Payload(instance=core, configuration=core.configuration, port=None))
     # (1) READY: anything else (init overdue, a failed init) fails the run
@@ -1827,6 +2023,7 @@ async def run_supervised_server(rng, arena, num_docs, capacity, clients, rounds,
     check(runtime.plane.compile_watch.warmed, f"{tag}: the warm grid did not finish")
     ready_seconds = time.perf_counter() - started
     plane, manager = runtime.plane, runtime.residency
+    grid = plane.warmup_shapes() + plane.warmup_aux_shapes()
     check(manager is not None and runtime.native_lane, f"{tag}: residency or the lane is off")
     # a sync answered by the CPU document is a fallback (`cpu_fallbacks`);
     # one whose doc was evicted while the request waited, or waits in the
@@ -1895,12 +2092,19 @@ async def run_supervised_server(rng, arena, num_docs, capacity, clients, rounds,
         recorder.before = clone_state(plane.state)
     recording = recorder if recorder is not None else contextlib.nullcontext()
     counters0 = dict(plane.counters)
+    sent = 0
+    capture = None
+    profiles = {}
     with recording:
+        profiler.reset()
+        seams.reset()
+        gc.callbacks.append(seams.collected)
         traffic_started = time.perf_counter()
         for _round in range(rounds):
             for d, group in enumerate(groups):
                 for j, provider in enumerate(group):
                     if _server_edit(rng, provider.document.get_text("t")):
+                        sent += 1
                         clock.expect(group[1] if j == 0 else group[0], provider)
                 if d % 16 == 15:
                     await asyncio.sleep(0)
@@ -1910,6 +2114,12 @@ async def run_supervised_server(rng, arena, num_docs, capacity, clients, rounds,
                 time.perf_counter() + 120, tag,
             )
         traffic_seconds = time.perf_counter() - traffic_started
+        gc.callbacks.remove(seams.collected)
+        profiles["traffic"] = {
+            **profile_tops(profiler.collapsed()),
+            "gc2": _gc2_share(seams, traffic_seconds),
+            "seconds": round(traffic_seconds, 3),
+        }
         traffic_samples = len(clock.samples)
         traffic_counters = {
             key: plane.counters[key] - counters0[key]
@@ -1928,6 +2138,24 @@ async def run_supervised_server(rng, arena, num_docs, capacity, clients, rounds,
         evicted = sum(manager.is_evicted(name) for name in names)
         check(evicted == num_docs, f"{tag}: {evicted} of {num_docs} docs evicted: {_books(ext)}")
         check(not any(name in plane.docs for name in names), f"{tag}: an evicted doc kept its rows")
+        # every doc's log is its eviction checkpoint alone (the snapshot
+        # subsumes the history), and /metrics agrees with the books
+        checkpoints = None
+        if durable:
+            await durability.wal.flush()
+            checkpoints = 0
+            for name in names:
+                records, report = await durability.wal.replay(name)
+                check(len(records) == 1 and records[0][0] == REC_SNAPSHOT and not report["torn_tail_records"],
+                      f"{tag}: {name}'s log is {[r for r, _p in records]} after its eviction, not one checkpoint")
+                checkpoints += 1
+        quiet_scrape = await _checked_scrape(
+            tag, metrics, plane, ext.supervisor, sent if durable else None, grid, compiles0
+        )
+        if device_profile_secs:
+            capture = await _device_capture(
+                tag, metrics, plane, device_profile_secs, (dense_fn, sparse_fn), ARENAS[arena]["kernels"]
+            )
 
         # (4) the catch-up storm: one edit a doc, observed on the CPU fan-out.
         # Every doc must come back on the plane and the lane with served
@@ -1950,10 +2178,14 @@ async def run_supervised_server(rng, arena, num_docs, capacity, clients, rounds,
         manager.evict = checked_evict
         hydrated0 = plane.counters["docs_hydrated"]
         storm_rounds0 = len(hydration_rounds)
+        profiler.reset()
+        seams.reset()
+        gc.callbacks.append(seams.collected)
         storm_started = time.perf_counter()
         for d, group in enumerate(groups):
             text = group[0].document.get_text("t")
             text.insert(int(rng.integers(0, len(text) + 1)), WORDS[rng.integers(0, len(WORDS))])
+            sent += 1
             clock.expect(group[1], group[0])
             if d % 16 == 15:
                 await asyncio.sleep(0)
@@ -1975,6 +2207,20 @@ async def run_supervised_server(rng, arena, num_docs, capacity, clients, rounds,
         storm_rounds = [n for n, _t in hydration_rounds[storm_rounds0:]]
         hydrated = plane.counters["docs_hydrated"] - hydrated0
         joins, joiners = await _join_waves(core, names, plane, waves=1)
+        storm_seconds = time.perf_counter() - storm_started
+        gc.callbacks.remove(seams.collected)
+        status, body = await scrape(metrics, "/debug/profile/cpu")
+        check(status == 200, f"{tag}: /debug/profile/cpu answered {status}")
+        cpu_profile = json.loads(body)
+        check(cpu_profile["stats"]["samples"] > 0, f"{tag}: the sampling profiler took no sample")
+        profiles["storm_and_joins"] = {
+            **profile_tops(cpu_profile["collapsed"]),
+            "gc2": _gc2_share(seams, storm_seconds),
+            "seconds": round(storm_seconds, 3),
+        }
+        join_scrape = await _checked_scrape(
+            tag, metrics, plane, ext.supervisor, sent if durable else None, grid, compiles0
+        )
     launches = {dense_name: dense_fn.launches, sparse_name: sparse_fn.launches}
     await _converge(
         [(p, core.documents[p.name]) for p in everyone + joiners],
@@ -1992,10 +2238,18 @@ async def run_supervised_server(rng, arena, num_docs, capacity, clients, rounds,
     TpuSyncSource._counted = real_counted
     # one canary launch held against the plain version (not counted)
     canary_err = _canary_vs_plain(plane, arena, dense_name, sparse_name)
+    served = {name: _fingerprint(core.documents[name]) for name in names}
     for p in everyone + joiners:
         p.destroy()
         p.websocket_provider.destroy()
     await core.hooks("on_destroy", Payload(instance=core))
+    # the sampler lives as long as the deployment: later phases run without it
+    profiler.stop()
+    # a fresh WalManager over the same directory rebuilds every doc
+    wal = None
+    if durable:
+        wal = await _replay_wal(tag, wal_dir, served)
+        shutil.rmtree(wal_dir, ignore_errors=True)
     return ext, {
         "init_seconds": supervisor["init_seconds"],
         "ready_seconds": round(ready_seconds, 3),
@@ -2026,8 +2280,99 @@ async def run_supervised_server(rng, arena, num_docs, capacity, clients, rounds,
         "cpu_fallbacks_by_cause": {"evicted": fallbacks["evicted"], "other": len(fallbacks["other"])},
         "cpu_fallback_docs_other": fallbacks["other"][:8],
         "supervisor": supervisor,
+        "edits_sent": sent,
+        "wal_checkpoints": checkpoints,
+        "wal": wal,
+        "wal_stats": durability.wal_stats() if durable else None,
+        "scrapes": {
+            "quiet": {
+                "series": len(quiet_scrape),
+                "wal_appended_records": quiet_scrape.get(("hocuspocus_wal_appended_records", ())),
+            },
+            "joins": {
+                "series": len(join_scrape),
+                "wal_appended_records": join_scrape.get(("hocuspocus_wal_appended_records", ())),
+            },
+        },
+        "profiles": profiles,
+        "profiler_stats": cpu_profile["stats"],
+        "device_profile": None if capture is None else {
+            "seconds": capture["seconds"],
+            "activities": capture["activities"],
+            "device_events": capture["attempts"],
+            "kernels": capture["kernels"],
+        },
         "counters": counters,
     }
+
+
+async def _device_capture(tag, metrics, plane, secs, dispatchers, names) -> dict:
+    """`/debug/profile?secs=` captures while the plane is quiet, each with
+    one canary probe inside its window, taken as the supervisor's
+    watchdog takes it (the flush lock, the loop's executor): a K1/K2
+    launch the trace must name. A capture whose trace holds no device
+    activity at all is taken again, up to DEVICE_PROFILE_ATTEMPTS times
+    (on the card a capture late in the smoke has come back empty; every
+    attempt is reported). The probes' launches are the captures', not
+    the deployment's: the dispatchers' counts are put back. Returns the
+    last capture's answer with every attempt's device-event count (on
+    the CPU: one capture, host ops only)."""
+    attempts = []
+    for _attempt in range(DEVICE_PROFILE_ATTEMPTS):
+        capture = asyncio.ensure_future(scrape(metrics, "/debug/profile", secs=str(secs)))
+        await asyncio.sleep(0)  # the capture task has started the profiler
+        counts = [fn.launches for fn in dispatchers]
+        async with plane.flush_lock:
+            await asyncio.get_running_loop().run_in_executor(None, plane.canary_probe)
+        for fn, count in zip(dispatchers, counts):
+            fn.launches = count
+        status, body = await capture
+        check(status == 200, f"{tag}: /debug/profile answered {status}: {body[:300]}")
+        payload = json.loads(body)
+        check("error" not in payload, f"{tag}: /debug/profile: {payload.get('error')}")
+        attempts.append(payload["device_events"])
+        if payload["device_events"] or plane.device.type != "cuda":
+            break
+    if plane.device.type == "cuda":
+        seen = [k for k in payload["kernels"] if any(name in k for name in names)]
+        check(seen, f"{tag}: the torch.profiler captures name no kernel of {names}: "
+                    f"{payload['kernels'][:20]} (device events a capture: {attempts})")
+    return {**payload, "attempts": attempts}
+
+
+def _fingerprint(document) -> tuple:
+    """A doc's text and state vector."""
+    from hocuspocus_tpu_torch.crdt import encode_state_vector
+
+    return document.get_text("t").to_string(), encode_state_vector(document)
+
+
+async def _replay_wal(tag, wal_dir, served) -> dict:
+    """A fresh WalManager over `wal_dir` replays each doc's log into an
+    empty Doc, which must equal `served[name]`. Returns the replay's
+    seconds, records and the bytes on disk."""
+    from hocuspocus_tpu_torch.crdt import Doc, apply_update
+    from hocuspocus_tpu_torch.storage import WalManager
+
+    on_disk = sum(
+        os.path.getsize(os.path.join(root, name))
+        for root, _dirs, files in os.walk(wal_dir) for name in files
+    )
+    wal = WalManager(wal_dir, fsync=WAL_FSYNC)
+    t0 = time.perf_counter()
+    records = 0
+    for name, fingerprint in served.items():
+        doc = Doc()
+        replayed, report = await wal.replay(name)
+        check(not report["torn_tail_records"] and not report["corrupt_records"],
+              f"{tag}: {name}'s log replays with damage: {report}")
+        for _rec_type, payload in replayed:
+            apply_update(doc, payload)
+        records += len(replayed)
+        check(_fingerprint(doc) == fingerprint, f"{tag}: {name}: the WAL replays another doc")
+    seconds = time.perf_counter() - t0
+    wal.close()
+    return {"docs": len(served), "records": records, "seconds": round(seconds, 3), "bytes_on_disk": on_disk}
 
 
 def _check_served(tag, core, plane, name) -> None:
@@ -2101,14 +2446,18 @@ def phase_supervised_server(rng, arena, num_docs, capacity, clients, rounds, evi
 
     tag = ARENAS[arena]["tag"] + "supervised_server"
     recorder = Recorder(mp, *ARENAS[arena]["wrap"])
+    profile_secs = DEVICE_PROFILE_SECS if arena == DEVICE_PROFILE_ARENA else None
     _ext, out = asyncio.run(
         run_supervised_server(rng, arena, num_docs, capacity, clients, rounds,
-                              evict_idle_secs, recorder=recorder)
+                              evict_idle_secs, recorder=recorder, device_profile_secs=profile_secs)
     )
     counters = out["counters"]
     supervisor = out["supervisor"]
     retired = {k: v for k, v in counters.items() if k.startswith("docs_retired_")}
     launches = sum(out["integrate_launches"].values())
+    # the sampling profiler's split of the loop and flush threads
+    emit(f"{tag}_profile", gpu=nvidia_smi_line(), hz=PROFILE_HZ, stats=out["profiler_stats"],
+         **out["profiles"])
     emit(
         tag,
         gpu=nvidia_smi_line(),
@@ -2122,7 +2471,7 @@ def phase_supervised_server(rng, arena, num_docs, capacity, clients, rounds, evi
         rounds=rounds,
         cuts=cuts,
         docs_retired=retired,
-        **{k: v for k, v in out.items() if k != "counters"},
+        **{k: v for k, v in out.items() if k not in ("counters", "profiles")},
         cpu_fallbacks=counters["cpu_fallbacks"],
         docs_evicted=counters["docs_evicted"],
         docs_hydrated=counters["docs_hydrated"],
@@ -2147,6 +2496,8 @@ def phase_supervised_server(rng, arena, num_docs, capacity, clients, rounds, evi
     check(out["storm_hydrated"] >= num_docs, f"{tag}: {out['storm_hydrated']} hydrations in the storm")
     check(launches > 0, f"{tag}: the integrate kernel never launched from the supervised path")
     check(out["canary_max_abs_err"] == 0, f"{tag}: the canary's launch differs from the plain version")
+    check(out["wal_checkpoints"] == num_docs and out["wal"]["docs"] == num_docs,
+          f"{tag}: {out['wal_checkpoints']} checkpoints, {out['wal']['docs']} docs replayed")
     err = phase_served_replay(recorder.best, arena, path="supervised_server")
     recorder.best = recorder.before = None
     return launches, max(err, out["canary_max_abs_err"])
@@ -2173,6 +2524,15 @@ COMPACT_TEMPLATES = 8
 # several seconds each on an 8-core host, and a second plane on the card
 # would lower every update a second time on the host
 COMPACT_TWINS = {"unit": "cpu", "rle": "shadow"}
+# docs driven through each compaction phase (the arenas keep 1,024 rows):
+# a run-length row takes ~4,000 Python-lowered ops to fill, ~6.9 million
+# for 1,024 docs, the largest share of the smoke's time
+COMPACT_DRIVEN = {"unit": 1024, "rle": 512}
+COMPACT_CUTS = {
+    "unit": {},
+    "rle": {"docs": "512 of the 1,024 rows' docs driven to retirement and back (1,024 before "
+                    "Metrics and the WAL joined the supervised phases)"},
+}
 
 
 class _ShadowArena:
@@ -2237,7 +2597,7 @@ def compact_bound(plane, rows: int) -> tuple[float, str, dict]:
 
 
 async def run_compact_plane(rng, arena, num_docs, capacity, device="cuda", twin="cpu",
-                            max_rounds=COMPACT_MAX_ROUNDS):
+                            max_rounds=COMPACT_MAX_ROUNDS, driven=None):
     """MergePlane + PlaneServing + ResidencyManager(compact_threshold=0.75)
     on `device`, beside a twin: a CPU plane fed the same updates with a
     manager of its own (`twin="cpu"`), or a shadow arena on `device` that
@@ -2254,7 +2614,9 @@ async def run_compact_plane(rng, arena, num_docs, capacity, device="cuda", twin=
     the doc stays retired, on the CPU document, as the extension leaves it
     once the snapshot recycle finds no headroom either. A template's docs
     stop editing once each has compacted or declined; the rounds end when
-    every doc has. Returns the phase's numbers."""
+    every doc has. `driven` docs (all `num_docs` by default) are
+    registered and edited; the arenas keep `num_docs` rows. Returns the
+    phase's numbers."""
     import torch
 
     from hocuspocus_tpu_torch.crdt import Doc, apply_update
@@ -2315,7 +2677,7 @@ async def run_compact_plane(rng, arena, num_docs, capacity, device="cuda", twin=
         twin_serving.refresh()
         return ours, shadow.serve(twin_serving, name, document)
 
-    names = [f"doc-{i}" for i in range(num_docs)]
+    names = [f"doc-{i}" for i in range(num_docs if driven is None else driven)]
     for p in planes:
         for name in names:
             p.register(name)
@@ -2428,7 +2790,7 @@ async def run_compact_plane(rng, arena, num_docs, capacity, device="cuda", twin=
             arena_checks += 1
         # a rotating sample, and a sample of the docs compacted this round
         # (the arenas were compared whole), whose bytes must rebuild them
-        rotating = names[(rounds * COMPACT_SERVE_SAMPLE) % num_docs:][:COMPACT_SERVE_SAMPLE]
+        rotating = names[(rounds * COMPACT_SERVE_SAMPLE) % len(names):][:COMPACT_SERVE_SAMPLE]
         for name in rotating + compacted[:COMPACT_SERVE_SAMPLE]:
             if name in declined:
                 continue  # on the CPU document
@@ -2467,6 +2829,7 @@ async def run_compact_plane(rng, arena, num_docs, capacity, device="cuda", twin=
     counters = dict(plane.counters)
     return {
         "twin": twin,
+        "docs_driven": len(names),
         "rounds": rounds,
         "seconds": round(time.perf_counter() - started, 3),
         "docs_retired_at_least_once": sum(v > 0 for v in retires.values()),
@@ -2493,7 +2856,7 @@ async def run_compact_plane(rng, arena, num_docs, capacity, device="cuda", twin=
     }
 
 
-def phase_compact_plane(rng, arena, num_docs, capacity, twin):
+def phase_compact_plane(rng, arena, num_docs, capacity, twin, driven=None, cuts=None):
     """The self-compacting plane on the card (run_compact_plane), with its
     checks: every doc retired at least once and recycled through
     compact-and-replay, or on the unit arena declined because the rebuild
@@ -2502,7 +2865,7 @@ def phase_compact_plane(rng, arena, num_docs, capacity, twin):
     equal and rebuilding each served doc. Returns (integrate launches,
     max_abs_err)."""
     tag = ARENAS[arena]["tag"] + "compact_plane"
-    out = asyncio.run(run_compact_plane(rng, arena, num_docs, capacity, twin=twin))
+    out = asyncio.run(run_compact_plane(rng, arena, num_docs, capacity, twin=twin, driven=driven))
     launches = sum(out["integrate_launches"].values())
     emit(
         tag,
@@ -2514,13 +2877,15 @@ def phase_compact_plane(rng, arena, num_docs, capacity, twin):
         docs=num_docs,
         capacity=capacity,
         compact_threshold=0.75,
+        cuts=cuts or {},
         **out,
     )
-    check(out["docs_retired_at_least_once"] == num_docs, f"{tag}: {out['docs_retired_at_least_once']} docs retired")
+    driven = out["docs_driven"]
+    check(out["docs_retired_at_least_once"] == driven, f"{tag}: {out['docs_retired_at_least_once']} docs retired")
     declined = out["declined_undecodable"]
     check(arena == "unit" or declined == 0, f"{tag}: the run-length defragmenter declined")
     check(out["retired_now"] == declined, f"{tag}: {out['retired_now']} docs ended retired, {declined} declined")
-    check(out["compactions"] >= num_docs - declined, f"{tag}: {out['compactions']} compactions")
+    check(out["compactions"] >= driven - declined, f"{tag}: {out['compactions']} compactions")
     check(launches > 0, f"{tag}: the integrate kernel never launched")
     return launches, out["max_abs_err"]
 
@@ -2577,6 +2942,7 @@ def main(argv=None) -> int:
             results[arena]["server_python"], results[arena]["server_python_err"] = phase_server(
                 rng, arena, num_docs=1024, capacity=4096, clients=SERVER_CLIENTS,
                 rounds=PYTHON_SERVER_ROUNDS, cuts=PYTHON_SERVER_CUTS, native_lane=False,
+                join_waves=PYTHON_SERVER_JOIN_WAVES,
             )
         for arena in ("unit", "rle"):
             # the JAX CLI's default deployment: supervised, evicting, compacting
@@ -2589,7 +2955,8 @@ def main(argv=None) -> int:
             )
         for arena in ("unit", "rle"):
             results[arena]["compact_plane"], results[arena]["compact_plane_err"] = phase_compact_plane(
-                rng, arena, num_docs=1024, capacity=4096, twin=COMPACT_TWINS[arena]
+                rng, arena, num_docs=1024, capacity=4096, twin=COMPACT_TWINS[arena],
+                driven=COMPACT_DRIVEN[arena], cuts=COMPACT_CUTS[arena],
             )
         smi = nvidia_smi_line()
     except SmokeFailure as failure:

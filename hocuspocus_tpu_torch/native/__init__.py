@@ -41,9 +41,31 @@ _BUILD_DIR = _DIR.parent.parent / "build" / "torch_native"
 
 _lock = threading.Lock()
 _codec = None
+_info_gauge = None
 # what the last build in this process did: seconds of g++ (0.0 when the
 # target was already built), the module's path and the Python include
 build_info: dict = {}
+
+
+def _get_info_gauge():
+    global _info_gauge
+    if _info_gauge is None:
+        from ..observability.metrics import Gauge
+
+        _info_gauge = Gauge(
+            "hocuspocus_native_codec_info",
+            "Native codec availability: 1 on the active status series "
+            "(status=native|fallback)",
+        )
+    return _info_gauge
+
+
+def codec_info_metrics() -> list:
+    """The process-global status gauge, for registry adoption (the
+    Metrics extension adopts it like the other global collectors). Set
+    when the module loads; the port has no fallback codec, so the
+    `fallback` series reads 0 once the module is in."""
+    return [_get_info_gauge()]
 
 
 def _target() -> Path:
@@ -101,4 +123,7 @@ def get_codec():
             module = importlib.util.module_from_spec(spec)
             spec.loader.exec_module(module)
             _codec = module
+            gauge = _get_info_gauge()
+            gauge.set(1.0, status="native")
+            gauge.set(0.0, status="fallback")
     return _codec

@@ -354,6 +354,15 @@ class Tracer:
                 base["ph"] = "i"
                 base["s"] = "t"
             events.append(base)
+        try:
+            # merge the sampling profiler's recent-stack ring as instant
+            # events on the same clock, so flamegraph samples line up
+            # with the lifecycle spans in one Perfetto view
+            from .profiler import get_profiler
+
+            events.extend(get_profiler().chrome_events(origin, pid))
+        except Exception:
+            pass
         return {"traceEvents": events, "displayTimeUnit": "ms"}
 
     def clear(self) -> None:
@@ -702,9 +711,26 @@ class UpdateTraceBook:
     def _deposit_fleet_return(
         self, name: str, fleet: dict, t_receive: float, t_send: float
     ) -> None:
-        """Cross-tier trace returns ride the edge tier's fleet view, which
-        the port does not have yet (ROADMAP.md, Queue A): nothing sets a
-        fleet context here, so there is nothing to return."""
+        try:
+            from .fleet import get_fleet_view
+
+            view = get_fleet_view()
+            view.trace_returns.deposit(
+                name,
+                {
+                    "id": fleet.get("id"),
+                    "e": str(fleet.get("e", "")),
+                    "d": name,
+                    "t0": fleet.get("t0"),
+                    "t1": fleet.get("t1"),
+                    "h": int(fleet.get("h", 1)) + 1,
+                    "tr": t_receive,
+                    "ts": t_send,
+                    "n": self.node_id or view.node_id or "cell",
+                },
+            )
+        except Exception:
+            pass  # tracing must never fail a broadcast
 
     def finish_all(self, t_now: Optional[float] = None) -> int:
         total = 0
@@ -729,9 +755,15 @@ class UpdateTraceBook:
 
 
 def _fleet_node() -> str:
-    """This process's fleet node id (span `node` attribute). The port has
-    no fleet view yet (ROADMAP.md, Queue A), so every process is local."""
-    return "local"
+    """This process's fleet node id (span `node` attribute for the
+    merged cross-process Perfetto view). Lazy import: fleet.py imports
+    this module."""
+    try:
+        from .fleet import get_fleet_view
+
+        return get_fleet_view().node_id or "local"
+    except Exception:
+        return "local"
 
 
 # The default tracer every instrumentation site uses. Disabled by default:

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from ..aio import spawn_tracked
+from ..observability.device_watch import CompileTracker, tensor_nbytes
 from ..observability.flight_recorder import get_flight_recorder
 from ..observability.tracing import UpdateTraceBook, get_tracer
 from ..server.types import Extension, Payload
@@ -167,41 +168,41 @@ _OP_DEFAULTS = (0, 0, 0, 0, NONE_CLIENT_I32, 0, NONE_CLIENT_I32, 0)
 _RUN_DEFAULTS = (0, 0, 0)
 
 
-class WarmWatch:
+class WarmWatch(CompileTracker):
     """First launch vs repeat launch per (site, shape) of the plane's
     device steps.
 
-    The counterpart of the JAX package's compile tracker. A step's first
-    launch at a shape pays what a warm launch does not: the kernel
-    library's build or load, and the C entry's shared-memory setup when
-    the size grows. The listen-time warm grid launches every shape a
-    flush can take and then calls `mark_warmed`; a first launch after
-    that is a shape the grid missed, counted in `unwarmed_launches`."""
+    The counterpart of the JAX package's compile tracker, and fed into
+    the same metric families (observability/device_watch.py): a step's
+    first launch at a shape is its `compile`, since it pays what a warm
+    launch does not (the kernel library's build or load, and the C
+    entry's shared-memory setup when the size grows); every later launch
+    is a `hit`. The listen-time warm grid launches every shape a flush
+    can take and then calls `mark_warmed`; a first launch after that is
+    a shape the grid missed, counted in `unwarmed_launches` and in the
+    storm detector."""
 
     def __init__(self) -> None:
-        self._seen: set = set()
-        self.warmed = False
-        self.first_launches = 0
-        self.repeat_launches = 0
+        super().__init__()
         self.unwarmed_launches = 0
 
-    def mark_warmed(self) -> None:
-        self.warmed = True
+    @property
+    def warmed(self) -> bool:
+        return self._warmed
 
-    def mark_covered(self, site: str, shape) -> None:
-        """Another plane of this geometry already launched the shape in
-        this process (the shared warm registry, tpu/scheduler.py)."""
-        self._seen.add((site, tuple(shape)))
+    @property
+    def first_launches(self) -> int:
+        return self.fresh_compiles
 
-    def observe(self, site: str, shape, warmup: bool = False) -> None:
-        key = (site, tuple(shape))
-        if key in self._seen:
-            self.repeat_launches += 1
-            return
-        self._seen.add(key)
-        self.first_launches += 1
-        if self.warmed and not warmup:
+    @property
+    def repeat_launches(self) -> int:
+        return self.cache_hits
+
+    def observe(self, site: str, shape, seconds: float = 0.0, warmup: bool = False) -> str:
+        kind = super().observe(site, shape, seconds, warmup=warmup)
+        if kind == "compile" and self._warmed and not warmup:
             self.unwarmed_launches += 1
+        return kind
 
 
 class MergePlane:
@@ -362,6 +363,8 @@ class MergePlane:
         # updates, the flush carries them through drain, build, upload,
         # device and readback, and the broadcast pass closes them
         self.update_traces = UpdateTraceBook()
+        # ops integrated by the device since start (/metrics)
+        self.total_integrated = 0
         self.compile_watch = WarmWatch()
         # device-lane seam (tpu/scheduler.py), set by the owning
         # extension: the plane never admits itself, its dispatch sites
@@ -993,6 +996,7 @@ class MergePlane:
         with self._step_lock, self.device_scope():
             for entry in shapes:
                 site, shape_key = self._warm_site(entry)
+                started = time.perf_counter()
                 if site == "append_sparse":
                     _, k, b = entry
                     zeros = [
@@ -1014,7 +1018,9 @@ class MergePlane:
                     self.state, _count = self._sparse_step_fn()(
                         self.state, self._noop_ops(k, b), self._padding_slots(b)
                     )
-                self.compile_watch.observe(site, shape_key, warmup=True)
+                self.compile_watch.observe(
+                    site, shape_key, time.perf_counter() - started, warmup=True
+                )
                 self._note_dispatch("warmup")
                 dispatched = True
                 if shared:
@@ -1044,10 +1050,14 @@ class MergePlane:
                 self.state, count = self._sparse_step_fn()(
                     self.state, self._noop_ops(k_max, 1), self._padding_slots(1)
                 )
-                self.compile_watch.observe("integrate_sparse", (k_max, 1))
+                self.compile_watch.observe(
+                    "integrate_sparse", (k_max, 1), time.perf_counter() - started
+                )
             else:
                 self.state, count = self._step_fn()(self.state, self._noop_ops(1, self.num_docs))
-                self.compile_watch.observe("integrate_dense", (1, self.num_docs))
+                self.compile_watch.observe(
+                    "integrate_dense", (1, self.num_docs), time.perf_counter() - started
+                )
             count.item()  # completion barrier (data-dependent readback)
             self._note_dispatch("canary")
         return time.perf_counter() - started
@@ -1124,7 +1134,7 @@ class MergePlane:
                         self.state, fields_f[0], fields_f[1], fields_f[2], slots_f
                     )
                 t_dispatch = time.perf_counter()
-                self.compile_watch.observe("append_sparse", (k_max, bf))
+                self.compile_watch.observe("append_sparse", (k_max, bf), t_dispatch - t2)
                 # the dispatched runs land at the rank tail, so the new
                 # tail is each column's last coalesced run
                 self._tail_client[f_slots] = f_tail_cl
@@ -1177,9 +1187,9 @@ class MergePlane:
                         self.counters["flush_batches_sparse"] += 1
                 t_dispatch = time.perf_counter()
                 if slot_view is None:
-                    self.compile_watch.observe("integrate_dense", (k, self.num_docs))
+                    self.compile_watch.observe("integrate_dense", (k, self.num_docs), t_dispatch - t2)
                 else:
-                    self.compile_watch.observe("integrate_sparse", (k, b))
+                    self.compile_watch.observe("integrate_sparse", (k, b), t_dispatch - t2)
                 # full-integrate columns invalidate their tracked rank
                 # tails; _sync_health re-arms the live ones below
                 slow_cols = slow[4].astype(np.intp)
@@ -1229,6 +1239,7 @@ class MergePlane:
                 slow_path_ops=slow_total,
                 fast_path_fraction=round(fast_total / max(total, 1), 6),
             )
+        self.total_integrated += total
         return total
 
     def memory_stats(self) -> dict:
@@ -1236,13 +1247,10 @@ class MergePlane:
         after construction), the staging buffers' bytes, the biggest
         single-cycle upload and the cumulative readback barrier time.
         Reads only tensor metadata: no transfer."""
-        staging_bytes = 0
-        for buffers in (self._staging, self._append_staging):
-            for staging in buffers or ():
-                staging_bytes += staging.buffer.numel() * staging.buffer.element_size()
+        buffers = [*(self._staging or ()), *(self._append_staging or ())]
         return {
-            "arena_bytes": sum(field.numel() * field.element_size() for field in self.state),
-            "staging_bytes": staging_bytes,
+            "arena_bytes": tensor_nbytes(self.state),
+            "staging_bytes": tensor_nbytes([staging.buffer for staging in buffers]),
             "upload_bytes_peak": self.device_stats["upload_bytes_peak"],
             "readback_stall_ms_total": round(self.device_stats["readback_stall_ms_total"], 3),
             "readback_stalls": self.device_stats["readback_stalls"],
@@ -1911,6 +1919,16 @@ class TpuMergeExtension(Extension):
 
     def servings(self) -> list:
         return [] if self.serving is None else [self.serving]
+
+    def scheduler_snapshot(self) -> dict:
+        """Lane + governor state for /debug/scheduler. One plane, so one
+        governor; the timer phase offset is 0 until several planes share
+        the lane (ROADMAP.md, Queue A)."""
+        return {
+            "lane": None if self.lane is None else self.lane.snapshot(),
+            "governors": [None if self.governor is None else self.governor.snapshot()],
+            "phase_offsets_ms": [0.0],
+        }
 
     def is_served(self, document_name: str) -> bool:
         return document_name in self._docs

@@ -402,6 +402,18 @@ class ResidencyManager:
             plane.release(name)
             self.last_active.pop(name, None)  # not resident: drop from the scan
             self._evicted_add(name, snapshot)
+            # durability seam (storage/extension.py): the eviction
+            # snapshot is a full-state update — folding it into the WAL
+            # as a checkpoint record lets the log drop every earlier
+            # segment (the snapshot subsumes them) without waiting for
+            # the next debounced store. Idle docs are exactly the ones
+            # whose WAL would otherwise pin its whole history.
+            checkpoint = getattr(document, "wal_checkpoint", None)
+            if checkpoint is not None:
+                try:
+                    checkpoint(snapshot)
+                except Exception:
+                    pass  # eviction must never fail on log upkeep
             plane.counters["docs_evicted"] += 1
             eviction_ms = round((time.perf_counter() - t0) * 1000.0, 3)
             get_flight_recorder().record(

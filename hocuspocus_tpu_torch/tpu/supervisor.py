@@ -74,11 +74,21 @@ STATE_READY = "ready"  # plane attached and serving
 STATE_DEGRADED = "degraded"  # CPU-merge fallback (init overdue / breaker open)
 STATE_BROKEN = "broken"  # init failed, or a card fault stopped serving
 
+# numeric codes for the Prometheus gauge (stable, documented in the guide)
+STATE_CODES = {
+    STATE_INITIALIZING: 0,
+    STATE_READY: 1,
+    STATE_DEGRADED: 2,
+    STATE_BROKEN: 3,
+}
+
 # -- circuit breaker ---------------------------------------------------------
 
 BREAKER_CLOSED = "closed"
 BREAKER_OPEN = "open"
 BREAKER_HALF_OPEN = "half_open"
+
+BREAKER_CODES = {BREAKER_CLOSED: 0, BREAKER_OPEN: 1, BREAKER_HALF_OPEN: 2}
 
 
 class CircuitBreaker:
@@ -97,6 +107,8 @@ class CircuitBreaker:
         self.state = BREAKER_CLOSED
         self.consecutive_failures = 0
         self.transitions: dict[str, int] = {}
+        # observers appended by the Metrics extension (labels: from/to)
+        self.on_transition: list[Callable[[str, str], Any]] = []
 
     def _move(self, to: str) -> None:
         if self.state == to:
@@ -104,6 +116,11 @@ class CircuitBreaker:
         frm, self.state = self.state, to
         key = f"{frm}->{to}"
         self.transitions[key] = self.transitions.get(key, 0) + 1
+        for fn in list(self.on_transition):
+            try:
+                fn(frm, to)
+            except Exception:
+                pass
 
     def record_success(self) -> bool:
         """A canary passed. Returns True when this CLOSED an open/half-
@@ -195,8 +212,12 @@ class PlaneSupervisor:
         self.last_canary_latency: Optional[float] = None
         self.init_started_at: Optional[float] = None
         self.init_elapsed: Optional[float] = None
-        # observers of each passing canary's latency (seconds)
+        # observers appended by the Metrics extension: each state
+        # transition (from, to), each passing canary's latency (seconds)
+        # and each runtime the supervisor adopts
+        self.on_transition: list[Callable[[str, str], Any]] = []
         self.on_canary: list[Callable[[float], Any]] = []
+        self.on_attach: list[Callable[[Any], Any]] = []
         self._instance = None
         self._started = False
         self._stopped = False
@@ -335,6 +356,11 @@ class PlaneSupervisor:
         if self._stopped:
             return
         self.runtime = runtime
+        for fn in list(self.on_attach):
+            try:
+                fn(runtime)
+            except Exception:
+                pass
         try:
             # the runtime's own listen-time warm grid
             await runtime.on_listen(Payload(instance=self._instance))
@@ -618,6 +644,17 @@ class PlaneSupervisor:
         # /debug/docs/__plane__ shows the supervisor's timeline next to
         # the per-doc lifecycle rings
         get_flight_recorder().record("__plane__", "supervisor.transition", frm=frm, to=to)
+        for fn in list(self.on_transition):
+            try:
+                fn(frm, to)
+            except Exception:
+                pass
+
+    def state_code(self) -> int:
+        return STATE_CODES.get(self.state, -1)
+
+    def breaker_code(self) -> int:
+        return BREAKER_CODES.get(self.breaker.state, -1)
 
     def snapshot(self) -> dict:
         """JSON-able health summary (healthz payload / get_health)."""

@@ -612,6 +612,32 @@ def test_supervised_and_compaction_phases_on_the_card(cuda, arena):
     assert sum(compacted["integrate_launches"].values()) > 0
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("arena", ["unit", "rle"])
+def test_metrics_and_wal_beside_the_supervised_plane_on_the_card(cuda, arena):
+    """The CLI's --tpu-serve --metrics --wal-dir deployment on the card at
+    a few docs (chip_smoke.run_supervised_server, which checks each):
+    /metrics equals the plane's counters and reads READY, every evicted
+    doc's log is its checkpoint, a fresh WalManager replays every doc to
+    its served state, and a one-second torch.profiler capture names the
+    arena's kernel."""
+    import asyncio
+
+    from chip_smoke import ARENAS, run_supervised_server
+
+    _ext, out = asyncio.run(
+        run_supervised_server(
+            np.random.default_rng(5), arena, 8, 1024, 3, 1, evict_idle_secs=0.5,
+            device_profile_secs=1.0,
+        )
+    )
+    assert out["wal_checkpoints"] == 8 and out["wal"]["docs"] == 8
+    assert out["scrapes"]["joins"]["wal_appended_records"] >= out["edits_sent"]
+    assert "CUDA" in out["device_profile"]["activities"]
+    kernels = out["device_profile"]["kernels"]
+    assert any(name in k for k in kernels for name in ARENAS[arena]["kernels"]), kernels
+
+
 async def _supervised_on_the_card(arena):
     """A SupervisedTpuMergeExtension without `device` (the card) in the
     port's core, its listen hook fired: (extension, core)."""

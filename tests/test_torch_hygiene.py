@@ -168,3 +168,37 @@ def test_a_failed_codec_build_raises_with_the_compilers_output(monkeypatch, tmp_
     monkeypatch.setattr(native, "CXX", str(tmp_path / "missing-cxx"))
     with pytest.raises(RuntimeError, match="cannot run"):
         native.get_codec()
+
+
+SLICE_MODULES = """
+import importlib, sys
+names = [
+    "hocuspocus_tpu_torch.observability.slo",
+    "hocuspocus_tpu_torch.observability.profiler",
+    "hocuspocus_tpu_torch.observability.fleet",
+    "hocuspocus_tpu_torch.observability.device_watch",
+    "hocuspocus_tpu_torch.observability.extension",
+    "hocuspocus_tpu_torch.storage",
+    "hocuspocus_tpu_torch.storage.faults",
+    "hocuspocus_tpu_torch.storage.wal",
+    "hocuspocus_tpu_torch.storage.extension",
+]
+for name in names:
+    importlib.import_module(name)
+    print("IMPORTED", name)
+leaked = sorted(
+    name for name in sys.modules
+    if name == "jax" or name.startswith("jax.")
+    or name == "hocuspocus_tpu" or name.startswith("hocuspocus_tpu.")
+)
+print("LEAKED", leaked)
+print("AIOHTTP", "aiohttp" in sys.modules)
+"""
+
+
+def test_observability_and_storage_modules_import_no_jax_and_no_jax_package():
+    out = _run(SLICE_MODULES)
+    assert out.count("IMPORTED ") == 9, out
+    assert "LEAKED []" in out, out
+    # the Metrics endpoints resolve aiohttp when they answer, not at import
+    assert "AIOHTTP False" in out, out

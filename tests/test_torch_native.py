@@ -12,7 +12,6 @@ merges, window struct sections, decodes).
 import numpy as np
 import pytest
 
-from hocuspocus_tpu.native import get_codec as jax_get_codec
 from hocuspocus_tpu_torch.crdt import (
     Doc,
     apply_update,
@@ -27,6 +26,7 @@ from hocuspocus_tpu_torch.protocol.message import MessageType
 from hocuspocus_tpu_torch.protocol.sync import MESSAGE_YJS_UPDATE, coalesce_updates
 from hocuspocus_tpu_torch.tpu import MergePlane, PlaneServing
 from hocuspocus_tpu_torch.tpu import lowering
+from tests.test_torch_parity_isolation import resolve_jax_codec
 
 NAMES = ["doc", "", "näme/ünïcode-😀", "x" * 300, "doc"]
 ALPHABET = ["a", "bc", "é", "€", "😀", "xyz", " "]
@@ -39,9 +39,7 @@ def codec():
 
 @pytest.fixture(scope="module")
 def jax_codec():
-    module = jax_get_codec()
-    assert module is not None, "the JAX package's codec did not build"
-    return module
+    return resolve_jax_codec()
 
 
 def _random_text_updates(rng, steps, client_id=None, gc=True):

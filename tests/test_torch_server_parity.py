@@ -25,6 +25,7 @@ from hocuspocus_tpu.tpu import TpuMergeExtension as JaxExtension
 from hocuspocus_tpu_torch import crdt as port_crdt
 from hocuspocus_tpu_torch.server import Configuration, Hocuspocus
 from hocuspocus_tpu_torch.tpu import TpuMergeExtension
+from tests.test_torch_parity_isolation import resolve_jax_codec
 from tests.test_torch_plane import COUNTERS, assert_planes_equal
 from tests.tpu.test_plane_fuzz import WORDS, _doc_fingerprint, _pair_align, _random_edit
 
@@ -168,6 +169,10 @@ def _assert_counters_equal(jax_plane, plane) -> None:
 @pytest.mark.parametrize("seed", [5, 23])
 @pytest.mark.parametrize("arena", ["unit", "rle"])
 async def test_served_path_matches_jax_after_every_flush(arena, seed, native_lane):
+    if native_lane:
+        # the JAX side's lane needs its codec, whatever this worker's
+        # first resolution of it found (test_torch_parity_isolation.py)
+        resolve_jax_codec()
     rng = np.random.default_rng(seed)
     names = [f"doc-{i}" for i in range(DOCS)]
     jax_side = _Side(JaxExtension, JaxConfiguration, JaxHocuspocus, jax_crdt, arena, native_lane)

@@ -26,11 +26,13 @@ def _smoke():
     return module
 
 
-def test_supervised_server_phase_on_the_cpu():
+@pytest.mark.parametrize("arena,durable", [("unit", True), ("rle", True), ("unit", False)])
+def test_supervised_server_phase_on_the_cpu(arena, durable):
     smoke = _smoke()
     _ext, out = asyncio.run(
         smoke.run_supervised_server(
-            np.random.default_rng(7), "rle", 8, 1024, 3, 1, evict_idle_secs=0.5, device="cpu"
+            np.random.default_rng(7), arena, 8, 1024, 3, 1, evict_idle_secs=0.5, device="cpu",
+            device_profile_secs=0.2 if arena == "unit" else None, durable=durable,
         )
     )
     assert out["supervisor"]["state"] == "ready"
@@ -39,6 +41,52 @@ def test_supervised_server_phase_on_the_cpu():
     assert out["join_wave"]["n"] == 8
     assert out["cpu_fallbacks_by_cause"]["other"] == 0
     assert not out["health_degraded"] and out["canary_max_abs_err"] == 0
+    # the CLI's --metrics --wal-dir deployment: every doc checkpointed at
+    # its eviction and replayed from the WAL to its served state (the
+    # phase checks each), both scrapes held to the books; without the WAL
+    # (the A/B's third side) no WAL series is scraped
+    quiet, joins = out["scrapes"]["quiet"], out["scrapes"]["joins"]
+    if durable:
+        assert out["wal_checkpoints"] == 8 and out["wal"]["docs"] == 8
+        assert out["wal"]["records"] >= 8 and out["wal"]["bytes_on_disk"] > 0
+        assert out["wal_stats"]["appended_records"] >= out["edits_sent"] >= 8
+        assert quiet["wal_appended_records"] <= joins["wal_appended_records"]
+    else:
+        assert out["wal"] is None and out["wal_checkpoints"] is None
+        assert quiet["wal_appended_records"] is None and quiet["series"] > 0
+    assert out["profiler_stats"]["samples"] > 0
+    for window in ("traffic", "storm_and_joins"):
+        profile = out["profiles"][window]
+        assert profile["flush_N"]["samples"] > 0 and profile["gc2"]["n"] >= 0
+        assert all(0 < row["share"] <= 1 for row in profile["flush_N"]["top"])
+    if arena == "unit":
+        # on the CPU the capture records host ops only
+        assert out["device_profile"]["activities"] == ["CPU"] and out["device_profile"]["kernels"] == []
+        assert out["device_profile"]["device_events"] == [0]
+    else:
+        assert out["device_profile"] is None
+
+
+def test_prometheus_parser_refuses_what_is_not_exposition_text():
+    smoke = _smoke()
+    text = '# HELP a x\n# TYPE a counter\na{kind="compile",site="s"} 2\nb 1.5\n'
+    assert smoke.parse_prometheus(text, "t") == {
+        ("a", (("kind", "compile"), ("site", "s"))): 2.0,
+        ("b", ()): 1.5,
+    }
+    with pytest.raises(smoke.SmokeFailure):
+        smoke.parse_prometheus("a b c\n", "t")
+    with pytest.raises(smoke.SmokeFailure):
+        smoke.parse_prometheus("a 1\na 2\n", "t")
+
+
+def test_profile_tops_splits_threads_and_shares():
+    smoke = _smoke()
+    collapsed = "MainThread;a;b 3\nMainThread;a;c 1\nflush_N;w 4\nother;x 9"
+    tops = smoke.profile_tops(collapsed)
+    assert tops["MainThread"]["samples"] == 4
+    assert tops["MainThread"]["top"][0] == {"share": 0.75, "samples": 3, "stack": "MainThread;a;b"}
+    assert tops["flush_N"]["top"] == [{"share": 1.0, "samples": 4, "stack": "flush_N;w"}]
 
 
 @pytest.mark.parametrize("arena", ["unit", "rle"])

@@ -27,6 +27,7 @@ from hocuspocus_tpu_torch.crdt.encoding import Encoder
 from hocuspocus_tpu_torch.tpu import MergePlane, PlaneServing
 from hocuspocus_tpu_torch.tpu.kernels import doc_state_to_numpy
 from hocuspocus_tpu_torch.tpu.kernels_rle import rle_state_to_numpy
+from tests.test_torch_parity_isolation import resolve_jax_codec
 
 ARENAS = ["unit", "rle"]
 # client ids at and above 2**31 ride the device as negative int32 bit
@@ -67,6 +68,7 @@ def test_lane_windows_serves_and_arena_match_python_and_jax(arena, seed):
     rng = np.random.default_rng(seed)
     lane_plane, lane_serving, py_plane, py_serving = _planes(arena)
     jax_plane = JaxPlane(num_docs=8, capacity=4096, arena=arena)
+    resolve_jax_codec()
     assert jax_plane.enable_lane()
     jax_serving = JaxServing(jax_plane)
     assert lane_plane.register_lane("d") is not None
@@ -363,6 +365,7 @@ def test_lane_concurrent_editors_differential(arena, seed):
     b.on("update", lambda update, *rest: out_b.append(update))
     lane_plane, lane_serving, py_plane, py_serving = _planes(arena, capacity=8192)
     jax_plane = JaxPlane(num_docs=8, capacity=8192, arena=arena)
+    resolve_jax_codec()
     assert jax_plane.enable_lane()
     jax_serving = JaxServing(jax_plane)
     assert lane_plane.register_lane("conc") is not None
