@@ -12,10 +12,10 @@ arena, K2 for the run-length arena, one nvcc each, both started
 together), holds each kernel against its plain PyTorch version (bit for
 bit) at the bench shape and at deployment scale, then drives the merge
 plane + serving path (`MergePlane`, `PlaneServing`, `TpuSyncSource`)
-over each arena with concurrent Yjs editors through three planes: on
-the card with the native text lane, on the card on the Python host
-path, and on the CPU on the Python host path, every arena element and
-served byte held equal after every flush. Last it drives the served
+over each arena with concurrent Yjs editors through two planes on the
+card, one with the native text lane and one on the Python host path,
+every arena element and served byte held equal after every flush. Then
+it drives the served
 path over each arena: the port's Hocuspocus core with
 `TpuMergeExtension(serve=True)` (the native text lane on, its default)
 and 10,240 in-process providers editing 1,024 docs, then two join waves
@@ -27,7 +27,13 @@ CLI's `--tpu-serve --metrics --wal-dir D` deployment over each arena
 (`supervised_server`, `rle_supervised_server`: the supervised plane with
 eviction and hydration, `Metrics` scraped and held to the books, the
 99 Hz profiler's top stacks, every doc replayed from the WAL) and the
-self-compacting plane (`compact_plane`, `rle_compact_plane`). Each phase prints
+self-compacting plane (`compact_plane`, `rle_compact_plane`). Last,
+BASELINE config 4's production topology, two served planes on the card
+with the port's Redis extension between them over its mini-redis
+(`cluster_server`, unit arena), and configs 3 and 1, Tiptap documents
+loaded through the Webhook and the transformer behind Logger, SQLite and
+History on the run-length plane (`rle_tiptap_server`), each with its
+replay. Each phase prints
 one line; any failure exits nonzero. A kernel phase's `ms` is the
 kernels' device time per launch: the launch entry (`integrate_rows_cuda`
 / `integrate_rle_rows_cuda`) is timed with CUDA events, 8 launches back
@@ -95,6 +101,13 @@ RLE_BYTES_PER_ENTRY = 21  # 5 int32 fields + a bool
 # flush budget is read per flush over these
 UNIT_PLANE_ROUNDS = 8
 RLE_PLANE_ROUNDS = 8
+# the plane phases' planes: the card with the text lane, the card on the
+# Python host path (a third, CPU plane on the Python host path was cut for
+# time, the ROADMAP's next cut; the two card planes are held against each
+# other, and the replays hold the kernel against the plain version)
+PLANE_DEVICES = ("cuda", "cuda")
+PLANE_LANES = (True, False)
+PLANE_CUTS = {"twin": "the CPU plane on the Python host path dropped for time"}
 # the served path (phases server, rle_server): BASELINE config 2's 1,024
 # docs x 10 clients at capacity 4,096, uncut; only the rounds are cut
 # (each round is 10,240 edits through the server core on one host thread)
@@ -114,7 +127,10 @@ PYTHON_SERVER_CUTS = {
 FLUSH_BUDGET_MS = 50.0
 # the main path's parts, in the kernels' record: plane (the lane and the
 # Python card planes), server (native lane), server_python
-PATHS = ("plane", "server", "server_python", "supervised_server", "compact_plane")
+PATHS = (
+    "plane", "server", "server_python", "supervised_server", "compact_plane",
+    "cluster_server", "tiptap_server",
+)
 
 CLIENTS = np.asarray([7, 0x9000_0001], np.uint32)
 NONE = 0xFFFFFFFF
@@ -805,9 +821,12 @@ class Recorder:
     one of its rows (the append path of the call's own drain writes
     other rows)."""
 
-    def __init__(self, module, dense_name: str, sparse_name: str) -> None:
+    def __init__(self, module, dense_name: str, sparse_name: str, gate=None) -> None:
         self.module = module
         self.names = (dense_name, sparse_name)
+        # with two planes on the card, `gate()` is true only inside the
+        # recorded plane's flush (the other plane's calls are not kept)
+        self.gate = gate
         self.best = None
         self.before = None  # the arena as the current flush found it
         self.pending = None  # (ops, slots) of this flush's first call
@@ -833,13 +852,16 @@ class Recorder:
         self.before = clone_state(state)
 
     def __enter__(self):
+        def kept(state) -> bool:
+            return state[0].is_cuda and (self.gate is None or self.gate())
+
         def dense(state, ops):
-            if state[0].is_cuda:
+            if kept(state):
                 self._keep(ops, None)
             return self.dense(state, ops)
 
         def sparse(state, ops, slots):
-            if state[0].is_cuda:
+            if kept(state):
                 self._keep(ops, slots)
             return self.sparse(state, ops, slots)
 
@@ -997,9 +1019,8 @@ def phase_plane(rng, arena, num_docs, capacity, clients, rounds):
     """The main path over one arena: BASELINE config 2 through
     MergePlane(arena=...) on the card with every doc on the native text
     lane (the served path's default host path), beside a card plane on
-    the Python host path and a CPU plane on the Python host path. The
-    three arenas must agree element for element and the served bytes
-    byte for byte after every flush; the two card planes' flush times and
+    the Python host path (PLANE_DEVICES). The arenas must agree element
+    for element and the served bytes byte for byte after every flush; the two card planes' flush times and
     stages are reported side by side. The kernel's launch counts are set
     to 0 just before and read just after."""
     from hocuspocus_tpu_torch.tpu import integrate as ti
@@ -1014,11 +1035,12 @@ def phase_plane(rng, arena, num_docs, capacity, clients, rounds):
     recorder = Recorder(mp, dense_name, sparse_name)
 
     def compare(planes):
-        lane, python, cpu = planes
+        lane, python = planes[:2]
         stages["lane"].append(dict(lane.flush_stats))
         stages["python"].append(dict(python.flush_stats))
-        check(states_equal(cpu.state, lane.state), f"{tag}: lane (CUDA) and CPU arenas differ")
-        check(states_equal(cpu.state, python.state), f"{tag}: Python (CUDA) and CPU arenas differ")
+        for other in planes[1:]:
+            check(states_equal(other.state, lane.state),
+                  f"{tag}: lane (CUDA) and {other.device} Python arenas differ")
         arena_checks.append(True)
         if arena == "rle":
             peaks["num_runs"] = max(peaks["num_runs"], int(lane.state.num_runs.max()))
@@ -1030,8 +1052,8 @@ def phase_plane(rng, arena, num_docs, capacity, clients, rounds):
     dense_fn.launches = sparse_fn.launches = 0
     with recorder:
         planes, flush_s, flush_gcs, extra, by_plane = run_plane(
-            rng, ["cuda", "cuda", "cpu"], num_docs, capacity, clients, rounds,
-            on_flush=compare, arena=arena, lanes=[True, False, False],
+            rng, list(PLANE_DEVICES), num_docs, capacity, clients, rounds,
+            on_flush=compare, arena=arena, lanes=list(PLANE_LANES),
             launch_count=lambda: dense_fn.launches + sparse_fn.launches,
         )
     launches = {dense_name: dense_fn.launches, sparse_name: sparse_fn.launches}
@@ -1094,6 +1116,8 @@ def phase_plane(rng, arena, num_docs, capacity, clients, rounds):
         capacity=capacity,
         clients=clients,
         rounds=rounds,
+        planes=[f"{d}{' + lane' if lane else ''}" for d, lane in zip(PLANE_DEVICES, PLANE_LANES)],
+        cuts=PLANE_CUTS,
         seconds=round(time.perf_counter() - started, 3),
         integrate_launches=launches,
         flush_fast_ops=counters["flush_fast_ops"],
@@ -1572,14 +1596,7 @@ async def run_server(rng, arena, num_docs, capacity, clients, rounds, device="cu
             encode_state_vector(rebuilt) == encode_state_vector(document),
             f"{arena} server: {name}: served bytes rebuild another state vector",
         )
-    kernel_ms = None
-    if profiler is not None:
-        kernel_us = sum(
-            getattr(event, "device_time_total", 0) or 0
-            for event in profiler.key_averages()
-            if "integrate" in event.key and "kernel" in event.key
-        )
-        kernel_ms = kernel_us / 1e3 if kernel_us else None
+    kernel_ms = _kernel_device_ms(profiler)
     counters = dict(plane.counters)
     served_docs = sum(name in ext._docs for name in names)
     lane_docs = sum(
@@ -1612,9 +1629,6 @@ async def run_server(rng, arena, num_docs, capacity, clients, rounds, device="cu
         "ops_integrated": integrated,
         "ops_per_s": integrated / traffic_seconds if traffic_seconds else None,
         "integrate_launches": launches,
-        "profiled_seconds": round(profiled_seconds, 3),
-        "kernel_device_ms": kernel_ms,
-        "kernel_device_share": None if kernel_ms is None else kernel_ms / 1e3 / profiled_seconds,
         "idle_flush": idle_flush,
         "switch_interval_ms": sys.getswitchinterval() * 1e3,
         "host_traffic": host_traffic,
@@ -1628,6 +1642,19 @@ async def run_server(rng, arena, num_docs, capacity, clients, rounds, device="cu
         "governor": governor,
         "warm_launches": {"first": warm.first_launches, "unwarmed": warm.unwarmed_launches},
     }
+
+
+def _kernel_device_ms(profiler):
+    """The integrate kernels' device time in a torch.profiler capture
+    (None without a capture or a kernel)."""
+    if profiler is None:
+        return None
+    kernel_us = sum(
+        getattr(event, "device_time_total", 0) or 0
+        for event in profiler.key_averages()
+        if "integrate" in event.key and "kernel" in event.key
+    )
+    return kernel_us / 1e3 if kernel_us else None
 
 
 async def _idle_flush(ext, core, groups, rng, flush) -> dict:
@@ -1936,6 +1963,17 @@ def profile_tops(collapsed: str, roots=("MainThread", "flush_N")) -> dict:
     return out
 
 
+async def _until_sampled(profiler, root: str = "flush_N", timeout: float = 5.0) -> None:
+    """Hold a profile window open until the sampler has walked the
+    threads with `root` among them: on a loaded host its 99 Hz thread
+    waits for the interpreter lock and can miss a window of a few tenths
+    of a second (the phase at a few docs on the CPU). On the card the
+    windows last seconds and this returns at once."""
+    deadline = time.perf_counter() + timeout
+    while f"\n{root};" not in "\n" + profiler.collapsed() and time.perf_counter() < deadline:
+        await asyncio.sleep(0.01)
+
+
 def _gc2_share(seams, seconds: float) -> dict:
     """Gen-2 collections in a window, as HostSeams times them."""
     summary = seams.summary()
@@ -2115,6 +2153,7 @@ async def run_supervised_server(rng, arena, num_docs, capacity, clients, rounds,
             )
         traffic_seconds = time.perf_counter() - traffic_started
         gc.callbacks.remove(seams.collected)
+        await _until_sampled(profiler)
         profiles["traffic"] = {
             **profile_tops(profiler.collapsed()),
             "gc2": _gc2_share(seams, traffic_seconds),
@@ -2209,6 +2248,7 @@ async def run_supervised_server(rng, arena, num_docs, capacity, clients, rounds,
         joins, joiners = await _join_waves(core, names, plane, waves=1)
         storm_seconds = time.perf_counter() - storm_started
         gc.callbacks.remove(seams.collected)
+        await _until_sampled(profiler)
         status, body = await scrape(metrics, "/debug/profile/cpu")
         check(status == 200, f"{tag}: /debug/profile/cpu answered {status}")
         cpu_profile = json.loads(body)
@@ -2503,6 +2543,877 @@ def phase_supervised_server(rng, arena, num_docs, capacity, clients, rounds, evi
     return launches, max(err, out["canary_max_abs_err"])
 
 
+# -- Redis fan-out between two served planes (BASELINE config 4) ---------------
+
+CLUSTER_PROVIDERS = 2  # providers of a doc on each instance
+CLUSTER_ROUNDS = 2
+CLUSTER_CUTS = {
+    "docs": "100k docs cut to 1,024",
+    "rate": "50 ops/s/doc cut to one edit per provider per round: one host thread "
+            "runs both servers and all 4,096 clients",
+}
+CLUSTER_MAP_KEYS = 7
+# a config 4 doc holds two sequences, its Y.Text and its Y.Array, and each
+# takes an arena row once the doc leaves the text lane (Map items stay on
+# the host): the plane has four rows per doc, as the JAX package's config 4
+# bench sizes it (benchmarks/config4_redis_fanout.py `num_docs * 4`)
+CLUSTER_ROWS_PER_DOC = 4
+# mini-redis's bounded queue per subscriber, in frames: a real Redis
+# drops a pub/sub client past its default output buffer hard limit of
+# 32 MB (`client-output-buffer-limit pubsub 32mb 8mb 60`), 65,536 frames
+# of 512 bytes; mini-redis's own default (1,024) drops an instance's
+# subscriber while its loop thread runs 4,096 clients
+CLUSTER_SUBSCRIBER_QUEUE = 65536
+
+
+def _cluster_edit(rng, doc) -> str:
+    """BASELINE config 4's mix (benchmarks/config4_redis_fanout.py): a
+    third each a Y.Text insert, a Y.Map LWW set over 7 keys and a Y.Array
+    push, the kind and the values drawn from `rng`."""
+    kind = int(rng.integers(0, 3))
+    if kind == 0:
+        text = doc.get_text("t")
+        text.insert(int(rng.integers(0, len(text) + 1)), "z")
+        return "text"
+    if kind == 1:
+        doc.get_map("meta").set(f"k{int(rng.integers(0, CLUSTER_MAP_KEYS))}", int(rng.integers(0, 1 << 20)))
+        return "map"
+    doc.get_array("events").push([int(rng.integers(0, 1 << 20))])
+    return "array"
+
+
+def _mixed_state(doc) -> tuple:
+    return (
+        doc.get_text("t").to_string(),
+        doc.get_map("meta").to_json(),
+        doc.get_array("events").to_json(),
+    )
+
+
+async def _converge_mixed(pairs, deadline: float, what: str) -> None:
+    """Wait until every (provider doc, server doc) pair holds one state."""
+    left = list(pairs)
+    while left:
+        left = [(a, b) for a, b in left if _mixed_state(a) != _mixed_state(b)]
+        if not left:
+            return
+        check(time.perf_counter() < deadline, f"{what}: {len(left)} docs never converged")
+        await asyncio.sleep(0.02)
+
+
+async def run_cluster_server(rng, num_docs, capacity, providers=CLUSTER_PROVIDERS,
+                             rounds=CLUSTER_ROUNDS, device="cuda", recorder=None):
+    """BASELINE config 4's production topology (tests/extensions/
+    test_redis.py's serve-mode test, benchmarks/config4_redis_fanout.py):
+    the port's MiniRedis on loopback and two port Hocuspocus cores `a` and
+    `b`, each with `Redis(port=..., identifier=...)` and
+    `TpuMergeExtension(serve=True)` at its other defaults on `device`
+    (two planes on one card, one device lane), `providers` providers of
+    every doc on each instance, each on an in-process socket of its own.
+
+    Settle: the docs load on `a` first and take one Map write each, which
+    demotes each doc off the text lane; once every doc is capturing on
+    `a` again (the rebuild landed) the providers of `b` join, `b` loads
+    each doc from `a` through Redis, demotes and rebuilds it the same
+    way, and the phase waits until every doc is capturing on both. Then
+    `rounds` rounds of one config 4 edit per provider (_cluster_edit),
+    each edit timed to a provider on the other instance and to one on its
+    own; then a wave of one late joiner per doc on `b`, synced from `b`'s
+    plane. The kernel launch counts are set to 0 after the settle and
+    read after the join wave (no torch.profiler capture: over the rounds'
+    ~4,000 flush cycles of small launches its trace processing takes
+    minutes). `recorder` keeps `b`'s
+    biggest integrate batch. Returns the phase's numbers."""
+    import contextlib
+
+    from hocuspocus_tpu_torch.crdt import Doc, apply_update, encode_state_vector
+    from hocuspocus_tpu_torch.extensions import Redis
+    from hocuspocus_tpu_torch.net.mini_redis import MiniRedis
+    from hocuspocus_tpu_torch.provider import HocuspocusProvider, InProcessProviderSocket
+    from hocuspocus_tpu_torch.server import Configuration, Hocuspocus
+    from hocuspocus_tpu_torch.server.types import Payload
+    from hocuspocus_tpu_torch.tpu import TpuMergeExtension
+    from hocuspocus_tpu_torch.tpu import integrate as ti
+    from hocuspocus_tpu_torch.tpu.scheduler import reset_device_lane
+
+    reset_device_lane()
+    seams = HostSeams()
+    asyncio.get_running_loop().set_default_executor(_TimedExecutor(seams))
+    started = time.perf_counter()
+    redis = await MiniRedis(subscriber_queue_limit=CLUSTER_SUBSCRIBER_QUEUE).start()
+    sides = ("a", "b")
+    exts = {
+        side: TpuMergeExtension(
+            num_docs=CLUSTER_ROWS_PER_DOC * num_docs, capacity=capacity, serve=True, device=device
+        )
+        for side in sides
+    }
+    redises = {side: Redis(port=redis.port, identifier=f"cluster-{side}") for side in sides}
+    cores = {
+        side: Hocuspocus(Configuration(quiet=True, extensions=[redises[side], exts[side]]))
+        for side in sides
+    }
+    for side in sides:
+        await cores[side].ensure_configured()
+        await cores[side].hooks(
+            "on_listen", Payload(instance=cores[side], configuration=cores[side].configuration, port=None)
+        )
+    for side in sides:
+        await exts[side].warmup_task
+        check(exts[side].plane.compile_watch.warmed, f"cluster_server: {side}'s warm grid did not finish")
+    warm_seconds = time.perf_counter() - started
+
+    recording_flush = threading.local()
+    if recorder is not None:
+        recorder.gate = lambda: getattr(recording_flush, "on", False)
+    cycles = {side: [] for side in sides}
+    flush_wall, flush_cpu = seams.samples["flush_wall"], seams.samples["flush_cpu"]
+    for side in sides:
+        plane = exts[side].plane
+        real_flush = plane.flush
+
+        def timed_flush(max_batches=None, real_flush=real_flush, side=side, plane=plane):
+            recording_flush.on = side == "b"
+            t0, c0 = time.perf_counter(), time.thread_time()
+            try:
+                count = real_flush(max_batches)
+            finally:
+                recording_flush.on = False
+            wall = time.perf_counter() - t0
+            flush_wall.append(wall)
+            flush_cpu.append(time.thread_time() - c0)
+            if count:
+                cycles[side].append(wall)
+            if recorder is not None and side == "b":
+                recorder.after_flush(plane.state)
+            return count
+
+        plane.flush = timed_flush
+    anti_entropy = {side: collections.Counter() for side in sides}
+    for side in sides:
+        publish = redises[side].publish_first_sync_step
+
+        async def counted(name, document, publish=publish, side=side):
+            anti_entropy[side][name] += 1
+            await publish(name, document)
+
+        redises[side].publish_first_sync_step = counted
+
+    names = [f"mix-{i}" for i in range(num_docs)]
+
+    def connect(side):
+        groups = []
+        for name in names:
+            group = []
+            for _ in range(providers):
+                provider = HocuspocusProvider(
+                    name=name, websocket_provider=InProcessProviderSocket(cores[side])
+                )
+                provider.attach()
+                group.append(provider)
+            groups.append(group)
+        return groups
+
+    def capturing(side):
+        return sum(exts[side].is_capturing(name) for name in names)
+
+    async def until_capturing(side_list, what):
+        deadline = time.perf_counter() + 300
+        while any(capturing(side) < num_docs for side in side_list):
+            check(time.perf_counter() < deadline,
+                  f"cluster_server: {what}: capturing {[capturing(s) for s in side_list]} of {num_docs}")
+            await asyncio.sleep(0.02)
+
+    groups_a = connect("a")
+    await asyncio.wait_for(_all_synced([p for g in groups_a for p in g]), 600)
+    for d, group in enumerate(groups_a):
+        group[0].document.get_map("meta").set("settle", d)
+        if d % 16 == 15:
+            await asyncio.sleep(0)
+    await until_capturing(["a"], "settle on a")
+    groups_b = connect("b")
+    everyone = [p for g in groups_a + groups_b for p in g]
+    await asyncio.wait_for(_all_synced(everyone), 600)
+    # b loaded each doc's Map item from a as a remote update, which the
+    # text lane keeps: its own first Map write demotes it
+    for d, group in enumerate(groups_b):
+        group[0].document.get_map("meta").set("settle-b", d)
+        if d % 16 == 15:
+            await asyncio.sleep(0)
+    await _converge_mixed(
+        [(p.document, cores[side].documents[p.name]) for side, gs in (("a", groups_a), ("b", groups_b))
+         for g in gs for p in g],
+        time.perf_counter() + 300, "cluster_server settle",
+    )
+    await until_capturing(sides, "settle on both")
+    setup_seconds = time.perf_counter() - started
+    settle_counters = {side: dict(exts[side].plane.counters) for side in sides}
+    settle_lane_docs = {
+        side: sum(exts[side].plane.docs[name].lane_slot is not None for name in names)
+        for side in sides
+    }
+    check(not any(settle_lane_docs.values()), f"cluster_server: lane docs after the settle {settle_lane_docs}")
+
+    dense_name, sparse_name = ARENAS["unit"]["wrap"]
+    dense_fn, sparse_fn = getattr(ti, dense_name), getattr(ti, sparse_name)
+    cross = EditClock(asyncio.Event())
+    same = EditClock(asyncio.Event())
+    for g in groups_a + groups_b:
+        for p in g:
+            cross.watch(p)
+            same.watch(p)
+    base = {side: {k: exts[side].plane.counters[k] for k in ("flush_fast_ops", "flush_slow_ops")}
+            for side in sides}
+    replication0 = {side: dict(redises[side].replication_stats) for side in sides}
+    pub0 = {side: dict(getattr(redises[side].pub, "counters", {})) for side in sides}
+    if recorder is not None:
+        recorder.before = clone_state(exts["b"].plane.state)
+    for side in sides:
+        anti_entropy[side].clear()
+    redis_delivered0 = redis.counters["delivered"]
+    dense_fn.launches = sparse_fn.launches = 0
+    seams.reset()
+    gc.callbacks.append(seams.collected)
+    kinds = collections.Counter()
+    traffic_started = time.perf_counter()
+    recording = recorder if recorder is not None else contextlib.nullcontext()
+    try:
+        with recording:
+            for _round in range(rounds):
+                for d in range(num_docs):
+                    group = groups_a[d] + groups_b[d]
+                    for j, provider in enumerate(group):
+                        kinds[_cluster_edit(rng, provider.document)] += 1
+                        # the other instance's first provider, and this one's other
+                        other = group[providers if j < providers else 0]
+                        mate = group[j + 1 if j % providers == 0 else j - 1]
+                        cross.expect(other, provider)
+                        same.expect(mate, provider)
+                    if d % 16 == 15:
+                        await asyncio.sleep(0)
+                await asyncio.wait_for(cross.idle.wait(), 300)
+                await asyncio.wait_for(same.idle.wait(), 300)
+            await _converge_mixed(
+                [(p.document, cores[side].documents[p.name])
+                 for side, gs in (("a", groups_a), ("b", groups_b)) for g in gs for p in g],
+                time.perf_counter() + 300, "cluster_server rounds",
+            )
+            deadline = time.perf_counter() + 120
+            while any(exts[s].plane.pending_ops() > 0 or exts[s]._flush_inflight for s in sides):
+                check(time.perf_counter() < deadline, "cluster_server: the queues never drained")
+                await asyncio.sleep(0.005)
+            traffic_seconds = time.perf_counter() - traffic_started
+            integrated = {
+                side: sum(exts[side].plane.counters[k] - base[side][k] for k in base[side])
+                for side in sides
+            }
+            exchanges = {side: dict(anti_entropy[side]) for side in sides}
+            replication = {
+                side: {k: v - replication0[side].get(k, 0)
+                       for k, v in redises[side].replication_stats.items()}
+                for side in sides
+            }
+            pub = {
+                side: {k: v - pub0[side].get(k, 0)
+                       for k, v in getattr(redises[side].pub, "counters", {}).items()
+                       if k != "max_batch"}
+                for side in sides
+            }
+            host_traffic = seams.summary()
+            gc_traffic = _gc2_share(seams, traffic_seconds)
+            seams.reset()
+            joins, joiners = await _join_waves(cores["b"], names, exts["b"].plane, waves=1)
+            host_joins = seams.summary()
+    finally:
+        gc.callbacks.remove(seams.collected)
+    launches = {dense_name: dense_fn.launches, sparse_name: sparse_fn.launches}
+    await _converge_mixed(
+        [(p.document, cores["b"].documents[p.name]) for p in joiners],
+        time.perf_counter() + 120, "cluster_server joiners",
+    )
+    # every doc converged on both instances, to the editors' state
+    for d, name in enumerate(names):
+        want = _mixed_state(groups_a[d][0].document)
+        for side in sides:
+            check(_mixed_state(cores[side].documents[name]) == want,
+                  f"cluster_server: {name} differs on {side}")
+    # the bytes b serves for an empty state vector rebuild each joiner's doc
+    for provider in joiners:
+        document = cores["b"].documents[provider.name]
+        check(document.sync_source is not None,
+              f"cluster_server: {provider.name} left b's plane: {exts['b'].plane.counters}")
+        served = await document.sync_source.encode_state_as_update_async(None)
+        check(served is not None, f"cluster_server: {provider.name} was not served from b's plane")
+        rebuilt = Doc()
+        apply_update(rebuilt, served)
+        check(_mixed_state(rebuilt) == _mixed_state(provider.document),
+              f"cluster_server: {provider.name}: served bytes rebuild another doc")
+        check(encode_state_vector(rebuilt) == encode_state_vector(provider.document),
+              f"cluster_server: {provider.name}: served bytes rebuild another state vector")
+    counters = {side: dict(exts[side].plane.counters) for side in sides}
+    served_docs = {side: sum(exts[side].is_served(name) for name in names) for side in sides}
+    for p in everyone + joiners:
+        p.destroy()
+        p.websocket_provider.destroy()
+    for side in sides:
+        await cores[side].hooks("on_destroy", Payload(instance=cores[side]))
+    redis_counters = dict(redis.counters)
+    await redis.stop()
+    rate = redises["a"].plane_anti_entropy_seconds
+    return {
+        "warm_seconds": round(warm_seconds, 3),
+        "setup_seconds": round(setup_seconds, 3),
+        "traffic_seconds": round(traffic_seconds, 3),
+        "seconds": round(time.perf_counter() - started, 3),
+        "edits": dict(kinds),
+        "edit_observe_cross": percentiles_ms(cross.samples),
+        "edit_observe_same": percentiles_ms(same.samples),
+        "join_waves": joins,
+        "ops_integrated": integrated,
+        "ops_per_s": {s: integrated[s] / traffic_seconds if traffic_seconds else None for s in sides},
+        "flush_cycles": {side: percentiles_ms(cycles[side]) for side in sides},
+        "integrate_launches": launches,
+        "anti_entropy": {
+            "rate_s": rate,
+            "limit_per_doc": int(traffic_seconds / rate) + 1,
+            "max_per_doc": {s: max(exchanges[s].values(), default=0) for s in sides},
+            "docs": {s: len(exchanges[s]) for s in sides},
+        },
+        # in the rounds: mini-redis's deliveries, each extension's frames
+        # published, received and saved by coalescing, its client's lane
+        "redis": {"delivered": redis_counters["delivered"] - redis_delivered0,
+                  "slow_disconnects": redis_counters["slow_disconnects"]},
+        "replication": replication,
+        "publish_lane": pub,
+        "gc2_traffic": gc_traffic,
+        "host_traffic": host_traffic,
+        "host_joins": host_joins,
+        "served_docs": served_docs,
+        "settle_lane_docs": settle_lane_docs,
+        "settle_counters": {
+            side: {k: settle_counters[side][k] for k in ("cpu_fallbacks", "docs_retired_lane_demote")}
+            for side in sides
+        },
+        "counters": counters,
+        "peak_resident_providers": len(everyone) + len(joiners),
+    }
+
+
+def phase_cluster_server(rng, num_docs, capacity, cuts):
+    """The two-instance Redis topology on the card (run_cluster_server),
+    with its checks: every doc converged on both instances, no CPU
+    fallback and no unsupported retire on either plane, every doc served
+    by both, broadcasts through both planes, the served bytes rebuild each
+    joiner's doc, anti-entropy within its rate, and K1 launched. Then b's
+    biggest integrate batch is replayed through the kernel and the plain
+    version. Returns (launches, max_abs_err of the replay)."""
+    from hocuspocus_tpu_torch.tpu import merge_plane as mp
+
+    tag = "cluster_server"
+    recorder = Recorder(mp, *ARENAS["unit"]["wrap"])
+    out = asyncio.run(run_cluster_server(rng, num_docs, capacity, recorder=recorder))
+    counters = out["counters"]
+    launches = sum(out["integrate_launches"].values())
+    emit(
+        tag,
+        gpu=nvidia_smi_line(),
+        config="BASELINE config 4: mixed Text/Map/Array docs behind Redis fan-out, two serve-mode "
+               "instances (tests/extensions/test_redis.py, benchmarks/config4_redis_fanout.py)",
+        arena="unit",
+        docs=num_docs,
+        rows=CLUSTER_ROWS_PER_DOC * num_docs,
+        capacity=capacity,
+        providers_per_instance=CLUSTER_PROVIDERS,
+        rounds=CLUSTER_ROUNDS,
+        cuts=cuts,
+        **{k: v for k, v in out.items() if k != "counters"},
+        plane_counters={
+            side: {k: counters[side][k] for k in (
+                "cpu_fallbacks", "docs_retired_unsupported", "docs_retired_lane_demote",
+                "plane_broadcasts", "sync_serves", "sync_cache_hits",
+                "flush_fast_ops", "flush_slow_ops")}
+            for side in counters
+        },
+    )
+    for side, c in counters.items():
+        check(c["cpu_fallbacks"] == 0, f"{tag}: {c['cpu_fallbacks']} CPU fallbacks on {side}")
+        check(c["docs_retired_unsupported"] == 0, f"{tag}: unsupported retires on {side}")
+        check(c["plane_broadcasts"] > 0, f"{tag}: no broadcast went through {side}'s plane")
+        check(out["served_docs"][side] == num_docs,
+              f"{tag}: {out['served_docs'][side]} of {num_docs} docs served on {side}")
+    ae = out["anti_entropy"]
+    for side, most in ae["max_per_doc"].items():
+        check(most <= ae["limit_per_doc"],
+              f"{tag}: {most} anti-entropy exchanges for one doc on {side} (limit {ae['limit_per_doc']})")
+    check(out["join_waves"][0]["n"] == num_docs, f"{tag}: {out['join_waves']}")
+    check(out["redis"]["slow_disconnects"] == 0,
+          f"{tag}: mini-redis dropped {out['redis']['slow_disconnects']} slow subscribers")
+    check(launches > 0, f"{tag}: K1 never launched from the cluster path")
+    err = phase_served_replay(recorder.best, "unit", path="cluster_server")
+    recorder.best = recorder.before = None
+    return launches, err
+
+
+# -- Tiptap docs behind the CLI's persistence stack (BASELINE configs 3 and 1) --
+
+TIPTAP_ROUNDS = 2
+TIPTAP_BURST = 100  # single-character inserts in one ProseMirror transaction
+TIPTAP_CHECKPOINTS = 8  # docs History checkpoints after round 1
+TIPTAP_RESTORES = 2  # of them, restored after round 2
+TIPTAP_SECRET = "chip-smoke-webhook-secret"
+TIPTAP_CUTS = {"docs": "10k docs cut to 1,024", "rounds": "2 rounds"}
+# every sequence of a doc's XML tree takes an arena row (the fragment, the
+# heading and its text, the paragraph and its text): the plane has eight
+# rows per doc, as the JAX package's config 3 bench sizes it
+# (benchmarks/config3_prosemirror_transform.py `num_docs * 8`)
+TIPTAP_ROWS_PER_DOC = 8
+
+
+def make_pm_doc(i: int) -> dict:
+    """The Tiptap document of BASELINE config 3's bench
+    (benchmarks/config3_prosemirror_transform.py `make_pm_doc`)."""
+    return {
+        "type": "doc",
+        "content": [
+            {"type": "heading", "attrs": {"level": 1}, "content": [{"type": "text", "text": f"Document {i}"}]},
+            {
+                "type": "paragraph",
+                "content": [
+                    {"type": "text", "text": "Some "},
+                    {"type": "text", "text": "bold", "marks": [{"type": "bold"}]},
+                    {"type": "text", "text": " rich text content with enough length "},
+                    {
+                        "type": "text",
+                        "text": "and a link",
+                        "marks": [{"type": "link", "attrs": {"href": f"https://x.test/{i}"}}],
+                    },
+                ],
+            },
+        ],
+    }
+
+
+class WebhookReceiver:
+    """The CMS end of the Webhook extension, in process (aiohttp): checks
+    every request's `X-Hocuspocus-Signature-256` against its own HMAC,
+    answers each `create` with `{"default": make_pm_doc(i)}` for doc
+    `tiptap-i`, and keeps each doc's last `change` payload."""
+
+    def __init__(self, secret: str) -> None:
+        self.secret = secret.encode()
+        self.requests = collections.Counter()
+        self.bad_signatures = 0
+        self.last_change: dict = {}
+        self.runner = None
+        self.url = ""
+
+    async def start(self) -> "WebhookReceiver":
+        from aiohttp import web
+
+        app = web.Application()
+        app.router.add_post("/", self.handle)
+        self.runner = web.AppRunner(app, access_log=None)
+        await self.runner.setup()
+        site = web.TCPSite(self.runner, "127.0.0.1", 0)
+        await site.start()
+        self.url = f"http://127.0.0.1:{site._server.sockets[0].getsockname()[1]}/"
+        return self
+
+    async def handle(self, request):
+        import hashlib
+        import hmac
+
+        from aiohttp import web
+
+        body = await request.read()
+        want = "sha256=" + hmac.new(self.secret, body, hashlib.sha256).hexdigest()
+        if request.headers.get("X-Hocuspocus-Signature-256") != want:
+            self.bad_signatures += 1
+            return web.Response(status=403)
+        message = json.loads(body)
+        event, payload = message["event"], message["payload"]
+        self.requests[event] += 1
+        if event == "create":
+            index = int(payload["documentName"].rsplit("-", 1)[1])
+            return web.json_response({"default": make_pm_doc(index)})
+        if event == "change":
+            self.last_change[payload["documentName"]] = payload["document"]
+        return web.json_response({})
+
+    async def stop(self) -> None:
+        await self.runner.cleanup()
+
+
+def _paragraph_text(doc):
+    """The paragraph's text node of a config 3 doc (the XML tree's
+    `default` fragment: heading, then paragraph)."""
+    return doc.get_xml_fragment("default").get(1).get(0)
+
+
+async def run_tiptap_server(rng, num_docs, capacity, rounds=TIPTAP_ROUNDS, burst=TIPTAP_BURST,
+                            device="cuda", recorder=None, webhook_debounce_ms=2000):
+    """BASELINE configs 3 and 1 through the served plane: one port
+    Hocuspocus core with Logger, SQLite (a file in a fresh temporary
+    directory), Webhook (the in-process WebhookReceiver, events create and
+    change), History and TpuMergeExtension(serve=True, arena="rle") on
+    `device`, a writer and a reader of each doc on in-process sockets.
+    Every doc loads through `Webhook.on_load_document`: the receiver's
+    Tiptap JSON, through the transformer. Each round every writer sends
+    one transaction of `burst` single-character inserts at drawn
+    positions of the paragraph's text (one Yjs update per ProseMirror
+    transaction) and the reader's `from_ydoc` must equal the writer's.
+    History checkpoints TIPTAP_CHECKPOINTS docs after round 1 and restores
+    TIPTAP_RESTORES of them after round 2. Then every provider leaves,
+    every doc unloads (SQLite stores it) and a wave of one joiner per doc
+    reloads each from SQLite onto the plane. The kernel launch counts are
+    set to 0 once every doc is loaded and read after the reload wave.
+    Returns the phase's numbers."""
+    import contextlib
+    import sqlite3
+
+    from hocuspocus_tpu_torch.crdt import Doc, apply_update, encode_state_as_update
+    from hocuspocus_tpu_torch.extensions import Events, History, Logger, SQLite, Webhook
+    from hocuspocus_tpu_torch.provider import HocuspocusProvider, InProcessProviderSocket
+    from hocuspocus_tpu_torch.server import Configuration, Hocuspocus
+    from hocuspocus_tpu_torch.server.types import Payload
+    from hocuspocus_tpu_torch.tpu import TpuMergeExtension
+    from hocuspocus_tpu_torch.tpu import integrate as ti
+    from hocuspocus_tpu_torch.tpu.scheduler import reset_device_lane
+    from hocuspocus_tpu_torch.transformer import TiptapTransformer
+
+    reset_device_lane()
+    seams = HostSeams()
+    asyncio.get_running_loop().set_default_executor(_TimedExecutor(seams))
+    started = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="tiptap-server-")
+    database = os.path.join(workdir, "documents.sqlite")
+    receiver = await WebhookReceiver(TIPTAP_SECRET).start()
+    log_lines = collections.Counter()
+    ext = TpuMergeExtension(
+        num_docs=TIPTAP_ROWS_PER_DOC * num_docs, capacity=capacity, serve=True, arena="rle", device=device
+    )
+    sqlite = SQLite(database=database)
+    webhook = Webhook(
+        url=receiver.url, secret=TIPTAP_SECRET, events=[Events.onCreate, Events.onChange],
+        debounce=webhook_debounce_ms,
+    )
+    stores = collections.Counter()
+    store = sqlite.store
+
+    async def counted_store(data):
+        stores[data.document_name] += 1
+        await store(data)
+
+    sqlite.store = counted_store
+    retries0 = sum(webhook.retries_total.value(event=e) for e in ("create", "change"))
+    core = Hocuspocus(Configuration(quiet=True, extensions=[
+        Logger(log=lambda line: log_lines.update([line.split("] ", 1)[1].split(" ", 1)[0]])),
+        sqlite,
+        webhook,
+        History(),
+        ext,
+    ]))
+    try:
+        await core.ensure_configured()
+        await core.hooks("on_listen", Payload(instance=core, configuration=core.configuration, port=None))
+        await ext.warmup_task
+        check(ext.plane.compile_watch.warmed, "tiptap_server: the warm grid did not finish")
+        warm_seconds = time.perf_counter() - started
+        plane = ext.plane
+        cycles = []
+        real_flush = plane.flush
+        flush_wall, flush_cpu = seams.samples["flush_wall"], seams.samples["flush_cpu"]
+
+        def timed_flush(max_batches=None):
+            t0, c0 = time.perf_counter(), time.thread_time()
+            count = real_flush(max_batches)
+            wall = time.perf_counter() - t0
+            flush_wall.append(wall)
+            flush_cpu.append(time.thread_time() - c0)
+            if count:
+                cycles.append(wall)
+            if recorder is not None:
+                recorder.after_flush(plane.state)
+            return count
+
+        plane.flush = timed_flush
+        names = [f"tiptap-{i}" for i in range(num_docs)]
+
+        async def wave():
+            """One provider per doc, each timed from creation to synced."""
+            synced_at, providers = {}, []
+            t0 = time.perf_counter()
+            for name in names:
+                provider = HocuspocusProvider(name=name, websocket_provider=InProcessProviderSocket(core))
+                provider.on(
+                    "synced",
+                    lambda payload, p=provider: payload.get("state")
+                    and synced_at.setdefault(p, time.perf_counter()),
+                )
+                provider.attach()
+                providers.append(provider)
+            await asyncio.wait_for(_all_synced(providers), 600)
+            return providers, percentiles_ms([synced_at[p] - t0 for p in providers])
+
+        writers, load_synced = await wave()
+        readers, _ = await wave()
+        for d, name in enumerate(names):
+            check(TiptapTransformer.from_ydoc(writers[d].document, "default") == make_pm_doc(d),
+                  f"tiptap_server: {name} did not load the receiver's document")
+        await _converge_tiptap(writers, readers, time.perf_counter() + 300, "load")
+        deadline = time.perf_counter() + 300
+        while not all(ext.is_capturing(name) for name in names):
+            docs = [plane.docs.get(name) for name in names if not ext.is_capturing(name)]
+            check(time.perf_counter() < deadline,
+                  f"tiptap_server: {len(docs)} docs not captured after load: "
+                  f"{[(d.name, d.retired, d.retire_reason, d.lane_slot) if d else None for d in docs[:4]]}")
+            await asyncio.sleep(0.02)
+        setup_seconds = time.perf_counter() - started
+        # where a CPU fallback happened, if one did
+        fallbacks = {"load": plane.counters["cpu_fallbacks"]}
+
+        dense_name, sparse_name = ARENAS["rle"]["wrap"]
+        dense_fn, sparse_fn = getattr(ti, dense_name), getattr(ti, sparse_name)
+        clock = EditClock(asyncio.Event())
+        for reader in readers:
+            clock.watch(reader)
+        base = {k: plane.counters[k] for k in ("flush_fast_ops", "flush_slow_ops")}
+        if recorder is not None:
+            recorder.before = clone_state(plane.state)
+        dense_fn.launches = sparse_fn.launches = 0
+        seams.reset()
+        gc.callbacks.append(seams.collected)
+        traffic_started = time.perf_counter()
+        checkpoints, restored = {}, []
+        sampled = sorted(int(i) for i in rng.choice(num_docs, TIPTAP_CHECKPOINTS, replace=False))
+        events: dict = {d: [] for d in sampled}
+        for d in sampled:
+            writers[d].on("stateless", lambda data, box=events[d]: box.append(json.loads(data["payload"])))
+        recording = recorder if recorder is not None else contextlib.nullcontext()
+        try:
+            with recording:
+                for round_index in range(rounds):
+                    for d, writer in enumerate(writers):
+                        text = _paragraph_text(writer.document)
+
+                        def burst_edit(_tr, text=text):
+                            for _ in range(burst):
+                                text.insert(int(rng.integers(0, len(text) + 1)), "x")
+
+                        writer.document.transact(burst_edit)
+                        clock.expect(readers[d], writer)
+                        if d % 16 == 15:
+                            await asyncio.sleep(0)
+                    await asyncio.wait_for(clock.idle.wait(), 300)
+                    await _converge_tiptap(writers, readers, time.perf_counter() + 300, f"round {round_index}")
+                    if round_index == 0:
+                        for d in sampled:
+                            checkpoints[d] = TiptapTransformer.from_ydoc(writers[d].document, "default")
+                            writers[d].send_stateless(json.dumps({"action": "history.checkpoint"}))
+                        await _history_events(events, "history.checkpointed", "tiptap_server checkpoints")
+                traffic_seconds = time.perf_counter() - traffic_started
+                fallbacks["rounds"] = plane.counters["cpu_fallbacks"]
+                for d in sampled[:TIPTAP_RESTORES]:
+                    version = next(e for e in events[d] if e.get("event") == "history.checkpointed")
+                    writers[d].send_stateless(json.dumps({"action": "history.restore", "id": version["id"]}))
+                    restored.append(d)
+                await _history_events({d: events[d] for d in restored}, "history.restored",
+                                      "tiptap_server restores")
+                # the restore's transaction reaches both providers of the doc
+                deadline = time.perf_counter() + 120
+                while any(
+                    TiptapTransformer.from_ydoc(p.document, "default") != checkpoints[d]
+                    for d in restored for p in (writers[d], readers[d])
+                ):
+                    check(time.perf_counter() < deadline,
+                          f"tiptap_server: {[names[d] for d in restored]} never restored their checkpoints")
+                    await asyncio.sleep(0.02)
+                await _converge_tiptap(writers, readers, time.perf_counter() + 300, "restores")
+                deadline = time.perf_counter() + 120
+                while plane.pending_ops() > 0 or ext._flush_inflight:
+                    check(time.perf_counter() < deadline, "tiptap_server: the queues never drained")
+                    await asyncio.sleep(0.005)
+                integrated = sum(plane.counters[k] - base[k] for k in base)
+                host_traffic = seams.summary()
+                gc_traffic = _gc2_share(seams, traffic_seconds)
+                # the webhook's debounced `change` posts carry each doc's last state
+                deadline = time.perf_counter() + webhook_debounce_ms / 1e3 + 120
+                while any(
+                    (receiver.last_change.get(name) or {}).get("default")
+                    != TiptapTransformer.from_ydoc(core.documents[name], "default")
+                    for name in names
+                ):
+                    check(time.perf_counter() < deadline, "tiptap_server: change payloads never caught up")
+                    await asyncio.sleep(0.05)
+                fallbacks["restores"] = plane.counters["cpu_fallbacks"]
+                served_before = {}
+                for name in names:
+                    served_before[name] = await _served_rebuild(core, name, "after the rounds")
+                fallbacks["served"] = plane.counters["cpu_fallbacks"]
+                # every provider leaves and every doc unloads: SQLite stores each
+                stores_before = sum(stores.values())
+                for p in writers + readers:
+                    p.destroy()
+                    p.websocket_provider.destroy()
+                deadline = time.perf_counter() + 300
+                while core.documents:
+                    check(time.perf_counter() < deadline,
+                          f"tiptap_server: {len(core.documents)} docs never unloaded")
+                    await asyncio.sleep(0.02)
+                unload_stores = sum(stores.values()) - stores_before
+                seams.reset()
+                fallbacks["unload"] = plane.counters["cpu_fallbacks"]
+                reloaders, reload_synced = await wave()
+                host_reload = seams.summary()
+                fallbacks["reload"] = plane.counters["cpu_fallbacks"]
+        finally:
+            gc.callbacks.remove(seams.collected)
+        launches = {dense_name: dense_fn.launches, sparse_name: sparse_fn.launches}
+        db = sqlite3.connect(database)
+        try:
+            rows = dict(db.execute('SELECT name, data FROM "documents"').fetchall())
+        finally:
+            db.close()
+        for d, name in enumerate(names):
+            served_json, served_sv = await _served_rebuild(core, name, "after the reload")
+            if (served_json, served_sv) != served_before[name]:
+                stored = Doc()
+                apply_update(stored, rows.get(name, b""))
+                check(False, f"tiptap_server: {name} reloaded from SQLite as another doc: json "
+                             f"{served_json == served_before[name][0]}, sv {served_sv!r} vs "
+                             f"{served_before[name][1]!r}; the row holds the doc before the unload: "
+                             f"{TiptapTransformer.from_ydoc(stored, 'default') == served_before[name][0]}; "
+                             f"reloaded {served_json}; before {served_before[name][0]}")
+            check(TiptapTransformer.from_ydoc(reloaders[d].document, "default") == served_json,
+                  f"tiptap_server: {name}: the reload joiner holds another doc")
+            check(rows.get(name) == encode_state_as_update(core.documents[name]),
+                  f"tiptap_server: {name}: the SQLite row is not the reloaded doc's encoded state")
+        counters = dict(plane.counters)
+        served_docs = sum(ext.is_served(name) for name in names)
+        for p in reloaders:
+            p.destroy()
+            p.websocket_provider.destroy()
+        await core.hooks("on_destroy", Payload(instance=core))
+        return {
+            "warm_seconds": round(warm_seconds, 3),
+            "setup_seconds": round(setup_seconds, 3),
+            "traffic_seconds": round(traffic_seconds, 3),
+            "seconds": round(time.perf_counter() - started, 3),
+            "edit_observe_burst": percentiles_ms(clock.samples),
+            "load_synced_webhook": load_synced,
+            "reload_synced_sqlite": reload_synced,
+            "ops_integrated": integrated,
+            "ops_per_s": integrated / traffic_seconds if traffic_seconds else None,
+            "flush_cycles": percentiles_ms(cycles),
+            "integrate_launches": launches,
+            "sqlite": {"stores": sum(stores.values()), "unload_stores": unload_stores, "rows": len(rows)},
+            "webhook": {
+                "posts": dict(receiver.requests),
+                "retries": sum(webhook.retries_total.value(event=e) for e in ("create", "change"))
+                - retries0,
+                "bad_signatures": receiver.bad_signatures,
+            },
+            "history": {"checkpoints": len(checkpoints), "restores": len(restored)},
+            "cpu_fallbacks_after": fallbacks,
+            "logger_lines": dict(log_lines),
+            "gc2_traffic": gc_traffic,
+            "host_traffic": host_traffic,
+            "host_reload": host_reload,
+            "served_docs": served_docs,
+            "counters": counters,
+        }
+    finally:
+        await receiver.stop()
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+async def _converge_tiptap(writers, readers, deadline: float, what: str) -> None:
+    from hocuspocus_tpu_torch.transformer import TiptapTransformer
+
+    left = list(zip(writers, readers))
+    while left:
+        left = [
+            (w, r) for w, r in left
+            if TiptapTransformer.from_ydoc(r.document, "default")
+            != TiptapTransformer.from_ydoc(w.document, "default")
+        ]
+        if not left:
+            return
+        check(time.perf_counter() < deadline, f"tiptap_server {what}: {len(left)} readers never converged")
+        await asyncio.sleep(0.02)
+
+
+async def _history_events(events: dict, name: str, what: str) -> None:
+    deadline = time.perf_counter() + 120
+    while not all(any(e.get("event") == name for e in box) for box in events.values()):
+        errors = [e for box in events.values() for e in box if e.get("event") == "history.error"]
+        check(not errors, f"{what}: {errors}")
+        check(time.perf_counter() < deadline, f"{what}: no {name} for every doc")
+        await asyncio.sleep(0.02)
+
+
+async def _served_rebuild(core, name: str, what: str):
+    """The plane's SyncStep2 for an empty state vector, rebuilt into a
+    fresh doc: (its Tiptap JSON, its state vector); both must be the
+    server document's."""
+    from hocuspocus_tpu_torch.crdt import Doc, apply_update, encode_state_vector
+    from hocuspocus_tpu_torch.transformer import TiptapTransformer
+
+    document = core.documents[name]
+    check(document.sync_source is not None, f"tiptap_server: {name} left the plane {what}")
+    served = await document.sync_source.encode_state_as_update_async(None)
+    check(served is not None, f"tiptap_server: {name} was not served from the plane {what}")
+    rebuilt = Doc()
+    apply_update(rebuilt, served)
+    as_json = TiptapTransformer.from_ydoc(rebuilt, "default")
+    check(as_json == TiptapTransformer.from_ydoc(document, "default"),
+          f"tiptap_server: {name}: served bytes rebuild another doc {what}")
+    sv = encode_state_vector(rebuilt)
+    check(sv == encode_state_vector(document), f"tiptap_server: {name}: another state vector {what}")
+    return as_json, sv
+
+
+def phase_tiptap_server(rng, num_docs, capacity, cuts):
+    """Tiptap docs behind Logger, SQLite, Webhook and History on the
+    run-length plane (run_tiptap_server), with its checks (the run's own,
+    and: no CPU fallback, no unsupported retire, every doc served, every
+    webhook signature good, K2 launched). Then the path's biggest
+    integrate batch is replayed through the kernel and the plain version.
+    Returns (launches, max_abs_err of the replay)."""
+    from hocuspocus_tpu_torch.tpu import merge_plane as mp
+
+    tag = "rle_tiptap_server"
+    recorder = Recorder(mp, *ARENAS["rle"]["wrap"])
+    out = asyncio.run(run_tiptap_server(rng, num_docs, capacity, recorder=recorder))
+    counters = out["counters"]
+    launches = sum(out["integrate_launches"].values())
+    emit(
+        tag,
+        gpu=nvidia_smi_line(),
+        config="BASELINE configs 3 and 1: Tiptap docs through the transformer behind SQLite, a "
+               "webhook and History (benchmarks/config3_prosemirror_transform.py)",
+        arena="rle",
+        docs=num_docs,
+        rows=TIPTAP_ROWS_PER_DOC * num_docs,
+        capacity=capacity,
+        rounds=TIPTAP_ROUNDS,
+        burst=TIPTAP_BURST,
+        cuts=cuts,
+        **{k: v for k, v in out.items() if k != "counters"},
+        plane_counters={k: counters[k] for k in (
+            "cpu_fallbacks", "docs_retired_unsupported", "docs_retired_lane_demote",
+            "plane_broadcasts", "sync_serves", "sync_cache_hits", "flush_fast_ops", "flush_slow_ops")},
+    )
+    check(counters["cpu_fallbacks"] == 0, f"{tag}: {counters['cpu_fallbacks']} CPU fallbacks")
+    check(counters["docs_retired_unsupported"] == 0, f"{tag}: unsupported retires")
+    check(out["served_docs"] == num_docs, f"{tag}: {out['served_docs']} of {num_docs} docs served")
+    check(out["webhook"]["bad_signatures"] == 0, f"{tag}: {out['webhook']['bad_signatures']} bad signatures")
+    check(launches > 0, f"{tag}: K2 never launched from the Tiptap path")
+    err = phase_served_replay(recorder.best, "rle", path="tiptap_server")
+    recorder.best = recorder.before = None
+    return launches, err
+
+
 # The compaction phases' stream: BASELINE config 2's random-position
 # inserts and deletes, a doc's edits of a round in one transaction, deletes
 # more likely as a doc's live text passes `live` units, so the rows fill
@@ -2527,11 +3438,13 @@ COMPACT_TWINS = {"unit": "cpu", "rle": "shadow"}
 # docs driven through each compaction phase (the arenas keep 1,024 rows):
 # a run-length row takes ~4,000 Python-lowered ops to fill, ~6.9 million
 # for 1,024 docs, the largest share of the smoke's time
-COMPACT_DRIVEN = {"unit": 1024, "rle": 512}
+COMPACT_DRIVEN = {"unit": 512, "rle": 256}
 COMPACT_CUTS = {
-    "unit": {},
-    "rle": {"docs": "512 of the 1,024 rows' docs driven to retirement and back (1,024 before "
-                    "Metrics and the WAL joined the supervised phases)"},
+    "unit": {"docs": "512 of the 1,024 rows' docs driven (1,024 before the Redis and Tiptap "
+                     "phases joined the smoke)"},
+    "rle": {"docs": "256 of the 1,024 rows' docs driven to retirement and back (1,024 before "
+                    "Metrics and the WAL joined the supervised phases, 512 before the Redis and "
+                    "Tiptap phases)"},
 }
 
 
@@ -2958,6 +3871,17 @@ def main(argv=None) -> int:
                 rng, arena, num_docs=1024, capacity=4096, twin=COMPACT_TWINS[arena],
                 driven=COMPACT_DRIVEN[arena], cuts=COMPACT_CUTS[arena],
             )
+        # BASELINE config 4: Redis fan-out between two served planes (unit
+        # arena); configs 3 and 1: Tiptap docs behind SQLite, a webhook and
+        # History (run-length arena). An arena a path does not run reports 0
+        results["unit"]["cluster_server"], results["unit"]["cluster_server_err"] = phase_cluster_server(
+            rng, num_docs=1024, capacity=4096, cuts=CLUSTER_CUTS,
+        )
+        results["rle"]["tiptap_server"], results["rle"]["tiptap_server_err"] = phase_tiptap_server(
+            rng, num_docs=1024, capacity=4096, cuts=TIPTAP_CUTS,
+        )
+        for arena, path in (("rle", "cluster_server"), ("unit", "tiptap_server")):
+            results[arena][path] = results[arena][f"{path}_err"] = 0
         smi = nvidia_smi_line()
     except SmokeFailure as failure:
         print(f"chip_smoke: FAILED: {failure}", file=sys.stderr)

@@ -3,9 +3,9 @@
 A copy of the JAX package's pure-Python engine, so the port imports
 nothing of that package. Public API mirrors the yjs surface the server
 uses: Doc, apply_update, encode_state_as_update, encode_state_vector,
-merge_updates, diff_update, snapshots, and the shared types. Undo,
-permanent user data and relative positions are not part of the serve
-path and are left out. The bulk varint helpers and the idempotent-
+merge_updates, diff_update, snapshots, the shared types, and
+`PermanentUserData` (History's change attribution). Undo and relative
+positions are not ported yet. The bulk varint helpers and the idempotent-
 redelivery scan run in the port's native codec
 (`hocuspocus_tpu_torch.native`), built at first use.
 """
@@ -14,6 +14,7 @@ from .delete_set import DeleteSet, merge_delete_sets
 from .doc import Doc, Observable, Transaction
 from .encoding import Decoder, Encoder, UNDEFINED
 from .ids import ID, compare_ids
+from .permanent_user_data import PermanentUserData
 from .structs import GC, Item, Skip, StructStore
 from .types import (
     AbstractType,
@@ -87,4 +88,5 @@ __all__ = [
     "is_visible",
     "split_snapshot_affected_structs",
     "snapshot_contains_update",
+    "PermanentUserData",
 ]

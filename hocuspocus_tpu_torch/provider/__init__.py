@@ -1,11 +1,12 @@
 """The client provider: a Doc and its awareness bound to a server document
 over a multiplexing socket.
 
-A copy of the JAX package's `provider/` without the history client. The
+A copy of the JAX package's `provider/`, with the history client. The
 websocket socket (aiohttp) resolves lazily, so the in-process socket
 works where aiohttp is not installed.
 """
 
+from .history import HistoryClient, HistoryError
 from .inprocess import InProcessProviderSocket
 from .message_receiver import MessageReceiver
 from .provider import AwarenessError, HocuspocusProvider
@@ -21,6 +22,8 @@ def __getattr__(name):
 
 
 __all__ = [
+    "HistoryClient",
+    "HistoryError",
     "InProcessProviderSocket",
     "MessageReceiver",
     "AwarenessError",

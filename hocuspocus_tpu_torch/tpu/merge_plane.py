@@ -2146,6 +2146,21 @@ class TpuMergeExtension(Extension):
 
     # -- serving: update capture (called by Document._handle_update) ---------
 
+    def is_capturing(self, name: str) -> bool:
+        """True when this doc's updates actually ride plane windows
+        right now. False during degrade/demote windows, where updates
+        take the per-update CPU fan-out — consumers that suppress
+        per-op propagation in favor of window frames (the Redis
+        extension's cross-instance publish) must fall back to per-op
+        when this is False, or remote peers starve down to
+        anti-entropy rates."""
+        if name not in self._docs:
+            return False
+        if self.residency is not None and self.residency.is_compacting(name):
+            return False  # compaction window: updates ride per-op fan-out
+        doc = self.plane.docs.get(name)
+        return doc is not None and not doc.retired
+
     def try_capture(self, document, update: bytes, origin) -> bool:
         """Claim an update for plane-batched broadcast. False = CPU fan-out."""
         from ..server.types import REDIS_ORIGIN, REPLICA_ORIGIN

@@ -749,3 +749,46 @@ def test_a_failed_canary_launch_stops_the_supervised_server(cuda, arena, monkeyp
             await core.hooks("on_destroy", Payload(instance=core))
 
     asyncio.run(body())
+
+
+@pytest.mark.cuda
+def test_redis_fanout_between_two_planes_on_the_card(cuda):
+    """BASELINE config 4's two-instance topology at 16 docs
+    (chip_smoke.run_cluster_server, which checks convergence on both
+    instances and the served bytes): two served planes on the card behind
+    the port's Redis extension; K1 launches, no CPU fallback."""
+    import asyncio
+
+    from chip_smoke import run_cluster_server
+
+    out = asyncio.run(run_cluster_server(np.random.default_rng(5), 16, 1024, device=cuda))
+    assert sum(out["integrate_launches"].values()) > 0, out["integrate_launches"]
+    for side in ("a", "b"):
+        counters = out["counters"][side]
+        assert counters["cpu_fallbacks"] == 0, (side, counters, out["settle_counters"])
+        assert counters["docs_retired_unsupported"] == 0, (side, counters)
+        assert counters["plane_broadcasts"] > 0, (side, counters)
+        assert out["served_docs"][side] == 16, (side, out["served_docs"])
+
+
+@pytest.mark.cuda
+def test_tiptap_doc_through_the_webhook_on_the_run_length_plane(cuda, monkeypatch):
+    """A Tiptap doc loaded through the Webhook and the transformer, edited
+    in bursts, checkpointed and restored by History, stored and reloaded
+    by SQLite, on the run-length plane on the card
+    (chip_smoke.run_tiptap_server at 4 docs, 2 of them checkpointed and
+    restored): K2 launches, no CPU fallback. A restore writes a fresh XML
+    tree, 5 more arena rows until the doc recycles, so the plane's 8 rows
+    a doc leave room for 2 restores at this size."""
+    import asyncio
+
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "TIPTAP_CHECKPOINTS", 2)
+    out = asyncio.run(
+        chip_smoke.run_tiptap_server(np.random.default_rng(5), 4, 4096, device=cuda, webhook_debounce_ms=200)
+    )
+    assert sum(out["integrate_launches"].values()) > 0
+    assert out["counters"]["cpu_fallbacks"] == 0, out["cpu_fallbacks_after"]
+    assert out["counters"]["docs_retired_unsupported"] == 0
+    assert out["served_docs"] == 4 and out["webhook"]["bad_signatures"] == 0

@@ -202,3 +202,46 @@ def test_observability_and_storage_modules_import_no_jax_and_no_jax_package():
     assert "LEAKED []" in out, out
     # the Metrics endpoints resolve aiohttp when they answer, not at import
     assert "AIOHTTP False" in out, out
+
+
+SLICE_8_MODULES = """
+import importlib, sys
+sys.modules["aiohttp"] = None  # an import of it now raises ImportError
+names = [
+    "hocuspocus_tpu_torch.net",
+    "hocuspocus_tpu_torch.net.resp",
+    "hocuspocus_tpu_torch.net.mini_redis",
+    "hocuspocus_tpu_torch.extensions",
+    "hocuspocus_tpu_torch.extensions.webhook",
+    "hocuspocus_tpu_torch.extensions.s3",
+    "hocuspocus_tpu_torch.extensions.redis",
+    "hocuspocus_tpu_torch.extensions.history",
+    "hocuspocus_tpu_torch.transformer",
+    "hocuspocus_tpu_torch.crdt.permanent_user_data",
+    "hocuspocus_tpu_torch.provider.history",
+]
+for name in names:
+    importlib.import_module(name)
+    print("IMPORTED", name)
+from hocuspocus_tpu_torch.extensions import Durability, S3, Webhook
+from hocuspocus_tpu_torch.storage import Durability as StorageDurability
+print("DURABILITY", Durability is StorageDurability)
+Webhook(url="http://127.0.0.1:1/")  # constructing one needs no aiohttp either
+S3(bucket="b", endpoint="http://127.0.0.1:1")
+import hocuspocus_tpu_torch as top
+print("TOP", top.Configuration.__name__, top.Hocuspocus.__name__, top.Doc.__name__)
+leaked = sorted(
+    name for name in sys.modules
+    if name == "jax" or name.startswith("jax.")
+    or name == "hocuspocus_tpu" or name.startswith("hocuspocus_tpu.")
+)
+print("LEAKED", leaked)
+"""
+
+
+def test_extensions_transformer_and_net_import_without_aiohttp_or_jax():
+    out = _run(SLICE_8_MODULES)
+    assert out.count("IMPORTED ") == 11, out
+    assert "DURABILITY True" in out, out
+    assert "TOP Configuration Hocuspocus Doc" in out, out
+    assert "LEAKED []" in out, out

@@ -115,3 +115,48 @@ def test_compact_bound_reads_and_writes_each_routed_row_once():
         ms, by, work = smoke.compact_bound(plane, 3)
         assert work["bytes"] == 2 * 3 * (per_lane * 256 + scalars) + 8 * 3
         assert by == "bytes" and ms == work["bytes"] / smoke.HBM_BYTES_PER_S * 1e3
+
+
+def test_cluster_server_phase_on_the_cpu():
+    """BASELINE config 4's two-instance Redis topology at 8 docs: every doc
+    settles off the text lane on both instances, converges, is served by
+    both planes with no CPU fallback, and anti-entropy stays in its rate."""
+    smoke = _smoke()
+    out = asyncio.run(smoke.run_cluster_server(np.random.default_rng(7), 8, 1024, device="cpu"))
+    assert out["settle_lane_docs"] == {"a": 0, "b": 0}
+    assert out["served_docs"] == {"a": 8, "b": 8}
+    for side in ("a", "b"):
+        counters = out["counters"][side]
+        assert counters["cpu_fallbacks"] == 0 and counters["docs_retired_unsupported"] == 0
+        assert counters["plane_broadcasts"] > 0
+        assert out["anti_entropy"]["max_per_doc"][side] <= out["anti_entropy"]["limit_per_doc"]
+    assert sum(out["edits"].values()) == 8 * 4 * smoke.CLUSTER_ROUNDS
+    assert out["edit_observe_cross"]["n"] == out["edit_observe_same"]["n"] == 8 * 4 * smoke.CLUSTER_ROUNDS
+    assert out["join_waves"][0]["n"] == 8 and out["join_waves"][0]["sync_serves"] >= 8
+    assert out["replication"]["a"]["update_frames_published"] > 0
+    assert out["replication"]["b"]["frames_received"] > 0
+    # on the CPU the plain version integrates; only the card's kernel counts
+    assert out["integrate_launches"] == {
+        "integrate_op_slots_fast": 0, "integrate_op_slots_sparse_fast": 0,
+    }
+
+
+def test_tiptap_server_phase_on_the_cpu(monkeypatch):
+    """BASELINE configs 3 and 1 at 4 docs: every doc loads the receiver's
+    Tiptap JSON through the webhook, readers follow the bursts, History
+    restores its checkpoints, the change payloads carry the served docs,
+    and every doc reloads from SQLite to the same served bytes."""
+    smoke = _smoke()
+    monkeypatch.setattr(smoke, "TIPTAP_CHECKPOINTS", 4)
+    out = asyncio.run(
+        smoke.run_tiptap_server(np.random.default_rng(7), 4, 4096, device="cpu", webhook_debounce_ms=200)
+    )
+    assert out["served_docs"] == 4
+    assert out["counters"]["cpu_fallbacks"] == 0 and out["counters"]["docs_retired_unsupported"] == 0
+    assert out["webhook"]["bad_signatures"] == 0 and out["webhook"]["posts"]["create"] == 8
+    assert out["webhook"]["posts"]["change"] >= 4
+    assert out["history"] == {"checkpoints": 4, "restores": smoke.TIPTAP_RESTORES}
+    assert out["sqlite"]["rows"] == 4 and out["sqlite"]["stores"] >= 4
+    assert out["edit_observe_burst"]["n"] == 4 * smoke.TIPTAP_ROUNDS
+    assert out["load_synced_webhook"]["n"] == out["reload_synced_sqlite"]["n"] == 4
+    assert out["logger_lines"]["Loaded"] == 8
