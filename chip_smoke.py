@@ -18,7 +18,7 @@ every arena element and served byte held equal after every flush. Then
 it drives the served
 path over each arena: the port's Hocuspocus core with
 `TpuMergeExtension(serve=True)` (the native text lane on, its default)
-and 10,240 in-process providers editing 1,024 docs, then two join waves
+and 10 in-process providers a doc editing 512 docs, then two join waves
 (phases `server`, `rle_server`), and the same path with
 `native_lane=False` (`server_python`, `rle_server_python`),
 each path's biggest integrate batch replayed through the kernel and the
@@ -33,8 +33,17 @@ with the port's Redis extension between them over its mini-redis
 (`cluster_server`, unit arena), and configs 3 and 1, Tiptap documents
 loaded through the Webhook and the transformer behind Logger, SQLite and
 History on the run-length plane (`rle_tiptap_server`), each with its
-replay. Each phase prints
-one line; any failure exits nonzero. A kernel phase's `ms` is the
+replay. Then the port's entry points: `cli_server` starts `python -m
+hocuspocus_tpu_torch.cli --tpu-serve --metrics --wal-dir D` in a process
+of its own and drives it over websockets from here (1,024 docs, SIGTERM's
+drain, a second process replaying the WAL), and `loadgen` runs the
+scenario runner (`smoke`, `replication_lag` at 1,024 docs) and `python
+-m hocuspocus_tpu_torch.loadgen --scenario smoke`. Last, where the
+smoke's own 850 s budget leaves room, `supervised_server_full` runs the
+unit supervised phase once more with all 1,024 docs driven, in a child
+process (`--supervised-docs 1024`), and reports how it ended without
+failing the smoke. Each phase prints
+one line; any failure of the others exits nonzero. A kernel phase's `ms` is the
 kernels' device time per launch: the launch entry (`integrate_rows_cuda`
 / `integrate_rle_rows_cuda`) is timed with CUDA events, 8 launches back
 to back on copies of the input (one on the 100k-row arenas), while the
@@ -55,6 +64,7 @@ import gc
 import json
 import os
 import random
+import re
 import shutil
 import subprocess
 import sys
@@ -97,31 +107,40 @@ OPS_RLE_BOUND = 6  # :207-215 each id bound's scan: ==, <, add, <, two ands
 OPS_RLE_COVER = 6  # :224-230 tombstone pass: ==, >=, add, <=, two ands
 RLE_BYTES_PER_ENTRY = 21  # 5 int32 fields + a bool
 # plane rounds per arena: a round's host work grows with the docs and the
-# planes (three since the text lane), so the rounds are cut to 8; the 50 ms
-# flush budget is read per flush over these
-UNIT_PLANE_ROUNDS = 8
-RLE_PLANE_ROUNDS = 8
+# planes (three since the text lane), so the rounds were cut to 8, and to 4
+# for the entry points' phases; the 50 ms flush budget is read per flush
+# over these
+UNIT_PLANE_ROUNDS = 4
+RLE_PLANE_ROUNDS = 4
 # the plane phases' planes: the card with the text lane, the card on the
 # Python host path (a third, CPU plane on the Python host path was cut for
 # time, the ROADMAP's next cut; the two card planes are held against each
 # other, and the replays hold the kernel against the plain version)
 PLANE_DEVICES = ("cuda", "cuda")
 PLANE_LANES = (True, False)
-PLANE_CUTS = {"twin": "the CPU plane on the Python host path dropped for time"}
-# the served path (phases server, rle_server): BASELINE config 2's 1,024
-# docs x 10 clients at capacity 4,096, uncut; only the rounds are cut
-# (each round is 10,240 edits through the server core on one host thread)
+PLANE_CUTS = {
+    "twin": "the CPU plane on the Python host path dropped for time",
+    "rounds": "4 rounds (8 before the CLI and loadgen phases)",
+}
+# the served path (phases server, rle_server): BASELINE config 2's docs x
+# 10 clients at capacity 4,096; the docs and rounds are cut (each round is
+# one edit a provider through the server core on one host thread)
+SERVER_DOCS = 512
 SERVER_CLIENTS = 10
 SERVER_ROUNDS = 1
-SERVER_CUTS = {"rounds": "1 round of one edit per provider (6 before the supervised phases)"}
+SERVER_CUTS = {
+    "docs": "512 docs (1,024 before the CLI and loadgen phases)",
+    "rounds": "1 round of one edit per provider (6 before the supervised phases)",
+}
 # the served path on the Python host path (native_lane=False), kept driven
-# at full width so that its host timings stand beside the lane's; only
-# the rounds are cut further
+# beside the lane's; its docs and rounds are cut
+PYTHON_SERVER_DOCS = 256
 PYTHON_SERVER_ROUNDS = 1
 PYTHON_SERVER_JOIN_WAVES = 1
 PYTHON_SERVER_CUTS = {
+    "docs": "256 docs (1,024 before the CLI and loadgen phases)",
     "rounds": "1 round of one edit per provider (3 before the supervised phases)",
-    "join_waves": "1 join wave of 1,024 (2 before Metrics and the WAL joined the supervised phases)",
+    "join_waves": "1 join wave, one joiner a doc (2 before Metrics and the WAL joined the supervised phases)",
 }
 # PERF.md's budget for one flush cycle of the plane phases
 FLUSH_BUDGET_MS = 50.0
@@ -129,7 +148,7 @@ FLUSH_BUDGET_MS = 50.0
 # Python card planes), server (native lane), server_python
 PATHS = (
     "plane", "server", "server_python", "supervised_server", "compact_plane",
-    "cluster_server", "tiptap_server",
+    "cluster_server", "tiptap_server", "cli_server", "loadgen",
 )
 
 CLIENTS = np.asarray([7, 0x9000_0001], np.uint32)
@@ -145,7 +164,13 @@ def check(condition: bool, message: str) -> None:
         raise SmokeFailure(message)
 
 
+# (tag, perf_counter) of every emitted line: main's `phase_clock` line
+# gives each line the seconds since the line before it
+EMITTED = []
+
+
 def emit(tag: str, **fields) -> None:
+    EMITTED.append((tag, time.perf_counter()))
     print(f"{tag}: " + json.dumps(fields, sort_keys=False), flush=True)
 
 
@@ -1811,18 +1836,34 @@ SUPERVISOR_DEFAULTS = {
     "hydrate_batch": 64,
 }
 # eviction after 2 s idle: the JAX package evicts 16 docs a maintenance
-# tick of a quarter of this, so all 1,024 docs leave in about 40 s (100 s
-# at 5 s). A doc back from the storm may idle out again before the check
+# tick of a quarter of this, so 1,024 docs leave in about 40 s (100 s at
+# 5 s), the 256 driven ones in about 10 s. A doc back from the storm may idle out again before the check
 # loop sees it served (a gen-2 pause of the loop lasts 2-3 s): such a doc
 # is checked as it evicts
 EVICT_IDLE_SECS = 2.0
 SUPERVISED_ROUNDS = 1
 # one /debug/profile capture (torch.profiler, CPU and CUDA) in the unit
-# phase, at the quiet wait's end
+# phase, at the quiet wait's end; taken again only where it could not
+# have seen its probe (_device_capture), every attempt reported
 DEVICE_PROFILE_ARENA = "unit"
 DEVICE_PROFILE_SECS = 1.0
 DEVICE_PROFILE_ATTEMPTS = 3
-SUPERVISED_CUTS = {"rounds": "1 round of one edit per provider"}
+# docs driven on the 1,024-row plane (the CLI's --tpu-docs): 256, for the
+# CLI and loadgen phases' time; on a slow host 10 providers a doc for
+# 1,024 docs in the server's process have starved the supervisor's canary
+# of the interpreter lock until three overruns in a row tripped the
+# breaker, so the 1,024-doc run is kept beside it, reported and not gated
+# (phase_supervised_full)
+SUPERVISED_DRIVEN = 256
+SUPERVISED_CUTS = {
+    "rounds": "1 round of one edit per provider",
+    "docs": "256 of the plane's 1,024 docs driven (1,024 before the CLI and loadgen phases)",
+}
+# the unit phase once more with all 1,024 docs driven, in a process of its
+# own after every gated phase: reported, never gated (supervised_server_full)
+SUPERVISED_FULL_DRIVEN = 1024
+SMOKE_CLOCK_S = 850.0  # the smoke's own time budget
+SUPERVISED_FULL_MIN_S = 240.0  # what the run needs of the budget left to start
 
 
 # the JAX CLI's `--metrics --wal-dir D` (hocuspocus_tpu/cli.py:513-558):
@@ -1856,8 +1897,6 @@ async def scrape(metrics, path: str, **query):
 def parse_prometheus(text: str, what: str) -> dict:
     """Prometheus text exposition 0.0.4 -> {(name, ((label, value), ...)): value}.
     Fails on any line that is neither a comment nor a sample."""
-    import re
-
     sample = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{(.*)\})? (\S+)$')
     label = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
     series = {}
@@ -1984,7 +2023,7 @@ def _gc2_share(seams, seconds: float) -> dict:
 
 async def run_supervised_server(rng, arena, num_docs, capacity, clients, rounds,
                                 evict_idle_secs, device=None, recorder=None, device_profile_secs=None,
-                                durable=True):
+                                durable=True, driven=None):
     """The JAX CLI's default deployment over one arena: the port's
     Hocuspocus core with SupervisedTpuMergeExtension(serve=True) at the
     CLI's defaults (SUPERVISOR_DEFAULTS, text lane and governor on, no
@@ -2010,8 +2049,9 @@ async def run_supervised_server(rng, arena, num_docs, capacity, clients, rounds,
     of the loop and flush threads are kept for the rounds and for the
     storm with its join wave, each beside its gen-2 share. `durable=False`
     leaves Durability out (the CLI without `--wal-dir`), to split the
-    WAL's cost from the rest. Returns (the extension, the phase's
-    numbers)."""
+    WAL's cost from the rest. `driven` docs (all `num_docs` when None)
+    get the providers; the plane keeps `num_docs` rows. Returns (the
+    extension, the phase's numbers)."""
     import contextlib
 
     from hocuspocus_tpu_torch.observability import Metrics, get_profiler
@@ -2108,7 +2148,7 @@ async def run_supervised_server(rng, arena, num_docs, capacity, clients, rounds,
         return count
 
     plane.flush = timed_flush
-    names = [f"doc-{i}" for i in range(num_docs)]
+    names = [f"doc-{i}" for i in range(num_docs if driven is None else driven)]
     groups = []
     for name in names:
         group = []
@@ -2168,14 +2208,14 @@ async def run_supervised_server(rng, arena, num_docs, capacity, clients, rounds,
         # (3) quiet: every doc evicts (16 a maintenance tick, the JAX
         # package's evict_batch), the CPU documents serve meanwhile
         quiet_started = time.perf_counter()
-        deadline = quiet_started + evict_idle_secs + 4 * num_docs / manager.evict_batch * manager.maintenance_interval + 60
+        deadline = quiet_started + evict_idle_secs + 4 * len(names) / manager.evict_batch * manager.maintenance_interval + 60
         while any(runtime.is_served(name) for name in names):
             check(ext.supervisor.state == STATE_READY, f"{tag}: {_books(ext)}")
             check(time.perf_counter() < deadline, f"{tag}: {sum(map(runtime.is_served, names))} docs never evicted")
             await asyncio.sleep(0.05)
         quiet_seconds = time.perf_counter() - quiet_started
         evicted = sum(manager.is_evicted(name) for name in names)
-        check(evicted == num_docs, f"{tag}: {evicted} of {num_docs} docs evicted: {_books(ext)}")
+        check(evicted == len(names), f"{tag}: {evicted} of {len(names)} docs evicted: {_books(ext)}")
         check(not any(name in plane.docs for name in names), f"{tag}: an evicted doc kept its rows")
         # every doc's log is its eviction checkpoint alone (the snapshot
         # subsumes the history), and /metrics agrees with the books
@@ -2279,17 +2319,29 @@ async def run_supervised_server(rng, arena, num_docs, capacity, clients, rounds,
     # one canary launch held against the plain version (not counted)
     canary_err = _canary_vs_plain(plane, arena, dense_name, sparse_name)
     served = {name: _fingerprint(core.documents[name]) for name in names}
+    acked_dir = None
+    if durable:
+        # every served edit was shown to a peer, and a broadcast waits for
+        # its group commit: once no commit is pending or running, the log
+        # as a crash now would leave it must rebuild every doc (replayed
+        # below, once the deployment no longer holds the loop)
+        acked_dir, acked_wait = await _copy_acked_wal(tag, durability.wal, wal_dir)
     for p in everyone + joiners:
         p.destroy()
         p.websocket_provider.destroy()
+    # the teardown as the CLI's own ends it when its drain is skipped:
+    # on_destroy, whose WAL flush is bounded at 5 s
     await core.hooks("on_destroy", Payload(instance=core))
     # the sampler lives as long as the deployment: later phases run without it
     profiler.stop()
     # a fresh WalManager over the same directory rebuilds every doc
-    wal = None
+    wal = wal_acked = None
     if durable:
         wal = await _replay_wal(tag, wal_dir, served)
         shutil.rmtree(wal_dir, ignore_errors=True)
+        wal_acked = await _replay_wal(f"{tag} (before the teardown)", acked_dir, served)
+        wal_acked["idle_wait_s"] = acked_wait
+        shutil.rmtree(acked_dir, ignore_errors=True)
     return ext, {
         "init_seconds": supervisor["init_seconds"],
         "ready_seconds": round(ready_seconds, 3),
@@ -2322,6 +2374,7 @@ async def run_supervised_server(rng, arena, num_docs, capacity, clients, rounds,
         "supervisor": supervisor,
         "edits_sent": sent,
         "wal_checkpoints": checkpoints,
+        "wal_acked": wal_acked,
         "wal": wal,
         "wal_stats": durability.wal_stats() if durable else None,
         "scrapes": {
@@ -2339,7 +2392,8 @@ async def run_supervised_server(rng, arena, num_docs, capacity, clients, rounds,
         "device_profile": None if capture is None else {
             "seconds": capture["seconds"],
             "activities": capture["activities"],
-            "device_events": capture["attempts"],
+            "device_events": capture["device_events"],
+            "attempts": capture["attempts"],
             "kernels": capture["kernels"],
         },
         "counters": counters,
@@ -2348,35 +2402,56 @@ async def run_supervised_server(rng, arena, num_docs, capacity, clients, rounds,
 
 async def _device_capture(tag, metrics, plane, secs, dispatchers, names) -> dict:
     """`/debug/profile?secs=` captures while the plane is quiet, each with
-    one canary probe inside its window, taken as the supervisor's
-    watchdog takes it (the flush lock, the loop's executor): a K1/K2
-    launch the trace must name. A capture whose trace holds no device
-    activity at all is taken again, up to DEVICE_PROFILE_ATTEMPTS times
-    (on the card a capture late in the smoke has come back empty; every
-    attempt is reported). The probes' launches are the captures', not
-    the deployment's: the dispatchers' counts are put back. Returns the
-    last capture's answer with every attempt's device-event count (on
-    the CPU: one capture, host ops only)."""
+    one canary probe, taken as the supervisor's watchdog takes it (the
+    flush lock, the loop's executor): a K1/K2 launch the trace must name.
+    The window opens when the profiler reports itself on, which can be
+    seconds after the request (the first start sets up the tracer), and
+    the probe is taken as it opens: under the phase's load the flush lock
+    and the executor have held a probe back for tenths of a second, and a
+    probe that ends after the window cannot be in its trace. Each attempt
+    records its device events, whether its trace names a kernel of
+    `names`, and when its probe began and ended, in seconds after the
+    window opened. An attempt is taken again, up to
+    DEVICE_PROFILE_ATTEMPTS times, only where its trace holds no device
+    event at all or its probe ended outside the window; a trace with
+    device events and the probe inside its window that names no kernel
+    of `names` fails the phase. The probes' launches are the captures',
+    not the deployment's: the dispatchers' counts are put back. Returns
+    the last capture's answer with every attempt (on the CPU: one
+    capture, host ops only)."""
+    import torch
+
+    def profiling() -> bool:
+        return getattr(torch.autograd.profiler, "_is_profiler_enabled", True)
+
     attempts = []
+    on_card = plane.device.type == "cuda"
     for _attempt in range(DEVICE_PROFILE_ATTEMPTS):
-        capture = asyncio.ensure_future(scrape(metrics, "/debug/profile", secs=str(secs)))
-        await asyncio.sleep(0)  # the capture task has started the profiler
         counts = [fn.launches for fn in dispatchers]
+        capture = asyncio.ensure_future(scrape(metrics, "/debug/profile", secs=str(secs)))
+        await asyncio.sleep(0)  # the capture's first step starts the profiler
+        while not profiling() and not capture.done():
+            await asyncio.sleep(0)
+        opened = time.perf_counter()
         async with plane.flush_lock:
+            probe_began_s = time.perf_counter() - opened
             await asyncio.get_running_loop().run_in_executor(None, plane.canary_probe)
+            probe_ended_s = time.perf_counter() - opened
         for fn, count in zip(dispatchers, counts):
             fn.launches = count
         status, body = await capture
         check(status == 200, f"{tag}: /debug/profile answered {status}: {body[:300]}")
         payload = json.loads(body)
         check("error" not in payload, f"{tag}: /debug/profile: {payload.get('error')}")
-        attempts.append(payload["device_events"])
-        if payload["device_events"] or plane.device.type != "cuda":
+        named = any(name in k for k in payload["kernels"] for name in names)
+        attempts.append({"device_events": payload["device_events"], "names_kernel": named,
+                         "probe_s": [round(probe_began_s, 4), round(probe_ended_s, 4)]})
+        if not on_card or (payload["device_events"] and probe_ended_s < secs):
             break
-    if plane.device.type == "cuda":
-        seen = [k for k in payload["kernels"] if any(name in k for name in names)]
-        check(seen, f"{tag}: the torch.profiler captures name no kernel of {names}: "
-                    f"{payload['kernels'][:20]} (device events a capture: {attempts})")
+    if on_card:
+        check(attempts[-1]["names_kernel"],
+              f"{tag}: the torch.profiler capture names no kernel of {names}: "
+              f"{payload['kernels'][:20]} (attempts: {attempts})")
     return {**payload, "attempts": attempts}
 
 
@@ -2409,10 +2484,30 @@ async def _replay_wal(tag, wal_dir, served) -> dict:
         for _rec_type, payload in replayed:
             apply_update(doc, payload)
         records += len(replayed)
-        check(_fingerprint(doc) == fingerprint, f"{tag}: {name}: the WAL replays another doc")
+        got = _fingerprint(doc)
+        check(got == fingerprint,
+              f"{tag}: {name}: the WAL replays another doc: {len(replayed)} records, text "
+              f"{len(got[0])} against {len(fingerprint[0])} units, state vector "
+              f"{got[1].hex()} against {fingerprint[1].hex()}")
     seconds = time.perf_counter() - t0
     wal.close()
     return {"docs": len(served), "records": records, "seconds": round(seconds, 3), "bytes_on_disk": on_disk}
+
+
+async def _copy_acked_wal(tag, wal, wal_dir, timeout=60.0) -> tuple:
+    """The log as a crash would leave it while the deployment still runs:
+    once `wal` has no commit pending or running (waited for, not forced),
+    its directory is copied in one step of the loop, so no commit can
+    start meanwhile. Returns (the copy's path, the seconds waited)."""
+    started = time.perf_counter()
+    while wal._pending or (wal._flush_task is not None and not wal._flush_task.done()):
+        check(time.perf_counter() - started < timeout,
+              f"{tag}: the WAL kept a commit pending or running for {timeout} s")
+        await asyncio.sleep(0.01)
+    waited = round(time.perf_counter() - started, 3)
+    copy = wal_dir.rstrip(os.sep) + "-acked"
+    shutil.copytree(wal_dir, copy)
+    return copy, waited
 
 
 def _check_served(tag, core, plane, name) -> None:
@@ -2473,7 +2568,8 @@ def _canary_vs_plain(plane, arena, dense_name, sparse_name) -> int:
     return max_abs_err(kernel, reference)
 
 
-def phase_supervised_server(rng, arena, num_docs, capacity, clients, rounds, evict_idle_secs, cuts):
+def phase_supervised_server(rng, arena, num_docs, capacity, clients, rounds, evict_idle_secs, cuts,
+                            driven=None, device_profile=True):
     """The supervised served path on the card (run_supervised_server),
     with the checks that hold it: READY, every doc evicted then back on
     the plane and the lane, the served bytes rebuild each doc, no CPU
@@ -2486,11 +2582,13 @@ def phase_supervised_server(rng, arena, num_docs, capacity, clients, rounds, evi
 
     tag = ARENAS[arena]["tag"] + "supervised_server"
     recorder = Recorder(mp, *ARENAS[arena]["wrap"])
-    profile_secs = DEVICE_PROFILE_SECS if arena == DEVICE_PROFILE_ARENA else None
+    profile_secs = DEVICE_PROFILE_SECS if device_profile and arena == DEVICE_PROFILE_ARENA else None
     _ext, out = asyncio.run(
         run_supervised_server(rng, arena, num_docs, capacity, clients, rounds,
-                              evict_idle_secs, recorder=recorder, device_profile_secs=profile_secs)
+                              evict_idle_secs, recorder=recorder, device_profile_secs=profile_secs,
+                              driven=driven)
     )
+    driven = num_docs if driven is None else driven
     counters = out["counters"]
     supervisor = out["supervisor"]
     retired = {k: v for k, v in counters.items() if k.startswith("docs_retired_")}
@@ -2506,6 +2604,7 @@ def phase_supervised_server(rng, arena, num_docs, capacity, clients, rounds, evi
                     "native_lane": True, "governor": True},
         arena=arena,
         docs=num_docs,
+        driven=driven,
         capacity=capacity,
         clients=clients,
         rounds=rounds,
@@ -2532,25 +2631,74 @@ def phase_supervised_server(rng, arena, num_docs, capacity, clients, rounds, evi
     check(supervisor["counters"]["canary_errors"] == 0 and supervisor["counters"]["card_faults"] == 0,
           f"{tag}: a canary raised: {supervisor}")
     check(not out["health_degraded"], f"{tag}: health_status() reports degraded")
-    check(out["evicted"] == num_docs, f"{tag}: {out['evicted']} evictions")
-    check(out["storm_hydrated"] >= num_docs, f"{tag}: {out['storm_hydrated']} hydrations in the storm")
+    check(out["evicted"] == driven, f"{tag}: {out['evicted']} evictions")
+    check(out["storm_hydrated"] >= driven, f"{tag}: {out['storm_hydrated']} hydrations in the storm")
     check(launches > 0, f"{tag}: the integrate kernel never launched from the supervised path")
     check(out["canary_max_abs_err"] == 0, f"{tag}: the canary's launch differs from the plain version")
-    check(out["wal_checkpoints"] == num_docs and out["wal"]["docs"] == num_docs,
-          f"{tag}: {out['wal_checkpoints']} checkpoints, {out['wal']['docs']} docs replayed")
+    check(out["wal_checkpoints"] == driven and out["wal"]["docs"] == driven
+          and out["wal_acked"]["docs"] == driven,
+          f"{tag}: {out['wal_checkpoints']} checkpoints, {out['wal']['docs']} docs replayed after "
+          f"the teardown, {out['wal_acked']['docs']} before it")
     err = phase_served_replay(recorder.best, arena, path="supervised_server")
     recorder.best = recorder.before = None
     return launches, max(err, out["canary_max_abs_err"])
 
 
+def phase_supervised_full(seed, started):
+    """The unit supervised phase as it ran before its cut, all
+    SUPERVISED_FULL_DRIVEN docs driven (10 providers each), in a child
+    process (`chip_smoke.py --supervised-docs N`) so that what it leaves
+    behind when it fails cannot touch the card's other phases. Reported,
+    never gated: on a slow host 10,240 providers in one interpreter have
+    starved the supervisor's canary until the breaker opened. It runs
+    only where the smoke's budget (SMOKE_CLOCK_S) has
+    SUPERVISED_FULL_MIN_S left, and is cut at what is left; its line
+    says whether it ran, how it ended and, from the child's own line,
+    the numbers that tell the two faults apart (canary latencies, the
+    breaker, the WAL before and after the teardown)."""
+    import torch
+
+    left = SMOKE_CLOCK_S - (time.perf_counter() - started)
+    if left < SUPERVISED_FULL_MIN_S:
+        emit("supervised_server_full", ran=False, driven=SUPERVISED_FULL_DRIVEN,
+             reason=f"{left:.1f} s of the smoke's {SMOKE_CLOCK_S:.0f} s left, "
+                    f"{SUPERVISED_FULL_MIN_S:.0f} s needed")
+        return
+    torch.cuda.empty_cache()  # the earlier phases' arenas, before another process takes the card
+    t0 = time.perf_counter()
+    command = [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+               "--supervised-docs", str(SUPERVISED_FULL_DRIVEN)]
+    try:
+        proc = subprocess.run(command, cwd=ROOT, capture_output=True, text=True, timeout=left - 20)
+        exit_code, stdout, stderr = proc.returncode, proc.stdout, proc.stderr
+    except subprocess.TimeoutExpired as expired:
+        exit_code = None
+        stdout = (expired.stdout or b"").decode() if isinstance(expired.stdout, bytes) else (expired.stdout or "")
+        stderr = f"cut at {left - 20:.1f} s"
+    line = next((json.loads(raw.split(": ", 1)[1]) for raw in stdout.splitlines()
+                 if raw.startswith("supervised_server: ")), None)
+    failure = next((raw for raw in stderr.splitlines() if raw.startswith("chip_smoke: FAILED")),
+                   None if exit_code == 0 else stderr[-2000:])
+    keys = ("seconds", "setup_seconds", "traffic_seconds", "edit_observe", "flush_cycles",
+            "quiet_seconds", "evicted", "storm_hydrated", "join_wave", "canaries",
+            "canary_latency", "supervisor", "cpu_fallbacks_by_cause", "docs_retired",
+            "health_degraded", "wal_checkpoints", "wal_acked", "wal", "integrate_launches")
+    emit("supervised_server_full", ran=True, driven=SUPERVISED_FULL_DRIVEN, exit_code=exit_code,
+         ok=exit_code == 0, failure=None if failure is None else failure[:2000],
+         seconds=round(time.perf_counter() - t0, 3),
+         line=None if line is None else {k: line.get(k) for k in keys})
+
+
 # -- Redis fan-out between two served planes (BASELINE config 4) ---------------
 
 CLUSTER_PROVIDERS = 2  # providers of a doc on each instance
-CLUSTER_ROUNDS = 2
+CLUSTER_DOCS = 512
+CLUSTER_ROUNDS = 1
 CLUSTER_CUTS = {
-    "docs": "100k docs cut to 1,024",
+    "docs": "100k docs cut to 512 (to 1,024 before the CLI and loadgen phases)",
+    "rounds": "1 round (2 before the CLI and loadgen phases)",
     "rate": "50 ops/s/doc cut to one edit per provider per round: one host thread "
-            "runs both servers and all 4,096 clients",
+            "runs both servers and all their clients",
 }
 CLUSTER_MAP_KEYS = 7
 # a config 4 doc holds two sequences, its Y.Text and its Y.Array, and each
@@ -2961,7 +3109,9 @@ TIPTAP_BURST = 100  # single-character inserts in one ProseMirror transaction
 TIPTAP_CHECKPOINTS = 8  # docs History checkpoints after round 1
 TIPTAP_RESTORES = 2  # of them, restored after round 2
 TIPTAP_SECRET = "chip-smoke-webhook-secret"
-TIPTAP_CUTS = {"docs": "10k docs cut to 1,024", "rounds": "2 rounds"}
+TIPTAP_DOCS = 512
+TIPTAP_CUTS = {"docs": "10k docs cut to 512 (to 1,024 before the CLI and loadgen phases)",
+               "rounds": "2 rounds"}
 # every sequence of a doc's XML tree takes an arena row (the fragment, the
 # heading and its text, the paragraph and its text): the plane has eight
 # rows per doc, as the JAX package's config 3 bench sizes it
@@ -3438,13 +3588,13 @@ COMPACT_TWINS = {"unit": "cpu", "rle": "shadow"}
 # docs driven through each compaction phase (the arenas keep 1,024 rows):
 # a run-length row takes ~4,000 Python-lowered ops to fill, ~6.9 million
 # for 1,024 docs, the largest share of the smoke's time
-COMPACT_DRIVEN = {"unit": 512, "rle": 256}
+COMPACT_DRIVEN = {"unit": 128, "rle": 64}
 COMPACT_CUTS = {
-    "unit": {"docs": "512 of the 1,024 rows' docs driven (1,024 before the Redis and Tiptap "
-                     "phases joined the smoke)"},
-    "rle": {"docs": "256 of the 1,024 rows' docs driven to retirement and back (1,024 before "
+    "unit": {"docs": "128 of the 1,024 rows' docs driven (1,024 before the Redis and Tiptap "
+                     "phases joined the smoke, 512 before the CLI and loadgen phases)"},
+    "rle": {"docs": "64 of the 1,024 rows' docs driven to retirement and back (1,024 before "
                     "Metrics and the WAL joined the supervised phases, 512 before the Redis and "
-                    "Tiptap phases)"},
+                    "Tiptap phases, 256 before the CLI and loadgen phases)"},
 }
 
 
@@ -3803,9 +3953,599 @@ def phase_compact_plane(rng, arena, num_docs, capacity, twin, driven=None, cuts=
     return launches, out["max_abs_err"]
 
 
+# -- the port's entry points: the CLI in a process of its own, and loadgen -----
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CLI_DOCS_PER_SOCKET = 64  # docs multiplexed on one client websocket
+CLI_PROVIDERS = 2  # editing providers a doc, each set on sockets of its own
+CLI_DRAIN_TIMEOUT_S = 20.0  # the CLI's --drain-timeout-secs default
+CLI_PROFILE_SECS = 3.0  # the server's /debug/profile capture, over the round
+CLI_READY_S = 300.0  # a CLI process must answer /healthz READY within this
+CLI_CUTS = {
+    "providers": "2 editing providers a doc (10 in config 2), 1 late joiner, 1 fresh reader",
+    "rounds": "1 round of one edit per provider",
+}
+# loadgen: the published scenarios, replication_lag widened to 1,024 docs
+LOADGEN_SEED = 7
+LOADGEN_DOCS_SCENARIO = "replication_lag"
+# the schedules' hashes as the JAX package compiles them
+# (tests/test_torch_smoke_phases.py holds these constants to it)
+LOADGEN_HASHES = {
+    ("smoke", None): "6ba1ee244d310ad46e5660213b8725400f0e02f5480f3944d13951af736a9eb6",
+    ("replication_lag", 1024): "bb255b3a250b59ad056ab26e217d3d246efa40ce40715597eef8a887a99d9f32",
+}
+LOADGEN_ACK_S = 120.0  # acknowledged edits must be observed on the other instance within this
+LOADGEN_READERS_PER_CHUNK = 64  # fresh readers joining the other instance at once
+LOADGEN_CUTS = {"docs": "replication_lag's 16 docs widened to 1,024 (its other parameters as published)"}
+
+
+def free_port() -> int:
+    """A free loopback port, picked as tests/server/test_cli.py picks it."""
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    return port
+
+
+class CliServer:
+    """`python -m hocuspocus_tpu_torch.cli` in a process of its own on a
+    free loopback port, its output in `log_path`."""
+
+    def __init__(self, args, log_path: str) -> None:
+        self.port = free_port()
+        self.args = ["--host", "127.0.0.1", "--port", str(self.port), *args]
+        self.log_path = log_path
+        self.url = f"ws://127.0.0.1:{self.port}"
+        self.http = f"http://127.0.0.1:{self.port}"
+        self.process = None
+        self._log = None
+        self._session = None
+
+    def tail(self, size: int = 3000) -> str:
+        try:
+            with open(self.log_path, "rb") as fh:
+                return fh.read()[-size:].decode("utf-8", "replace")
+        except OSError:
+            return ""
+
+    async def start(self, what: str) -> float:
+        """Spawn and wait until /healthz reads the supervised plane READY;
+        returns the seconds that took."""
+        import aiohttp
+
+        started = time.perf_counter()
+        self._log = open(self.log_path, "ab")
+        self.process = await asyncio.create_subprocess_exec(
+            sys.executable, "-m", "hocuspocus_tpu_torch.cli", *self.args,
+            cwd=ROOT, stdout=self._log, stderr=subprocess.STDOUT,
+        )
+        self._session = aiohttp.ClientSession()
+        while True:
+            check(self.process.returncode is None,
+                  f"{what}: the CLI exited with {self.process.returncode}: {self.tail()}")
+            check(time.perf_counter() - started < CLI_READY_S,
+                  f"{what}: the CLI was not READY within {CLI_READY_S} s: {self.tail()}")
+            try:
+                status, text = await self.get("/healthz")
+                section = json.loads(text)["extensions"]["SupervisedTpuMergeExtension"]
+                check(section["fault"] is None, f"{what}: the plane failed: {section['fault']}")
+                if section["state"] == "ready":
+                    return time.perf_counter() - started
+            except (OSError, aiohttp.ClientError, KeyError, ValueError):
+                pass
+            await asyncio.sleep(0.2)
+
+    async def get(self, path: str, **query) -> tuple:
+        async with self._session.get(self.http + path, params=query) as response:
+            return response.status, await response.text()
+
+    async def stop(self, timeout: float) -> tuple:
+        """SIGTERM (the graceful drain); returns (exit code, seconds to exit),
+        the code None when the process outlived `timeout` (it is then killed)."""
+        import signal
+
+        started = time.perf_counter()
+        self.process.send_signal(signal.SIGTERM)
+        try:
+            code = await asyncio.wait_for(self.process.wait(), timeout)
+        except asyncio.TimeoutError:
+            code = None
+        seconds = time.perf_counter() - started
+        await self.close()
+        return code, seconds
+
+    async def close(self) -> None:
+        if self.process is not None and self.process.returncode is None:
+            self.process.kill()
+            await self.process.wait()
+        if self._session is not None:
+            await self._session.close()
+            self._session = None
+        if self._log is not None:
+            self._log.close()
+            self._log = None
+
+
+def _open_providers(url, names, sockets, per_socket=CLI_DOCS_PER_SOCKET):
+    """One provider a doc over HocuspocusProviderWebsockets, `per_socket`
+    docs multiplexed on each (the sockets are appended to `sockets`)."""
+    from hocuspocus_tpu_torch.provider import HocuspocusProvider, HocuspocusProviderWebsocket
+
+    providers = []
+    for base in range(0, len(names), per_socket):
+        socket = HocuspocusProviderWebsocket(url=url)
+        sockets.append(socket)
+        for name in names[base:base + per_socket]:
+            provider = HocuspocusProvider(name=name, websocket_provider=socket)
+            provider.attach()
+            providers.append(provider)
+    return providers
+
+
+def _sync_clock(providers) -> list:
+    """Each provider's seconds from now to its `synced` event (filled in
+    as the events come)."""
+    started = time.perf_counter()
+    seconds = [None] * len(providers)
+    for i, provider in enumerate(providers):
+        def on_synced(payload, i=i):
+            if payload.get("state") and seconds[i] is None:
+                seconds[i] = time.perf_counter() - started
+        provider.on("synced", on_synced)
+    return seconds
+
+
+async def _until(condition, deadline_s: float, message) -> float:
+    started = time.perf_counter()
+    while not condition():
+        check(time.perf_counter() - started < deadline_s, message() if callable(message) else message)
+        await asyncio.sleep(0.02)
+    return time.perf_counter() - started
+
+
+def _k1_launches(series) -> int:
+    """K1 launches in a /metrics scrape: the device watch's launch series
+    (first launches and repeats) of the integrate sites."""
+    return int(sum(
+        value for (name, labels), value in series.items()
+        if name == "hocuspocus_tpu_compile_events_total"
+        and dict(labels).get("site") in ("integrate_dense", "integrate_sparse")
+    ))
+
+
+def _plane_families() -> set:
+    """The plane's counter families on /metrics, named from a CPU plane's books."""
+    from hocuspocus_tpu_torch.tpu import MergePlane
+
+    plane = MergePlane(num_docs=2, capacity=8, device="cpu")
+    return {f"hocuspocus_tpu_plane_{key.removeprefix('plane_')}" for key in plane.counters} | {
+        "hocuspocus_tpu_plane_ops_integrated",
+        "hocuspocus_tpu_supervisor_state",
+        "hocuspocus_tpu_compile_events_total",
+        "hocuspocus_wal_appended_records",
+    }
+
+
+async def run_cli_server(rng, num_docs, device="cuda", arena="unit", providers=CLI_PROVIDERS,
+                         profile_secs=CLI_PROFILE_SECS, drain_timeout_s=CLI_DRAIN_TIMEOUT_S,
+                         extra_args=()):
+    """The port's CLI as a user starts it: `python -m hocuspocus_tpu_torch.cli
+    --tpu-serve --metrics --wal-dir D` at its defaults (the supervised unit
+    plane at 1,024 x 4,096 unless `arena` says otherwise), in a process of
+    its own, on `device`. The clients live here: `providers` editing
+    providers a doc over the port's websocket provider, 64 docs a socket,
+    each set on sockets of its own. One round of config 2's random-position
+    edits, one a provider, under one /debug/profile capture of the server;
+    a late joiner a doc; /metrics scraped over HTTP; SIGTERM's graceful
+    drain; then a second CLI process on the same WAL directory serves every
+    doc to a fresh provider. `extra_args` go to both CLI processes (a
+    rehearsal's smaller plane). Every check raises SmokeFailure."""
+    from hocuspocus_tpu_torch.crdt import encode_state_as_update
+    from hocuspocus_tpu_torch.tpu.supervisor import STATE_CODES, STATE_READY
+
+    tag = "cli_server"
+    started = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="chip-smoke-cli-")
+    args = [
+        "--tpu-serve", "--metrics", "--wal-dir", os.path.join(workdir, "wal"),
+        "--tpu-arena", arena, "--tpu-device", device,
+        "--drain-timeout-secs", str(drain_timeout_s), *extra_args,
+    ]
+    names = [f"cli-{i}" for i in range(num_docs)]
+    sockets, everyone = [], []
+    servers = [CliServer(args, os.path.join(workdir, "server-1.log")),
+               CliServer(args, os.path.join(workdir, "server-2.log"))]
+    first, second = servers
+    try:
+        boot_seconds = await first.start(tag)
+        sets = [_open_providers(first.url, names, sockets) for _ in range(providers)]
+        everyone = [p for group in sets for p in group]
+        editors_synced = _sync_clock(everyone)
+        await _until(lambda: all(p.synced for p in everyone), 600,
+                     lambda: f"{tag}: {sum(not p.synced for p in everyone)} editors never synced")
+        setup_seconds = time.perf_counter() - started
+
+        clock = EditClock(asyncio.Event())
+        for group in sets[:2]:
+            for provider in group:
+                clock.watch(provider)
+        capture = asyncio.ensure_future(first.get("/debug/profile", secs=str(profile_secs)))
+        round_started = time.perf_counter()
+        edits = inserts = 0
+        for d in range(num_docs):
+            for j in range(providers):
+                provider = sets[j][d]
+                edits += 1
+                if _server_edit(rng, provider.document.get_text("t")):
+                    inserts += 1
+                    clock.expect(sets[1 if j == 0 else 0][d], provider)
+            if d % 16 == 15:
+                await asyncio.sleep(0)
+        await asyncio.wait_for(clock.idle.wait(), 300)
+        await _until(lambda: not any(p.has_unsynced_changes for p in everyone), 120,
+                     f"{tag}: edits never acknowledged")
+        round_seconds = time.perf_counter() - round_started
+        status, text = await capture
+        check(status == 200, f"{tag}: /debug/profile answered {status}")
+        profile = json.loads(text)
+        check("error" not in profile, f"{tag}: /debug/profile: {profile.get('error')}")
+
+        # a late joiner a doc; every doc's providers hold the same bytes
+        joiners = _open_providers(first.url, names, sockets)
+        joined = _sync_clock(joiners)
+        await _until(lambda: all(p.synced for p in joiners), 300,
+                     lambda: f"{tag}: {sum(not p.synced for p in joiners)} joiners never synced")
+        expected = {}
+
+        def converged() -> bool:
+            for d, name in enumerate(names):
+                states = {encode_state_as_update(group[d].document) for group in (*sets, joiners)}
+                if len(states) != 1:
+                    return False
+                expected[name] = states.pop()
+            return True
+
+        await _until(converged, 120, f"{tag}: a doc's providers and joiner hold different bytes")
+
+        # /metrics over HTTP: the plane's families, and every edit integrated
+        families = _plane_families()
+        scraped = {}
+
+        async def scrape_first():
+            status, text = await first.get("/metrics")
+            check(status == 200, f"{tag}: /metrics answered {status}")
+            scraped.update(parse_prometheus(text, f"{tag} /metrics"))
+            return scraped.get(("hocuspocus_tpu_plane_ops_integrated", ()))
+
+        deadline = time.perf_counter() + 60
+        while await scrape_first() != edits:
+            check(time.perf_counter() < deadline,
+                  f"{tag}: /metrics ops integrated "
+                  f"{scraped.get(('hocuspocus_tpu_plane_ops_integrated', ()))} for {edits} edits")
+            await asyncio.sleep(0.2)
+        listed = {name for name, _labels in scraped}
+        check(families <= listed, f"{tag}: /metrics lacks {sorted(families - listed)}")
+        check(scraped[("hocuspocus_tpu_supervisor_state", ())] == STATE_CODES[STATE_READY],
+              f"{tag}: supervisor state {scraped[('hocuspocus_tpu_supervisor_state', ())]}")
+        check(scraped[("hocuspocus_wal_appended_records", ())] >= edits,
+              f"{tag}: the WAL appended {scraped[('hocuspocus_wal_appended_records', ())]} records")
+        plane = {name.removeprefix("hocuspocus_tpu_plane_"): value
+                 for (name, labels), value in scraped.items()
+                 if name.startswith("hocuspocus_tpu_plane_") and not labels}
+        check(plane["cpu_fallbacks"] == 0, f"{tag}: {plane['cpu_fallbacks']} CPU fallbacks")
+        check(plane["broadcasts"] > 0, f"{tag}: no broadcast went through the plane")
+        retired = {k: v for k, v in plane.items() if k.startswith("docs_retired_") and v}
+        check(not retired, f"{tag}: docs retired {retired}")
+        launches = {"first": _k1_launches(scraped)}
+
+        for p in everyone + joiners:
+            p.destroy()
+        for socket in sockets:
+            socket.destroy()
+        sockets.clear()
+        await asyncio.sleep(0.2)
+        code, drain_seconds = await first.stop(drain_timeout_s + 10)
+        check(code == 0, f"{tag}: after SIGTERM the CLI exited with {code}: {first.tail()}")
+        check(drain_seconds <= drain_timeout_s,
+              f"{tag}: the drain took {drain_seconds:.3f} s, over --drain-timeout-secs {drain_timeout_s}")
+
+        # WAL replay through the entry point: a second process, fresh readers
+        replay_started = time.perf_counter()
+        reboot_seconds = await second.start(f"{tag} replay")
+        readers = _open_providers(second.url, names, sockets)
+        await _until(lambda: all(p.synced for p in readers), 300,
+                     lambda: f"{tag}: {sum(not p.synced for p in readers)} readers never synced "
+                             "after the restart")
+
+        def replayed() -> list:
+            return [p.name for p in readers if encode_state_as_update(p.document) != expected[p.name]]
+
+        await _until(lambda: not replayed(), 60,
+                     lambda: f"{tag}: {len(replayed())} docs served back other bytes after the restart")
+        replay_seconds = time.perf_counter() - replay_started
+        status, text = await second.get("/metrics")
+        check(status == 200, f"{tag}: the second process's /metrics answered {status}")
+        launches["replay"] = _k1_launches(parse_prometheus(text, f"{tag} replay /metrics"))
+        for p in readers:
+            p.destroy()
+        for socket in sockets:
+            socket.destroy()
+        sockets.clear()
+        await asyncio.sleep(0.2)
+        code2, drain2_seconds = await second.stop(drain_timeout_s + 10)
+        check(code2 == 0, f"{tag}: the second CLI exited with {code2}: {second.tail()}")
+    except SmokeFailure as failure:
+        notes = []
+        for i, server in enumerate(servers):
+            if server.process is None:
+                continue
+            health = None
+            if server.process.returncode is None:
+                try:
+                    health = (await server.get("/healthz"))[1][:1500]
+                except Exception as error:  # noqa: BLE001 - a note on a failure
+                    health = repr(error)
+            notes.append(f"server {i + 1}: /healthz {health}; log {server.tail()}")
+        raise SmokeFailure(f"{failure}; {' | '.join(notes)}") from None
+    finally:
+        for socket in sockets:
+            socket.destroy()
+        for server in servers:
+            await server.close()
+        shutil.rmtree(workdir, ignore_errors=True)
+    server_gc = profile["gc"]
+    return {
+        "seconds": round(time.perf_counter() - started, 3),
+        "boot_seconds": round(boot_seconds, 3),
+        "setup_seconds": round(setup_seconds, 3),
+        "round_seconds": round(round_seconds, 3),
+        "edits": edits,
+        "inserts": inserts,
+        "edit_observe": percentiles_ms(clock.samples),
+        "editors_synced": percentiles_ms([s for s in editors_synced if s is not None]),
+        "join_synced": percentiles_ms([s for s in joined if s is not None]),
+        "drain_seconds": round(drain_seconds, 3),
+        "replay": {"boot_seconds": round(reboot_seconds, 3), "seconds": round(replay_seconds, 3),
+                   "docs": len(expected), "drain_seconds": round(drain2_seconds, 3)},
+        "server_profile": {"seconds": profile["seconds"], "gc": server_gc,
+                           "device_events": profile["device_events"],
+                           "device_activity_names": len(profile["kernels"]),
+                           "integrate_kernels": sorted({
+                               match.group(0) for match in map(
+                                   re.compile(r"integrate\w*kernel").search, profile["kernels"])
+                               if match})},
+        "server_gc2_share": server_gc["gen2"]["share"],
+        "plane_counters": {k: plane[k] for k in (
+            "broadcasts", "cpu_fallbacks", "sync_serves", "sync_cache_hits",
+            "flush_fast_ops", "flush_slow_ops", "flush_batches_dense", "flush_batches_sparse")},
+        "ops_integrated": edits,
+        "k1_launches": launches,
+        "metrics_series": len(scraped),
+    }
+
+
+def phase_cli_server(rng, num_docs, cuts):
+    """The CLI's default deployment through its entry point (run_cli_server).
+    The server is another process, so the kernel is held to its plain
+    version through what it serves: every doc byte-identical across its
+    providers and joiner, and again after the WAL replay in a second
+    process (max_abs_err 0 only then; any difference fails the phase). K1's
+    launches are the servers' own /metrics (the device watch's integrate
+    launch series). Returns (launches, max_abs_err)."""
+    import torch
+
+    torch.cuda.empty_cache()  # the earlier phases' arenas, before another process takes the card
+    out = asyncio.run(run_cli_server(rng, num_docs))
+    launches = sum(out["k1_launches"].values())
+    emit(
+        "cli_server",
+        gpu=nvidia_smi_line(),
+        config="BASELINE config 2: 1k Y.Text docs, random-position insert/delete, through "
+               "`python -m hocuspocus_tpu_torch.cli --tpu-serve --metrics --wal-dir D` at its defaults",
+        arena="unit",
+        docs=num_docs,
+        capacity=4096,
+        docs_per_socket=CLI_DOCS_PER_SOCKET,
+        cuts=cuts,
+        k1_launches_from="the servers' /metrics: hocuspocus_tpu_compile_events_total, sites "
+                         "integrate_dense and integrate_sparse, kinds compile and hit",
+        max_abs_err=0,
+        **out,
+    )
+    check(launches > 0, "cli_server: the servers' /metrics show no K1 launch")
+    return launches, 0
+
+
+def acked_runner(schedule, device):
+    """The port's ScenarioRunner, with one check added before the
+    population is torn down: every writer's edits must be acknowledged,
+    every sampled doc's reader must hold its writer's bytes, and with two
+    instances every other doc too, read by a fresh provider on the other
+    instance (it loads the doc there, whose Redis join fetches the
+    writer's instance's state): every acknowledged edit of every doc is
+    observed on the other instance (`runner.acked`)."""
+    from hocuspocus_tpu_torch.crdt import encode_state_as_update
+    from hocuspocus_tpu_torch.loadgen import ScenarioRunner
+    from hocuspocus_tpu_torch.provider import HocuspocusProvider, InProcessProviderSocket
+
+    class Runner(ScenarioRunner):
+        acked = None
+
+        async def _teardown(self):
+            try:
+                harness = self.harness
+                if harness.servers:
+                    await self._acknowledged(harness)
+            finally:
+                await super()._teardown()
+
+        async def _acknowledged(self, harness):
+            wait = await _until(
+                lambda: not any(p.has_unsynced_changes for p in harness.writers),
+                LOADGEN_ACK_S, "loadgen: writers' edits never acknowledged")
+            # the sampled readers, then LOADGEN_READERS_PER_CHUNK fresh
+            # readers at a time, each chunk observed before the next joins
+            # (the joins' SyncStep1 and QueryAwareness frames of 1,018 docs
+            # at once overflow MiniRedis's 1,024-frame subscriber queue)
+            chunks = [dict(enumerate(harness.readers))]
+            if len(harness.servers) > 1:
+                chunks += [range(base, min(base + LOADGEN_READERS_PER_CHUNK, harness.num_docs))
+                           for base in range(harness.sampled, harness.num_docs,
+                                             LOADGEN_READERS_PER_CHUNK)]
+            observed = 0
+            for chunk in chunks:
+                if not isinstance(chunk, dict):
+                    socket = InProcessProviderSocket(harness.servers[1])
+                    harness.sockets.append(socket)  # destroyed by the harness's teardown
+                    readers = {}
+                    for d in chunk:
+                        readers[d] = HocuspocusProvider(name=f"load-{d}", websocket_provider=socket)
+                        readers[d].attach()
+                        harness.readers.append(readers[d])
+                    chunk = readers
+
+                def unobserved(chunk=chunk):
+                    return [d for d, reader in chunk.items()
+                            if encode_state_as_update(reader.document)
+                            != encode_state_as_update(harness.writers[d].document)]
+
+                wait += await _until(
+                    lambda: not unobserved(), LOADGEN_ACK_S,
+                    lambda: f"loadgen: acknowledged edits of docs {unobserved()[:16]} never "
+                            f"observed on the other instance ({self._redis_counters(harness)})")
+                observed += len(chunk)
+            self.acked = {"writers": len(harness.writers), "docs_observed": observed,
+                          "fresh_readers": observed - harness.sampled,
+                          "wait_s": round(wait, 3)}
+
+        @staticmethod
+        def _redis_counters(harness):
+            return None if harness.mini_redis is None else dict(harness.mini_redis.counters)
+
+    return Runner(schedule, device=device)
+
+
+def _scenario_summary(result) -> dict:
+    return {
+        "verdict": result["verdict"],
+        "schedule_hash": result["schedule_hash"],
+        "breached": result["slo"]["breached_targets"],
+        "phases": [
+            {k: phase[k] for k in ("name", "slo_e2e_ms", "measured_ops", "failed_ops",
+                                   "latency_p50_ms", "latency_p99_ms", "breached")}
+            for phase in result["phases"]
+        ],
+        "ops": {k: result["extra"][k] for k in ("ops_total", "ops_measured", "ops_failed")},
+        "setup_s": result["extra"]["setup_s"],
+        "elapsed_s": result["extra"]["elapsed_s"],
+        "behind_ms_max": result["extra"]["behind_ms_max"],
+        "cpu_fallbacks": [h["cpu_fallbacks"] for h in result["extra"]["plane_health"]],
+        # ops each plane integrated through K1 (its flushes' full-integrate
+        # batches) and through the append path
+        "k1_ops": [h["flush_slow_ops"] for h in result["extra"]["plane_health"]],
+        "append_ops": [h["flush_fast_ops"] for h in result["extra"]["plane_health"]],
+    }
+
+
+async def run_loadgen(num_docs, device="cuda", seed=LOADGEN_SEED):
+    """The port's ScenarioRunner: `smoke` at its defaults (its verdict must
+    be pass), then `replication_lag` widened to `num_docs` (two instances
+    over the port's MiniRedis, the scenario's other parameters as
+    published; its SLO verdicts are reported, not gated), each schedule's
+    hash held to the JAX package's. Returns the numbers."""
+    from hocuspocus_tpu_torch.loadgen import get_scenario
+    from hocuspocus_tpu_torch.tpu.scheduler import reset_device_lane
+
+    out = {}
+    for name, docs in (("smoke", None), (LOADGEN_DOCS_SCENARIO, num_docs)):
+        reset_device_lane()
+        scenario = get_scenario(name) if docs is None else get_scenario(name, num_docs=docs)
+        schedule = scenario.compile(seed)
+        expected = LOADGEN_HASHES.get((name, docs))
+        check(expected is None or schedule.schedule_hash == expected,
+              f"loadgen {name}: schedule hash {schedule.schedule_hash} against the reference's {expected}")
+        runner = acked_runner(schedule, device)
+        started = time.perf_counter()
+        result = await runner.run()
+        check(result["schedule_hash"] == schedule.schedule_hash, f"loadgen {name}: the run's hash differs")
+        out[name] = {"seconds": round(time.perf_counter() - started, 3), "docs": scenario.num_docs,
+                     "acked": runner.acked, **_scenario_summary(result)}
+        if name == LOADGEN_DOCS_SCENARIO:
+            out[name]["mini_redis"] = result["extra"].get("mini_redis")
+    return out
+
+
+def _loadgen_cli(seed=LOADGEN_SEED, timeout=300) -> dict:
+    """`python -m hocuspocus_tpu_torch.loadgen --scenario smoke` as a user
+    runs it (on the card, its default): exit code 0 and a pass verdict."""
+    started = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "hocuspocus_tpu_torch.loadgen", "--scenario", "smoke", "--seed", str(seed)],
+        cwd=ROOT, capture_output=True, text=True, timeout=timeout,
+    )
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and lines,
+          f"loadgen CLI: exit code {proc.returncode}: {proc.stdout[-1000:]} {proc.stderr[-2000:]}")
+    artifact = json.loads(lines[-1])
+    check(artifact["verdict"] == "pass", f"loadgen CLI: verdict {artifact['verdict']}")
+    return {"exit_code": proc.returncode, "verdict": artifact["verdict"],
+            "schedule_hash": artifact["schedule_hash"], "seconds": round(time.perf_counter() - started, 3)}
+
+
+def phase_loadgen(num_docs, cuts):
+    """The loadgen entry points on the card (run_loadgen, then the module's
+    command line). Gated on correctness only: smoke's verdict pass, the
+    schedules' hashes, every acknowledged edit observed on the other
+    instance, and K1 launched. Every loadgen edit is an append, which the
+    append path takes: each plane's K1 ops are counted, and where no
+    plane integrated one, K1's launches here are no-op batches (the
+    planes' warm grid) and there is no batch to replay kernel vs plain;
+    the line says so. Returns (launches, max_abs_err)."""
+    from hocuspocus_tpu_torch.tpu import integrate as ti
+
+    started = time.perf_counter()
+    dense_name, sparse_name = ARENAS["unit"]["wrap"]
+    dense_fn, sparse_fn = getattr(ti, dense_name), getattr(ti, sparse_name)
+    dense_fn.launches = sparse_fn.launches = 0
+    out = asyncio.run(run_loadgen(num_docs))
+    launches = dense_fn.launches + sparse_fn.launches
+    k1_ops = sum(sum(scenario["k1_ops"]) for scenario in out.values())
+    cli = _loadgen_cli()
+    check(cli["schedule_hash"] == out["smoke"]["schedule_hash"], "loadgen CLI: another smoke schedule")
+    emit(
+        "loadgen",
+        gpu=nvidia_smi_line(),
+        arena="unit",
+        cuts=cuts,
+        seed=LOADGEN_SEED,
+        scenarios=out,
+        cli=cli,
+        integrate_launches={dense_name: dense_fn.launches, sparse_name: sparse_fn.launches},
+        k1_ops=k1_ops,
+        kernel_vs_plain=(
+            "not replayed: no plane integrated an op through K1 (every edit an append, taken "
+            "by the append path); K1's launches here are the warm grid's no-op batches"
+            if k1_ops == 0 else "not replayed: this path keeps no batch"
+        ),
+        seconds=round(time.perf_counter() - started, 3),
+    )
+    check(out["smoke"]["verdict"] == "pass", f"loadgen smoke: verdict {out['smoke']['verdict']}")
+    check(out[LOADGEN_DOCS_SCENARIO]["acked"] is not None, "loadgen: the acknowledgement check did not run")
+    check(out[LOADGEN_DOCS_SCENARIO]["acked"]["docs_observed"] == num_docs,
+          f"loadgen: {out[LOADGEN_DOCS_SCENARIO]['acked']} docs observed on the other instance")
+    check(launches > 0, "loadgen: K1 never launched from the scenario runs")
+    return launches, 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=7)
+    parser.add_argument("--supervised-docs", type=int, default=None, metavar="N",
+                        help="run only the unit supervised phase with N docs driven (the "
+                             "smoke's reported run, supervised_server_full) and exit")
     args = parser.parse_args(argv)
 
     import torch
@@ -3823,6 +4563,20 @@ def main(argv=None) -> int:
     random.seed(args.seed)  # the CRDT engine draws replacement client ids here
     rng = np.random.default_rng(args.seed)
     results = {"unit": {}, "rle": {}}
+    if args.supervised_docs is not None:
+        try:
+            phase_native_build()
+            phase_build()
+            phase_supervised_server(
+                rng, "unit", num_docs=1024, capacity=4096, clients=SERVER_CLIENTS,
+                rounds=SUPERVISED_ROUNDS, evict_idle_secs=EVICT_IDLE_SECS,
+                cuts={"rounds": SUPERVISED_CUTS["rounds"]}, driven=args.supervised_docs,
+                device_profile=False,
+            )
+        except SmokeFailure as failure:
+            print(f"chip_smoke: FAILED: {failure}", file=sys.stderr)
+            return 1
+        return 0
     try:
         phase_native_build()
         phase_build()
@@ -3847,13 +4601,13 @@ def main(argv=None) -> int:
             del recorded
         for arena in ("unit", "rle"):
             results[arena]["server"], results[arena]["server_err"] = phase_server(
-                rng, arena, num_docs=1024, capacity=4096, clients=SERVER_CLIENTS,
+                rng, arena, num_docs=SERVER_DOCS, capacity=4096, clients=SERVER_CLIENTS,
                 rounds=SERVER_ROUNDS, cuts=SERVER_CUTS,
             )
         for arena in ("unit", "rle"):
             # the earlier served path (Python host path), kept driven
             results[arena]["server_python"], results[arena]["server_python_err"] = phase_server(
-                rng, arena, num_docs=1024, capacity=4096, clients=SERVER_CLIENTS,
+                rng, arena, num_docs=PYTHON_SERVER_DOCS, capacity=4096, clients=SERVER_CLIENTS,
                 rounds=PYTHON_SERVER_ROUNDS, cuts=PYTHON_SERVER_CUTS, native_lane=False,
                 join_waves=PYTHON_SERVER_JOIN_WAVES,
             )
@@ -3863,7 +4617,7 @@ def main(argv=None) -> int:
                 phase_supervised_server(
                     rng, arena, num_docs=1024, capacity=4096, clients=SERVER_CLIENTS,
                     rounds=SUPERVISED_ROUNDS, evict_idle_secs=EVICT_IDLE_SECS,
-                    cuts=SUPERVISED_CUTS,
+                    cuts=SUPERVISED_CUTS, driven=SUPERVISED_DRIVEN,
                 )
             )
         for arena in ("unit", "rle"):
@@ -3875,17 +4629,31 @@ def main(argv=None) -> int:
         # arena); configs 3 and 1: Tiptap docs behind SQLite, a webhook and
         # History (run-length arena). An arena a path does not run reports 0
         results["unit"]["cluster_server"], results["unit"]["cluster_server_err"] = phase_cluster_server(
-            rng, num_docs=1024, capacity=4096, cuts=CLUSTER_CUTS,
+            rng, num_docs=CLUSTER_DOCS, capacity=4096, cuts=CLUSTER_CUTS,
         )
         results["rle"]["tiptap_server"], results["rle"]["tiptap_server_err"] = phase_tiptap_server(
-            rng, num_docs=1024, capacity=4096, cuts=TIPTAP_CUTS,
+            rng, num_docs=TIPTAP_DOCS, capacity=4096, cuts=TIPTAP_CUTS,
         )
-        for arena, path in (("rle", "cluster_server"), ("unit", "tiptap_server")):
+        # the port's entry points: the CLI in a process of its own (its
+        # default deployment) and the scenario runner, both on the unit arena
+        results["unit"]["cli_server"], results["unit"]["cli_server_err"] = phase_cli_server(
+            rng, num_docs=1024, cuts=CLI_CUTS,
+        )
+        results["unit"]["loadgen"], results["unit"]["loadgen_err"] = phase_loadgen(
+            num_docs=1024, cuts=LOADGEN_CUTS,
+        )
+        for arena, path in (("rle", "cluster_server"), ("unit", "tiptap_server"),
+                            ("rle", "cli_server"), ("rle", "loadgen")):
             results[arena][path] = results[arena][f"{path}_err"] = 0
+        phase_supervised_full(args.seed, started)
         smi = nvidia_smi_line()
     except SmokeFailure as failure:
         print(f"chip_smoke: FAILED: {failure}", file=sys.stderr)
         return 1
+    marks = [("start", started), *EMITTED]
+    emit("phase_clock", seconds={
+        tag: round(at - marks[i][1], 3) for i, (tag, at) in enumerate(marks[1:])
+    })
     emit("total", seconds=round(time.perf_counter() - started, 3))
     print(smi, flush=True)
     kernels = (

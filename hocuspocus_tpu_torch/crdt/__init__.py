@@ -4,8 +4,9 @@ A copy of the JAX package's pure-Python engine, so the port imports
 nothing of that package. Public API mirrors the yjs surface the server
 uses: Doc, apply_update, encode_state_as_update, encode_state_vector,
 merge_updates, diff_update, snapshots, the shared types, and
-`PermanentUserData` (History's change attribution). Undo and relative
-positions are not ported yet. The bulk varint helpers and the idempotent-
+`PermanentUserData` (History's change attribution), relative positions
+(the provider's awareness cursors) and, in `crdt.undo`, the
+`UndoManager`. The bulk varint helpers and the idempotent-
 redelivery scan run in the port's native codec
 (`hocuspocus_tpu_torch.native`), built at first use.
 """
@@ -15,6 +16,15 @@ from .doc import Doc, Observable, Transaction
 from .encoding import Decoder, Encoder, UNDEFINED
 from .ids import ID, compare_ids
 from .permanent_user_data import PermanentUserData
+from .relative_position import (
+    AbsolutePosition,
+    RelativePosition,
+    compare_relative_positions,
+    create_absolute_position_from_relative_position,
+    create_relative_position_from_type_index,
+    decode_relative_position,
+    encode_relative_position,
+)
 from .structs import GC, Item, Skip, StructStore
 from .types import (
     AbstractType,
@@ -89,4 +99,11 @@ __all__ = [
     "split_snapshot_affected_structs",
     "snapshot_contains_update",
     "PermanentUserData",
+    "AbsolutePosition",
+    "RelativePosition",
+    "compare_relative_positions",
+    "create_absolute_position_from_relative_position",
+    "create_relative_position_from_type_index",
+    "decode_relative_position",
+    "encode_relative_position",
 ]

@@ -16,6 +16,7 @@ instance at scrape time.
 from __future__ import annotations
 
 import asyncio
+import gc
 import os
 import sys
 import time
@@ -55,8 +56,8 @@ class Metrics(Extension):
         # torch.profiler capture), /debug/profile/cpu (sampling profiler),
         # /debug/docs[/<name>] (flight recorder), /debug/slo (burn-rate
         # rollup), /debug/fleet (federated telemetry rollup),
-        # /debug/scheduler, /debug/costs; /debug/loadgen answers 404
-        # until the loadgen package is ported
+        # /debug/scheduler, /debug/costs, /debug/loadgen (scenario-run
+        # timeline)
         self.debug_endpoints = debug_endpoints
         self._instance = None
         self._plane_owner = None  # extension owning the plane, for /debug/docs
@@ -715,14 +716,12 @@ class Metrics(Extension):
                 # its own — the one pane for "is the fleet healthy?"
                 self._serve_json(data, self.fleet.status())
             if path == "/debug/loadgen":
-                # the live scenario-run timeline comes with the loadgen
-                # package (ROADMAP.md, Queue A); until then the route
-                # answers 404 so tooling sees the endpoint but no run
-                self._serve_json(
-                    data,
-                    {"error": "loadgen is not part of this package yet"},
-                    status=404,
-                )
+                # live scenario-run timeline: the loadgen runner narrates
+                # into a process-global singleton; imported lazily so
+                # serving /metrics never pulls the loadgen package
+                from ..loadgen.timeline import get_loadgen_timeline
+
+                self._serve_json(data, get_loadgen_timeline().status())
             if path == "/debug/scheduler":
                 self._serve_json(data, self._scheduler_overview())
             if path == "/debug/trace":
@@ -810,7 +809,10 @@ class Metrics(Extension):
         (`Tracer.device_span`) annotate the capture via
         `torch.profiler.record_function`. A
         capture that cannot start is reported in the answer; it never
-        changes how the plane runs."""
+        changes how the plane runs. `gc` is the process's garbage
+        collections in the window, by generation (count, seconds, share
+        of the window): a collection holds the interpreter lock, and the
+        sampling profiler cannot see it."""
         query = getattr(getattr(request, "rel_url", None), "query", None)
         if query is None:
             query = getattr(request, "query", None) or {}
@@ -836,8 +838,10 @@ class Metrics(Extension):
             capture.start()
         except Exception as error:
             return {"error": f"profiler start failed: {error!r}"}
+        gc_window = _GcWindow()
         try:
-            await asyncio.sleep(secs)
+            with gc_window:
+                await asyncio.sleep(secs)
         finally:
             try:
                 capture.stop()
@@ -853,6 +857,7 @@ class Metrics(Extension):
             "activities": [activity.name for activity in activities],
             "device_events": len(device_events),
             "kernels": sorted({event.name for event in device_events}),
+            "gc": gc_window.summary(secs),
         }
 
     def _planes(self) -> list:
@@ -907,3 +912,39 @@ class _ServeMetrics(Exception):
 
     def __str__(self) -> str:  # suppress hook-chain error logging
         return ""
+
+
+class _GcWindow:
+    """Garbage collections while the context is open, timed through
+    `gc.callbacks` (a collection runs on one thread and holds the
+    interpreter lock from its start to its stop)."""
+
+    def __init__(self) -> None:
+        self.counts = [0, 0, 0]
+        self.seconds = [0.0, 0.0, 0.0]
+        self._started = 0.0
+
+    def _callback(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._started = time.perf_counter()
+            return
+        generation = int(info.get("generation", 0))
+        self.counts[generation] += 1
+        self.seconds[generation] += time.perf_counter() - self._started
+
+    def __enter__(self) -> "_GcWindow":
+        gc.callbacks.append(self._callback)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        gc.callbacks.remove(self._callback)
+
+    def summary(self, window_s: float) -> dict:
+        return {
+            f"gen{generation}": {
+                "n": self.counts[generation],
+                "seconds": self.seconds[generation],
+                "share": self.seconds[generation] / window_s if window_s else None,
+            }
+            for generation in range(3)
+        }

@@ -16,7 +16,8 @@ token-bucket admission:
   send queues and watermark-crossing rate (observability/wire.py);
 - ``lane_depth``    — waiters queued for the device lane(s)
   (tpu/scheduler.py registers every ``DeviceLane``);
-- ``wal_commit_ms`` — last WAL group-commit duration (storage/wal.py);
+- ``wal_commit_ms`` — WAL group-commit latency: the running commit's
+  age, or the last commit's duration for one hold window (storage/wal.py);
 - ``inbox_depth``   — queued inbound replication frames
   (extensions/redis.py via the wire collector);
 - ``injected``      — synthetic pressure for chaos/scenario runs
@@ -395,10 +396,16 @@ class OverloadController:
         return float(total)
 
     def _wal_commit_ms(self) -> float:
+        """The worst WAL's commit latency as it is now
+        (`WalManager.commit_pressure_ms`): a finished commit counts for
+        one hold window. The JAX package reads the last commit's duration
+        however old, so one slow commit (a storm of first appends opening
+        a segment each) followed by quiet holds its ladder at RED, and
+        every new connection refused, until the next commit."""
         worst = 0.0
         for wal in list(self._wals):
             try:
-                worst = max(worst, float(wal.stats.get("commit_last_ms", 0.0)))
+                worst = max(worst, float(wal.commit_pressure_ms(self.hold_s)))
             except Exception:
                 continue
         return worst

@@ -451,6 +451,11 @@ class WalManager:
         self._journal_cache: "Optional[dict[str, list]]" = None
         self._journal_torn = 0
         self._journal_mutex = threading.Lock()
+        # the running group commit's start and the last one's end
+        # (time.monotonic()): the overload ladder reads commit latency
+        # as it is NOW, not as it was at the last commit (commit_pressure_ms)
+        self._commit_started_at: Optional[float] = None
+        self._commit_ended_at: Optional[float] = None
         self.stats = {
             "appended_records": 0,
             "appended_bytes": 0,
@@ -537,6 +542,20 @@ class WalManager:
             self._flush_task = loop.create_task(self._flush_async())
         return self._tick_future
 
+    def commit_pressure_ms(self, fresh_s: float) -> float:
+        """Group-commit latency as the disk shows it now: the running
+        commit's age, or the last commit's duration while it ended less
+        than `fresh_s` ago, else 0. `stats["commit_last_ms"]` keeps the
+        last duration for ever, and a slow commit followed by no traffic
+        would read as pressure for ever."""
+        now = time.monotonic()
+        started, ended = self._commit_started_at, self._commit_ended_at
+        running = (now - started) * 1000.0 if started is not None else 0.0
+        recent = 0.0
+        if ended is not None and now - ended <= fresh_s:
+            recent = float(self.stats.get("commit_last_ms", 0.0))
+        return max(running, recent)
+
     def _take_pending(self) -> "dict[str, list]":
         pending, self._pending = self._pending, {}
         return pending
@@ -566,8 +585,18 @@ class WalManager:
                     return
 
     def _commit(self, pending: "dict[str, list]") -> None:
-        """Executor thread: write every dirty doc's batch, then make the
-        whole tick durable with ONE journal fsync (tick mode)."""
+        """Executor thread (or the caller, with no loop): one group
+        commit, timed for `commit_pressure_ms` — it reads as running
+        pressure only while it runs, however it ends."""
+        self._commit_started_at = time.monotonic()
+        try:
+            self._commit_batch(pending)
+        finally:
+            self._commit_started_at = None
+
+    def _commit_batch(self, pending: "dict[str, list]") -> None:
+        """Write every dirty doc's batch, then make the whole tick
+        durable with ONE journal fsync (tick mode)."""
         commit_started = time.perf_counter()
         batch_records = 0
         journal_entries: "list[bytes]" = []
@@ -663,6 +692,7 @@ class WalManager:
         self.stats["commit_batch_records_last"] = batch_records
         commit_s = time.perf_counter() - commit_started
         self.stats["commit_last_ms"] = round(commit_s * 1000, 3)
+        self._commit_ended_at = time.monotonic()
         from ..observability.costs import get_cost_ledger
 
         ledger = get_cost_ledger()

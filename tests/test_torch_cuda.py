@@ -638,6 +638,29 @@ def test_metrics_and_wal_beside_the_supervised_plane_on_the_card(cuda, arena):
     assert any(name in k for k in kernels for name in ARENAS[arena]["kernels"]), kernels
 
 
+@pytest.mark.cuda
+def test_cli_and_loadgen_phases_on_the_card(cuda):
+    """The entry points' smoke phases on the card at a few docs (each
+    checks itself): the CLI in a process of its own serves every doc
+    byte-identically to its providers and a joiner, /metrics counts every
+    edit integrated, SIGTERM drains with exit code 0 and a second process
+    replays the WAL; the scenario runner's smoke passes, replication_lag's
+    acknowledged edits are all observed on the other instance."""
+    import asyncio
+
+    from chip_smoke import run_cli_server, run_loadgen
+
+    out = asyncio.run(
+        run_cli_server(np.random.default_rng(5), 16, extra_args=("--tpu-docs", "64"))
+    )
+    assert out["replay"]["docs"] == 16 and out["ops_integrated"] == out["edits"] == 32
+    assert out["k1_launches"]["first"] > 0
+    assert out["server_profile"]["device_events"] >= 0
+    scenarios = asyncio.run(run_loadgen(16))
+    assert scenarios["smoke"]["verdict"] == "pass"
+    assert scenarios["replication_lag"]["acked"]["docs_observed"] == 16
+
+
 async def _supervised_on_the_card(arena):
     """A SupervisedTpuMergeExtension without `device` (the card) in the
     port's core, its listen hook fired: (extension, core)."""

@@ -245,3 +245,49 @@ def test_extensions_transformer_and_net_import_without_aiohttp_or_jax():
     assert "DURABILITY True" in out, out
     assert "TOP Configuration Hocuspocus Doc" in out, out
     assert "LEAKED []" in out, out
+
+
+SLICE_9_MODULES = """
+import importlib, sys
+sys.modules["aiohttp"] = None  # an import of it now raises ImportError
+names = [
+    "hocuspocus_tpu_torch.crdt.relative_position",
+    "hocuspocus_tpu_torch.crdt.undo",
+    "hocuspocus_tpu_torch.cli",
+    "hocuspocus_tpu_torch.loadgen",
+    "hocuspocus_tpu_torch.loadgen.scenario",
+    "hocuspocus_tpu_torch.loadgen.scenarios",
+    "hocuspocus_tpu_torch.loadgen.timeline",
+    "hocuspocus_tpu_torch.loadgen.harness",
+    "hocuspocus_tpu_torch.loadgen.runner",
+    "hocuspocus_tpu_torch.loadgen.__main__",
+]
+for name in names:
+    importlib.import_module(name)
+    print("IMPORTED", name)
+from hocuspocus_tpu_torch.crdt import encode_relative_position
+from hocuspocus_tpu_torch.loadgen import ScenarioRunner, run_served_load
+from hocuspocus_tpu_torch.tpu import MultiDeviceMergeExtension, ShardedTpuMergeExtension
+leaked = sorted(
+    name for name in sys.modules
+    if name == "jax" or name.startswith("jax.")
+    or name == "hocuspocus_tpu" or name.startswith("hocuspocus_tpu.")
+)
+print("LEAKED", leaked)
+"""
+
+
+def test_cli_loadgen_undo_and_relative_positions_import_no_jax_and_no_aiohttp():
+    out = _run(SLICE_9_MODULES)
+    assert out.count("IMPORTED ") == 10, out
+    assert "LEAKED []" in out, out
+
+
+def test_no_port_loadgen_or_cli_file_sets_a_jax_platform():
+    offenders = [
+        str(path.relative_to(ROOT))
+        for path in [ROOT / "hocuspocus_tpu_torch" / "cli.py",
+                     *sorted((ROOT / "hocuspocus_tpu_torch" / "loadgen").glob("*.py"))]
+        if "JAX_PLATFORMS" in path.read_text(encoding="utf-8")
+    ]
+    assert not offenders, offenders

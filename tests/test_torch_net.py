@@ -104,17 +104,25 @@ def test_key_hash_slot_over_seeded_keys():
 # -- mini-redis: the same conversation against each package's server ------------
 
 
-async def _read_available(reader, settle: float = 0.02) -> bytes:
-    """Every byte the server sent until it goes quiet for `settle` s."""
-    out = bytearray()
-    while True:
-        try:
-            chunk = await asyncio.wait_for(reader.read(65536), settle)
-        except asyncio.TimeoutError:
-            return bytes(out)
-        if not chunk:
-            return bytes(out)
-        out += chunk
+async def _read_reply_bytes(reader, timeout: float = 10.0) -> bytes:
+    """Exactly one complete RESP reply, as the raw bytes the server sent."""
+
+    async def one() -> bytes:
+        line = await reader.readline()
+        assert line.endswith(b"\r\n"), f"connection closed mid-reply: {line!r}"
+        kind, rest = line[:1], line[1:-2]
+        if kind in (b"+", b"-", b":"):
+            return line
+        if kind == b"$":
+            length = int(rest)
+            return line if length < 0 else line + await reader.readexactly(length + 2)
+        assert kind == b"*", f"not a RESP reply: {line!r}"
+        out = bytearray(line)
+        for _ in range(max(int(rest), 0)):
+            out += await one()
+        return bytes(out)
+
+    return await asyncio.wait_for(one(), timeout)
 
 
 def _conversation(resp, rng):
@@ -163,16 +171,22 @@ async def test_mini_redis_conversation_is_byte_identical(seed):
             sub_writer.write(resp.encode_command("SUBSCRIBE", "chan0"))
             sub_writer.write(resp.encode_command("SUBSCRIBE", "chan1"))
             await sub_writer.drain()
-            subscribed = await _read_available(sub_reader)
+            subscribed = b"".join([await _read_reply_bytes(sub_reader) for _ in range(2)])
             reader, writer = await asyncio.open_connection("127.0.0.1", redis.port)
             replies = []
-            for command in _conversation(resp, rng):
+            commands = _conversation(resp, rng)
+            for command in commands:
                 writer.write(resp.encode_command(*command))
                 await writer.drain()
-                replies.append(await _read_available(reader, 0.005))
+                replies.append(await _read_reply_bytes(reader))
             sub_writer.write(resp.encode_command("UNSUBSCRIBE", "chan1"))
             await sub_writer.drain()
-            pushed = await _read_available(sub_reader)
+            # a PUBLISH replies with its receivers: the subscriber holds
+            # one message for each, then the UNSUBSCRIBE confirmation
+            delivered = sum(
+                int(reply[1:-2]) for command, reply in zip(commands, replies) if command[0] == "PUBLISH"
+            )
+            pushed = b"".join([await _read_reply_bytes(sub_reader) for _ in range(delivered + 1)])
             writer.close()
             sub_writer.close()
             transcripts[name] = (subscribed, replies, pushed, dict(redis.counters))

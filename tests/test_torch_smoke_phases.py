@@ -1,4 +1,5 @@
-"""chip_smoke.py's supervised and compaction phases, rehearsed on the CPU.
+"""chip_smoke.py's supervised, compaction, cluster, Tiptap, CLI and
+loadgen phases, rehearsed on the CPU.
 
 The phases run on the card at 1,024 docs; here the same functions run at
 a few docs on the CPU (`device="cpu"`), so their own checks and numbers
@@ -6,7 +7,9 @@ are exercised before any card run: the supervised deployment reaches
 READY, evicts every doc and hydrates each back in the catch-up storm; the
 compaction stream retires every row and compact-and-replay brings each
 back (or, on the unit arena, declines where the rebuild would not
-decode), card-side plane and twin equal element for element.
+decode), card-side plane and twin equal element for element; the CLI
+in a process of its own serves, drains and replays its WAL; the
+scenario runner's acknowledged edits are all observed across instances.
 """
 
 import asyncio
@@ -48,11 +51,13 @@ def test_supervised_server_phase_on_the_cpu(arena, durable):
     quiet, joins = out["scrapes"]["quiet"], out["scrapes"]["joins"]
     if durable:
         assert out["wal_checkpoints"] == 8 and out["wal"]["docs"] == 8
+        # the log a crash would leave before the teardown rebuilds every doc too
+        assert out["wal_acked"]["docs"] == 8 and out["wal_acked"]["records"] >= 8
         assert out["wal"]["records"] >= 8 and out["wal"]["bytes_on_disk"] > 0
         assert out["wal_stats"]["appended_records"] >= out["edits_sent"] >= 8
         assert quiet["wal_appended_records"] <= joins["wal_appended_records"]
     else:
-        assert out["wal"] is None and out["wal_checkpoints"] is None
+        assert out["wal"] is None and out["wal_checkpoints"] is None and out["wal_acked"] is None
         assert quiet["wal_appended_records"] is None and quiet["series"] > 0
     assert out["profiler_stats"]["samples"] > 0
     for window in ("traffic", "storm_and_joins"):
@@ -62,7 +67,11 @@ def test_supervised_server_phase_on_the_cpu(arena, durable):
     if arena == "unit":
         # on the CPU the capture records host ops only
         assert out["device_profile"]["activities"] == ["CPU"] and out["device_profile"]["kernels"] == []
-        assert out["device_profile"]["device_events"] == [0]
+        assert out["device_profile"]["device_events"] == 0
+        [attempt] = out["device_profile"]["attempts"]  # one capture on the CPU
+        assert attempt["device_events"] == 0 and not attempt["names_kernel"]
+        began, ended = attempt["probe_s"]  # as the 0.2 s window opens
+        assert 0 <= began <= ended
     else:
         assert out["device_profile"] is None
 
@@ -160,3 +169,115 @@ def test_tiptap_server_phase_on_the_cpu(monkeypatch):
     assert out["edit_observe_burst"]["n"] == 4 * smoke.TIPTAP_ROUNDS
     assert out["load_synced_webhook"]["n"] == out["reload_synced_sqlite"]["n"] == 4
     assert out["logger_lines"]["Loaded"] == 8
+
+
+def test_cli_server_phase_on_the_cpu():
+    """The CLI's phase at 8 docs, its plane on the CPU and narrowed: the
+    CLI process serves every doc byte-identically to its two editors and
+    a joiner, /metrics counts every edit integrated, SIGTERM drains with
+    exit code 0 inside --drain-timeout-secs, and a second process on the
+    same WAL serves every doc back byte for byte (the phase checks each)."""
+    smoke = _smoke()
+    out = asyncio.run(
+        smoke.run_cli_server(
+            np.random.default_rng(7), 8, device="cpu", profile_secs=0.3,
+            extra_args=("--tpu-docs", "16", "--tpu-capacity", "512"),
+        )
+    )
+    assert out["edits"] == out["ops_integrated"] == 16
+    assert out["edit_observe"]["n"] == out["inserts"] == 16
+    assert out["join_synced"]["n"] == 8 and out["replay"]["docs"] == 8
+    assert out["drain_seconds"] <= smoke.CLI_DRAIN_TIMEOUT_S
+    assert out["k1_launches"]["first"] > 0 and out["plane_counters"]["cpu_fallbacks"] == 0
+    gc = out["server_profile"]["gc"]
+    assert set(gc) == {"gen0", "gen1", "gen2"} and out["server_gc2_share"] == gc["gen2"]["share"]
+    assert out["server_profile"]["device_events"] == 0  # a CPU plane launches no kernel
+
+
+def test_loadgen_phase_on_the_cpu():
+    """The scenario runner's phase at 8 docs on the CPU: smoke passes, and
+    every acknowledged edit of replication_lag is observed on the other
+    instance (the runner's added check), on every doc: the 6 sampled ones'
+    readers and a fresh reader on the other instance for the 2 others."""
+    smoke = _smoke()
+    out = asyncio.run(smoke.run_loadgen(8, device="cpu"))
+    assert out["smoke"]["verdict"] == "pass" and out["smoke"]["acked"]["writers"] == 6
+    assert out["smoke"]["acked"]["docs_observed"] == 4  # one instance: its 4 sampled readers
+    lag = out["replication_lag"]
+    assert lag["docs"] == 8 and lag["acked"] == {"writers": 8, "docs_observed": 8,
+                                                 "fresh_readers": 2,
+                                                 "wait_s": lag["acked"]["wait_s"]}
+    assert len(lag["k1_ops"]) == len(lag["append_ops"]) == 2 and sum(lag["append_ops"]) > 0
+    assert [phase["name"] for phase in lag["phases"]] == ["healthy", "lagged", "recovered"]
+    assert lag["cpu_fallbacks"] == [0, 0] and lag["mini_redis"]["delivered"] > 0
+
+
+def test_loadgen_phase_holds_the_jax_packages_schedule_hashes():
+    from hocuspocus_tpu.loadgen import get_scenario
+
+    smoke = _smoke()
+    for (name, docs), expected in smoke.LOADGEN_HASHES.items():
+        scenario = get_scenario(name) if docs is None else get_scenario(name, num_docs=docs)
+        assert scenario.compile(smoke.LOADGEN_SEED).schedule_hash == expected, name
+
+
+def _full_run_line(capsys) -> dict:
+    import json
+
+    lines = [line for line in capsys.readouterr().out.splitlines()
+             if line.startswith("supervised_server_full: ")]
+    assert len(lines) == 1
+    return json.loads(lines[0].split(": ", 1)[1])
+
+
+@pytest.mark.parametrize("outcome", ["passed", "failed", "cut"])
+def test_the_reported_full_supervised_run_never_fails_the_smoke(monkeypatch, capsys, outcome):
+    """supervised_server_full runs the unit supervised phase at 1,024
+    driven docs in a child process and reports how it ended, whatever
+    that was: here the child is stood in for by its output (a pass, a
+    breaker trip, a run cut at the budget's end), and the phase returns
+    each time with the child's numbers on its line."""
+    import json
+    import subprocess
+    import time
+
+    smoke = _smoke()
+    child_line = {"seconds": 120.5, "supervisor": {"state": "ready"}, "wal_acked": {"docs": 1024},
+                  "wal": {"docs": 1024}, "canary_latency": {"n": 20}}
+    stdout = "native_build: {}\nsupervised_server: " + json.dumps(child_line) + "\n"
+    calls = []
+
+    def run(command, **kwargs):
+        calls.append((command, kwargs))
+        if outcome == "cut":
+            raise subprocess.TimeoutExpired(command, kwargs["timeout"], output=stdout)
+        code = 0 if outcome == "passed" else 1
+        stderr = "" if code == 0 else "chip_smoke: FAILED: supervised_server: the breaker tripped\n"
+        return subprocess.CompletedProcess(command, code, stdout, stderr)
+
+    monkeypatch.setattr(smoke.subprocess, "run", run)
+    smoke.phase_supervised_full(7, time.perf_counter())
+    line = _full_run_line(capsys)
+    [(command, kwargs)] = calls
+    assert command[-2:] == ["--supervised-docs", "1024"] and "--seed" in command
+    assert 0 < kwargs["timeout"] <= smoke.SMOKE_CLOCK_S
+    assert line["ran"] and line["driven"] == 1024 and line["ok"] == (outcome == "passed")
+    assert line["line"]["wal_acked"] == {"docs": 1024} and line["line"]["supervisor"] == {"state": "ready"}
+    if outcome == "passed":
+        assert line["exit_code"] == 0 and line["failure"] is None
+    elif outcome == "failed":
+        assert line["exit_code"] == 1 and "the breaker tripped" in line["failure"]
+    else:
+        assert line["exit_code"] is None and line["failure"].startswith("cut at")
+
+
+def test_the_reported_full_supervised_run_waits_for_the_budget(monkeypatch, capsys):
+    """With less than SUPERVISED_FULL_MIN_S of the smoke's budget left the
+    full run does not start, and its line says so."""
+    import time
+
+    smoke = _smoke()
+    monkeypatch.setattr(smoke.subprocess, "run", lambda *a, **k: pytest.fail("the run started"))
+    smoke.phase_supervised_full(7, time.perf_counter() - smoke.SMOKE_CLOCK_S + 10)
+    line = _full_run_line(capsys)
+    assert not line["ran"] and "needed" in line["reason"]

@@ -192,6 +192,79 @@ async def test_each_package_replays_the_others_log(tmp_path, fsync):
     assert any(report["torn_tail_records"] for _records, report in records.values())
 
 
+async def _ladder_after_one_slow_commit(wal_module, overload_module, root) -> list:
+    """One group commit that takes ~0.4 s (the journal write held), then
+    no traffic: the ladder's rung at each sample over the next 1.2 s
+    (hold 0.1 s, wal_commit_ms thresholds 50 / 100 / 200 ms)."""
+    import time
+
+    wal = wal_module.WalManager(root, fsync="tick")
+    real = wal._journal_commit
+
+    def slow_journal_commit(*args):
+        time.sleep(0.4)
+        return real(*args)
+
+    wal._journal_commit = slow_journal_commit
+    controller = overload_module.OverloadController()
+    controller.configure(hold_s=0.1, thresholds={"wal_commit_ms": (50.0, 100.0, 200.0)}).enable()
+    controller.register_wal(wal)
+    wal.append("doc", b"payload")
+    await wal.flush()
+    rungs = []
+    for _ in range(12):
+        rungs.append(controller.sample())
+        await asyncio.sleep(0.1)
+    wal.close()
+    return rungs
+
+
+async def test_a_slow_commit_followed_by_quiet_lets_the_ladder_step_down(tmp_path):
+    """A deliberate divergence from the JAX package, whose wal_commit_ms
+    signal is the last commit's duration however old: one slow commit (a
+    storm of first appends, each opening its segment) followed by quiet
+    holds its ladder at RED, refusing every new connection, until the next
+    commit. The port reads the running commit's age, or the last commit's
+    duration for one hold window, so the ladder walks back to GREEN."""
+    from hocuspocus_tpu.server import overload as jax_overload
+    from hocuspocus_tpu_torch.server import overload as port_overload
+
+    port = await _ladder_after_one_slow_commit(storage.wal, port_overload, str(tmp_path / "port"))
+    assert port[0] == port_overload.RED
+    assert port[-1] == port_overload.GREEN, port
+    assert port == sorted(port, reverse=True)  # one rung down per hold, never back up
+    jax = await _ladder_after_one_slow_commit(jax_storage.wal, jax_overload, str(tmp_path / "jax"))
+    assert jax == [jax_overload.RED] * len(jax)  # the reference stays at RED
+
+
+@pytest.mark.parametrize("with_loop", [False, True], ids=["no-loop", "loop"])
+def test_a_failed_commit_stops_reading_as_commit_pressure(tmp_path, with_loop):
+    """A group commit that raises (here the first doc's segment cannot be
+    opened) is over: on the synchronous no-loop path and on the loop's
+    executor path alike, the port's commit_pressure_ms reads 0 after it,
+    not the age of a commit that will never end."""
+    import time
+
+    wal = storage.WalManager(str(tmp_path), fsync="tick")
+
+    def broken(*_args):
+        time.sleep(0.05)
+        raise RuntimeError("the disk went away")
+
+    wal._commit_batch = broken
+    if with_loop:
+        async def append_and_flush():
+            wal.append("doc", b"payload")
+            await wal.flush()
+
+        asyncio.run(append_and_flush())
+    else:
+        with pytest.raises(RuntimeError):
+            wal.append("doc", b"payload")
+    assert wal.commit_pressure_ms(fresh_s=60.0) == 0.0
+    wal.close()
+
+
 def test_fault_injector_and_flaky_store_match_jax():
     ours, theirs = storage.FaultInjector(), jax_storage.FaultInjector()
     for injector in (ours, theirs):
