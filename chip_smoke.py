@@ -30,14 +30,18 @@ eviction and hydration, `Metrics` scraped and held to the books, the
 self-compacting plane (`compact_plane`, `rle_compact_plane`). Last,
 BASELINE config 4's production topology, two served planes on the card
 with the port's Redis extension between them over its mini-redis
-(`cluster_server`, unit arena), and configs 3 and 1, Tiptap documents
+(`cluster_server`, unit arena), the same Y.Text docs as config 2 through
+the edge tier, two stateless edges in front of two merge cells over the
+relay bus with a hot doc's follower and a drain under traffic
+(`edge_server`, unit arena), and configs 3 and 1, Tiptap documents
 loaded through the Webhook and the transformer behind Logger, SQLite and
 History on the run-length plane (`rle_tiptap_server`), each with its
 replay. Then the port's entry points: `cli_server` starts `python -m
 hocuspocus_tpu_torch.cli --tpu-serve --metrics --wal-dir D` in a process
 of its own and drives it over websockets from here (1,024 docs, SIGTERM's
 drain, a second process replaying the WAL), and `loadgen` runs the
-scenario runner (`smoke`, `replication_lag` at 1,024 docs) and `python
+scenario runner (`smoke`, `replication_lag` at 1,024 docs, `edge_fanout`
+and `edge_handoff` at their defaults) and `python
 -m hocuspocus_tpu_torch.loadgen --scenario smoke`. Last, where the
 smoke's own 850 s budget leaves room, `supervised_server_full` runs the
 unit supervised phase once more with all 1,024 docs driven, in a child
@@ -148,7 +152,7 @@ FLUSH_BUDGET_MS = 50.0
 # Python card planes), server (native lane), server_python
 PATHS = (
     "plane", "server", "server_python", "supervised_server", "compact_plane",
-    "cluster_server", "tiptap_server", "cli_server", "loadgen",
+    "cluster_server", "edge_server", "tiptap_server", "cli_server", "loadgen",
 )
 
 CLIENTS = np.asarray([7, 0x9000_0001], np.uint32)
@@ -2400,25 +2404,44 @@ async def run_supervised_server(rng, arena, num_docs, capacity, clients, rounds,
     }
 
 
+def _trace_file_names(artifact, names) -> bool:
+    """Whether the Chrome trace a capture wrote holds a kernel event
+    (category "kernel") named by one of `names`."""
+    try:
+        with open(artifact) as f:
+            events = json.load(f).get("traceEvents", [])
+    except (OSError, ValueError):
+        return False
+    return any(
+        event.get("cat") == "kernel" and any(name in str(event.get("name", "")) for name in names)
+        for event in events
+    )
+
+
 async def _device_capture(tag, metrics, plane, secs, dispatchers, names) -> dict:
     """`/debug/profile?secs=` captures while the plane is quiet, each with
     one canary probe, taken as the supervisor's watchdog takes it (the
     flush lock, the loop's executor): a K1/K2 launch the trace must name.
     The window opens when the profiler reports itself on, which can be
     seconds after the request (the first start sets up the tracer), and
-    the probe is taken as it opens: under the phase's load the flush lock
-    and the executor have held a probe back for tenths of a second, and a
-    probe that ends after the window cannot be in its trace. Each attempt
-    records its device events, whether its trace names a kernel of
-    `names`, and when its probe began and ended, in seconds after the
-    window opened. An attempt is taken again, up to
-    DEVICE_PROFILE_ATTEMPTS times, only where its trace holds no device
-    event at all or its probe ended outside the window; a trace with
-    device events and the probe inside its window that names no kernel
-    of `names` fails the phase. The probes' launches are the captures',
-    not the deployment's: the dispatchers' counts are put back. Returns
-    the last capture's answer with every attempt (on the CPU: one
-    capture, host ops only)."""
+    the probe is taken a quarter of the window later: the host-side flag
+    can come on before the device tracer does, and under the phase's load
+    the flush lock and the executor have held a probe back for tenths of
+    a second, so a later probe could end after the window, where it
+    cannot be in its trace. Each attempt records its device events,
+    whether the answer's kernels and the Chrome trace file name a kernel
+    of `names`, the probe's launches as its wrapper counted them, and
+    when the probe began and ended, in seconds after the window opened.
+    On the card the probe must launch its kernel. An attempt is taken
+    again, up to DEVICE_PROFILE_ATTEMPTS times, where its trace holds no
+    device event at all, its probe ended outside the window, or its
+    wrapper launched the kernel and the trace holds the probe's readback
+    but no record of the kernel (a lost record: the full smoke has shown
+    it about once in three runs, a quiet plane never); the last attempt
+    must name a kernel of `names`. The probes' launches are the
+    captures', not the deployment's: the dispatchers' counts are put
+    back. Returns the last capture's answer with every attempt (on the
+    CPU: one capture, host ops only)."""
     import torch
 
     def profiling() -> bool:
@@ -2433,10 +2456,12 @@ async def _device_capture(tag, metrics, plane, secs, dispatchers, names) -> dict
         while not profiling() and not capture.done():
             await asyncio.sleep(0)
         opened = time.perf_counter()
+        await asyncio.sleep(secs / 4)
         async with plane.flush_lock:
             probe_began_s = time.perf_counter() - opened
             await asyncio.get_running_loop().run_in_executor(None, plane.canary_probe)
             probe_ended_s = time.perf_counter() - opened
+        launched = sum(fn.launches for fn in dispatchers) - sum(counts)
         for fn, count in zip(dispatchers, counts):
             fn.launches = count
         status, body = await capture
@@ -2445,8 +2470,13 @@ async def _device_capture(tag, metrics, plane, secs, dispatchers, names) -> dict
         check("error" not in payload, f"{tag}: /debug/profile: {payload.get('error')}")
         named = any(name in k for k in payload["kernels"] for name in names)
         attempts.append({"device_events": payload["device_events"], "names_kernel": named,
+                         "trace_file_names_kernel": _trace_file_names(payload["artifact"], names),
+                         "probe_launches": launched,
                          "probe_s": [round(probe_began_s, 4), round(probe_ended_s, 4)]})
-        if not on_card or (payload["device_events"] and probe_ended_s < secs):
+        if not on_card:
+            break
+        check(launched >= 1, f"{tag}: the capture's canary probe launched no kernel: {attempts}")
+        if payload["device_events"] and probe_ended_s < secs and named:
             break
     if on_card:
         check(attempts[-1]["names_kernel"],
@@ -2692,10 +2722,11 @@ def phase_supervised_full(seed, started):
 # -- Redis fan-out between two served planes (BASELINE config 4) ---------------
 
 CLUSTER_PROVIDERS = 2  # providers of a doc on each instance
-CLUSTER_DOCS = 512
+CLUSTER_DOCS = 256
 CLUSTER_ROUNDS = 1
 CLUSTER_CUTS = {
-    "docs": "100k docs cut to 512 (to 1,024 before the CLI and loadgen phases)",
+    "docs": "100k docs cut to 256 (to 1,024 before the CLI and loadgen phases, to 512 before "
+            "the edge phase, which carries a Redis bus at 1,024 docs)",
     "rounds": "1 round (2 before the CLI and loadgen phases)",
     "rate": "50 ops/s/doc cut to one edit per provider per round: one host thread "
             "runs both servers and all their clients",
@@ -3098,6 +3129,441 @@ def phase_cluster_server(rng, num_docs, capacity, cuts):
           f"{tag}: mini-redis dropped {out['redis']['slow_disconnects']} slow subscribers")
     check(launches > 0, f"{tag}: K1 never launched from the cluster path")
     err = phase_served_replay(recorder.best, "unit", path="cluster_server")
+    recorder.best = recorder.before = None
+    return launches, err
+
+
+# -- the edge tier: stateless edges in front of two merge cells -----------------
+
+EDGE_DOCS = 1024
+EDGE_CELLS = 2
+EDGE_EDGES = 2
+# a cell's plane holds every doc, so the survivor of the drain serves them all
+EDGE_ROWS = 1024
+EDGE_JOIN_CHUNK = 64  # joins at once: a burst past mini-redis's queue drops frames (ROADMAP Queue C)
+EDGE_WATERMARK = 8  # the gateway's replica watermark (its default, 256, cut to fit 64 readers)
+EDGE_HOT_READERS = 64  # readers of the hot doc on edge 1: audience 66 over the watermark
+EDGE_DRAIN_TIMEOUT_S = 10.0  # as loadgen's drain_cell
+EDGE_CUTS = {
+    "docs": "1k docs as config 2, 1 writer and 1 reader a doc (10 clients in config 2), "
+            "joined 64 at a time",
+    "rounds": "one config 2 edit a writer per round: before the drain, under it, after it",
+    "watermark": "replica watermark 256 cut to 8, so 64 readers of one doc grow a follower",
+}
+
+
+async def run_edge_server(rng, num_docs, capacity, device="cuda", recorder=None,
+                          rows=EDGE_ROWS, chunk=EDGE_JOIN_CHUNK, watermark=EDGE_WATERMARK,
+                          hot_readers=EDGE_HOT_READERS):
+    """The split front door (hocuspocus_tpu_torch/edge/, the JAX package's
+    tests/edge/test_edge_e2e.py topology): the port's MiniRedis as the
+    relay bus; two cell servers, each `CellIngressExtension` +
+    `TpuMergeExtension(serve=True, compact_threshold=0.75)` on `device`
+    (a unit-arena plane of `rows` rows, two planes on one card, one device
+    lane; the residency manager gives the replica seams); two
+    `EdgeServer`s with `EdgeGatewayExtension(replica_watermark=...)`.
+
+    Each doc has a writer on edge 0 and a reader on edge 1, each on an
+    in-process socket of its own, joined `chunk` at a time, and starts
+    with one word. A round is one BASELINE config 2 edit a writer, each
+    timed to its reader (edit -> observe across edges). Then `hot_readers` more readers of doc 0 on
+    edge 1 push its audience past the watermark: the owner cell streams
+    it to a follower, bootstrapped through the owner's
+    `ResidencyManager.replica_snapshot`, and one more edit of doc 0 is
+    timed to every hot reader. Then the cell holding doc 0 drains
+    (`Server.drain`, as loadgen's `drain_cell`) while a round runs, and
+    its docs re-establish on the survivor; one more round follows.
+    From round 1 on, each kernel launch is counted at its wrapper under
+    the cell whose flush made it. `recorder` keeps the survivor's
+    biggest integrate batch. Returns the phase's numbers."""
+    import contextlib
+
+    from hocuspocus_tpu_torch.crdt import Doc, apply_update, encode_state_as_update
+    from hocuspocus_tpu_torch.edge import CellIngressExtension, EdgeGatewayExtension, EdgeServer
+    from hocuspocus_tpu_torch.net.mini_redis import MiniRedis
+    from hocuspocus_tpu_torch.provider import HocuspocusProvider, InProcessProviderSocket
+    from hocuspocus_tpu_torch.server import Configuration, Server
+    from hocuspocus_tpu_torch.tpu import TpuMergeExtension
+    from hocuspocus_tpu_torch.tpu import integrate as ti
+    from hocuspocus_tpu_torch.tpu.scheduler import reset_device_lane
+
+    reset_device_lane()
+    started = time.perf_counter()
+    redis = await MiniRedis(subscriber_queue_limit=CLUSTER_SUBSCRIBER_QUEUE).start()
+    exts, ingresses, cells, edges, gateways = [], [], [], [], []
+    for i in range(EDGE_CELLS):
+        ext = TpuMergeExtension(
+            num_docs=rows, capacity=capacity, serve=True, device=device, compact_threshold=0.75
+        )
+        ingress = CellIngressExtension(
+            cell_id=f"smoke-cell-{i}", port=redis.port, announce_interval_s=0.25
+        )
+        server = Server(Configuration(quiet=True, extensions=[ingress, ext]))
+        await server.listen(port=0)
+        exts.append(ext)
+        ingresses.append(ingress)
+        cells.append(server)
+    for i in range(EDGE_EDGES):
+        gateway = EdgeGatewayExtension(
+            edge_id=f"smoke-edge-{i}", port=redis.port, replica_watermark=watermark
+        )
+        server = EdgeServer(Configuration(quiet=True, extensions=[gateway]))
+        await server.listen(port=0)
+        edges.append(server)
+        gateways.append(gateway.gateway)
+    for ext in exts:
+        await ext.warmup_task
+        check(ext.plane.compile_watch.warmed, "edge_server: a cell's warm grid did not finish")
+    deadline = time.perf_counter() + 30
+    for gateway in gateways:
+        while len(gateway.router.healthy_cells()) < EDGE_CELLS:
+            check(time.perf_counter() < deadline, f"edge_server: {gateway.edge_id} never saw both cells")
+            await asyncio.sleep(0.02)
+    warm_seconds = time.perf_counter() - started
+
+    # per-cell launch counts and the recorder's gate: each cell's flush
+    # (the lane's and a serve's own, on whichever thread) marks its
+    # thread, and each launch of a wrapper the plane calls is counted
+    # under that mark where it launches (a card tensor), so concurrent
+    # flushes of the two cells cannot credit one with the other's
+    from hocuspocus_tpu_torch.tpu import merge_plane as mp
+
+    dense_name, sparse_name = ARENAS["unit"]["wrap"]
+    dense_fn, sparse_fn = getattr(ti, dense_name), getattr(ti, sparse_name)
+    flushing = threading.local()
+    # cell index -> launches; None: a launch outside every cell's flush
+    cell_launches = collections.Counter()
+    counting = {"on": False}
+    for i, ext in enumerate(exts):
+        plane = ext.plane
+        real_flush = plane.flush
+
+        def marked_flush(max_batches=None, real_flush=real_flush, i=i, plane=plane):
+            flushing.cell = i
+            try:
+                count = real_flush(max_batches)
+            finally:
+                flushing.cell = None
+            if recorder is not None and i == recorder.cell:
+                recorder.after_flush(plane.state)
+            return count
+
+        plane.flush = marked_flush
+    if recorder is not None:
+        recorder.gate = lambda: getattr(flushing, "cell", None) == recorder.cell
+
+    @contextlib.contextmanager
+    def counted_by_cell():
+        """Wrap the plane's integrate wrappers (the recorder's, when it
+        is on) for the measured rounds; restored on the way out."""
+        current = {name: getattr(mp, name) for name in (dense_name, sparse_name)}
+
+        def counted(fn):
+            def call(state, *args):
+                out = fn(state, *args)
+                if counting["on"] and state.id_client.is_cuda:
+                    cell_launches[getattr(flushing, "cell", None)] += 1
+                return out
+            return call
+
+        for name, fn in current.items():
+            setattr(mp, name, counted(fn))
+        try:
+            yield
+        finally:
+            for name, fn in current.items():
+                setattr(mp, name, fn)
+
+    names = [f"edge-{i}" for i in range(num_docs)]
+    closes = collections.Counter()
+
+    def provider(edge, name):
+        p = HocuspocusProvider(name=name, websocket_provider=InProcessProviderSocket(edges[edge]))
+        p.on("close", lambda *_a, **_k: closes.update(["close"]))
+        p.on("authentication_failed", lambda *_a, **_k: closes.update(["denied"]))
+        return p
+
+    async def join(edge, doc_names) -> tuple:
+        """`chunk` at a time: (providers, join -> synced seconds)."""
+        out, waits = [], []
+        for s in range(0, len(doc_names), chunk):
+            wave = [provider(edge, name) for name in doc_names[s:s + chunk]]
+            synced_at = {}
+            t_join = time.perf_counter()
+            for p in wave:
+                p.on("synced", lambda payload, p=p: payload.get("state")
+                     and synced_at.setdefault(p, time.perf_counter()))
+                p.attach()
+            await asyncio.wait_for(_all_synced(wave), 300)
+            waits += [synced_at.get(p, time.perf_counter()) - t_join for p in wave]
+            out += wave
+        return out, waits
+
+    writers, writer_joins = await join(0, names)
+    readers, reader_joins = await join(1, names)
+
+    def converged(pairs) -> list:
+        return [(a, b) for a, b in pairs
+                if encode_state_as_update(a.document) != encode_state_as_update(b.document)]
+
+    async def until_converged(pairs, what, timeout=300):
+        deadline = time.perf_counter() + timeout
+        left = converged(pairs)
+        while left:
+            check(time.perf_counter() < deadline, f"edge_server: {what}: {len(left)} docs never converged")
+            await asyncio.sleep(0.02)
+            left = converged(left)
+
+    pairs = list(zip(writers, readers))
+    # each doc starts with one word: a first edit of an empty doc is an
+    # append, which the append path takes, so without it a cell whose docs
+    # see only round 1 (the drained one) could run no K1 at all
+    for d, writer in enumerate(writers):
+        writer.document.get_text("t").insert(0, WORDS[d % len(WORDS)])
+        if d % 16 == 15:
+            await asyncio.sleep(0)
+    await until_converged(pairs, "the first words")
+
+    async def until_idle(what):
+        """No op queued and no flush in flight on either plane."""
+        deadline = time.perf_counter() + 120
+        while any(ext.plane.pending_ops() > 0 or ext._flush_inflight for ext in exts):
+            check(time.perf_counter() < deadline, f"edge_server: {what}: the queues never drained")
+            await asyncio.sleep(0.005)
+
+    # the counts start at 0 with no flush in flight, so each cell's flush
+    # counts only launches of the measured rounds
+    await until_idle("the first words")
+    setup_seconds = time.perf_counter() - started
+    clock = EditClock(asyncio.Event())
+    for p in readers:
+        clock.watch(p)
+
+    async def edit_round(what):
+        for d, (writer, reader) in enumerate(pairs):
+            _server_edit(rng, writer.document.get_text("t"))
+            clock.expect(reader, writer)
+            if d % 16 == 15:
+                await asyncio.sleep(0)
+        await asyncio.wait_for(clock.idle.wait(), 300)
+        await until_converged(pairs, what)
+
+    base = [{k: ext.plane.counters[k] for k in ("flush_fast_ops", "flush_slow_ops")} for ext in exts]
+    dense_fn.launches = sparse_fn.launches = 0
+    counting["on"] = True
+    recording = recorder if recorder is not None else contextlib.nullcontext()
+    with recording, counted_by_cell():
+        t_round = time.perf_counter()
+        await edit_round("round 1")
+        round_seconds = time.perf_counter() - t_round
+
+        # the hot doc: an audience past the watermark grows a follower
+        hot = names[0]
+        owner_index = next(i for i, c in enumerate(cells) if hot in c.hocuspocus.documents)
+        follower_index = 1 - owner_index
+        served0 = [dict(ext.residency.replica_serves) for ext in exts]
+        fallbacks0 = [ext.plane.counters["cpu_fallbacks"] for ext in exts]
+        t_hot = time.perf_counter()
+        hot_audience, hot_joins = await join(1, [hot] * hot_readers)
+        owner_replicas = ingresses[owner_index].replicas
+        follower_replicas = ingresses[follower_index].replicas
+        deadline = time.perf_counter() + 60
+        while not follower_replicas.following.get(hot, {}).get("synced"):
+            check(time.perf_counter() < deadline,
+                  f"edge_server: no follower of the hot doc: {owner_replicas.stats()} "
+                  f"{follower_replicas.stats()}")
+            await asyncio.sleep(0.02)
+        follow_seconds = time.perf_counter() - t_hot
+        hot_clock = EditClock(asyncio.Event())
+        for p in hot_audience:
+            hot_clock.watch(p)
+        _server_edit(rng, writers[0].document.get_text("t"))
+        for p in hot_audience:
+            hot_clock.expect(p, writers[0])
+        await asyncio.wait_for(hot_clock.idle.wait(), 120)
+        await until_converged([(writers[0], p) for p in hot_audience + [readers[0]]], "hot doc")
+        owner_doc = cells[owner_index].hocuspocus.documents[hot]
+        follower_doc = cells[follower_index].hocuspocus.documents.get(hot)
+        deadline = time.perf_counter() + 60
+        while follower_doc is None or encode_state_as_update(follower_doc) != encode_state_as_update(owner_doc):
+            check(time.perf_counter() < deadline,
+                  "edge_server: the follower's copy of the hot doc differs from the owner's")
+            await asyncio.sleep(0.02)
+            follower_doc = cells[follower_index].hocuspocus.documents.get(hot)
+        hot_state = {
+            "owner": ingresses[owner_index].cell_id,
+            "follower": ingresses[follower_index].cell_id,
+            # the bootstraps and catch-ups each cell's plane served through
+            # its replica seams, and its CPU fallbacks meanwhile
+            "replica_serves": {
+                ingresses[i].cell_id: {k: v - served0[i][k] for k, v in exts[i].residency.replica_serves.items()}
+                for i in range(EDGE_CELLS)
+            },
+            "cpu_fallbacks": {ingresses[i].cell_id: exts[i].plane.counters["cpu_fallbacks"] - fallbacks0[i]
+                              for i in range(EDGE_CELLS)},
+            "owner_replicas": owner_replicas.stats()["counters"],
+            "follower_replicas": follower_replicas.stats()["counters"],
+            "follow_seconds": round(follow_seconds, 3),
+            "edit_observe": percentiles_ms(hot_clock.samples),
+        }
+        for p in hot_audience:
+            p.destroy()
+            p.websocket_provider.destroy()
+
+        # the drain under traffic: the hot doc's owner announces departure,
+        # edges remap its docs to the survivor and replay their resync
+        drained, survivor = owner_index, follower_index
+        if recorder is not None:
+            recorder.cell = survivor
+        drained_docs = sorted(cells[drained].hocuspocus.documents)
+        t_drain = time.perf_counter()
+        drain_task = asyncio.ensure_future(cells[drained].drain(timeout_secs=EDGE_DRAIN_TIMEOUT_S))
+        await edit_round("the round under the drain")
+        outcome = await drain_task
+        deadline = time.perf_counter() + 120
+        while any(name not in cells[survivor].hocuspocus.documents for name in names):
+            check(time.perf_counter() < deadline,
+                  f"edge_server: {sum(n not in cells[survivor].hocuspocus.documents for n in names)} "
+                  "docs never re-established on the survivor")
+            await asyncio.sleep(0.02)
+        handoff_seconds = time.perf_counter() - t_drain
+        await edit_round("the round after the drain")
+        await until_idle("the last round")
+    counting["on"] = False
+    integrated = [
+        sum(ext.plane.counters[k] - base[i][k] for k in base[i]) for i, ext in enumerate(exts)
+    ]
+    launches = {dense_name: dense_fn.launches, sparse_name: sparse_fn.launches}
+    # nothing acknowledged was lost: the survivor holds every writer's doc
+    # byte for byte, and the bytes its plane serves a joiner rebuild it
+    survivor_docs = cells[survivor].hocuspocus.documents
+    rebuilt_ok = 0
+    for writer in writers:
+        document = survivor_docs[writer.name]
+        check(encode_state_as_update(document) == encode_state_as_update(writer.document),
+              f"edge_server: {writer.name} on the survivor differs from its writer")
+        check(document.sync_source is not None,
+              f"edge_server: {writer.name} left the survivor's plane: {exts[survivor].plane.counters}")
+        served = await document.sync_source.encode_state_as_update_async(None)
+        check(served is not None, f"edge_server: {writer.name} was not served from the survivor's plane")
+        rebuilt = Doc()
+        apply_update(rebuilt, served)
+        check(encode_state_as_update(rebuilt) == encode_state_as_update(writer.document),
+              f"edge_server: {writer.name}: served bytes rebuild another doc")
+        rebuilt_ok += 1
+    counters = [dict(ext.plane.counters) for ext in exts]
+    served_docs = [sum(ext.is_served(name) for name in names) for ext in exts]
+    gateway_counters = {g.edge_id: dict(g.counters) for g in gateways}
+    redis_counters = dict(redis.counters)
+    ingress_counters = {x.cell_id: dict(x.counters) for x in ingresses}
+    for p in writers + readers:
+        p.destroy()
+        p.websocket_provider.destroy()
+    await asyncio.sleep(0)
+    for server in edges + cells:
+        await server.destroy()
+    await redis.stop()
+    return {
+        "warm_seconds": round(warm_seconds, 3),
+        "setup_seconds": round(setup_seconds, 3),
+        "round_seconds": round(round_seconds, 3),
+        "seconds": round(time.perf_counter() - started, 3),
+        "edit_observe_across_edges": percentiles_ms(clock.samples),
+        "join_synced_writers": percentiles_ms(writer_joins),
+        "join_synced_readers": percentiles_ms(reader_joins),
+        "join_synced_hot": percentiles_ms(hot_joins),
+        "hot_doc": hot_state,
+        "drain": {
+            "cell": ingresses[drained].cell_id,
+            "docs": len(drained_docs),
+            "stored": outcome.get("stored"),
+            "duration_s": outcome.get("duration_s"),
+            "handoff_seconds": round(handoff_seconds, 3),
+        },
+        "client_closes": dict(closes),
+        "ops_integrated": {ingresses[i].cell_id: integrated[i] for i in range(EDGE_CELLS)},
+        "integrate_launches": launches,
+        "cell_launches": {ingresses[i].cell_id: cell_launches[i] for i in range(EDGE_CELLS)},
+        "launches_outside_flush": cell_launches[None],
+        "k1_ops": {ingresses[i].cell_id: exts[i].plane.counters["flush_slow_ops"] - base[i]["flush_slow_ops"]
+                   for i in range(EDGE_CELLS)},
+        "served_docs": {ingresses[i].cell_id: served_docs[i] for i in range(EDGE_CELLS)},
+        "rebuilt": rebuilt_ok,
+        "survivor": ingresses[survivor].cell_id,
+        "gateways": gateway_counters,
+        "ingress": ingress_counters,
+        "redis": {"delivered": redis_counters["delivered"],
+                  "slow_disconnects": redis_counters["slow_disconnects"],
+                  "dropped_slow": redis_counters["dropped_slow"]},
+        "counters": {ingresses[i].cell_id: counters[i] for i in range(EDGE_CELLS)},
+    }
+
+
+def phase_edge_server(rng, num_docs, capacity, cuts):
+    """The edge tier on the card (run_edge_server), with its checks: every
+    reader byte-identical to its writer after each step, the follower's
+    copy of the hot doc byte-identical to the owner's and bootstrapped
+    from the owner's plane (replica_snapshot served, no CPU fallback),
+    nothing acknowledged lost across the drain and no client-visible
+    disconnect, ops integrated and no CPU fallback on both planes, every
+    doc served by the survivor and its served bytes rebuilding every doc,
+    no relay overflow and no mini-redis drop, K1 launched on both cells
+    with ops of their own (each launch counted at the wrapper under the
+    cell whose flush made it). Then the survivor's biggest integrate
+    batch is replayed through the kernel and the plain version. Returns
+    (launches, max_abs_err of the replay)."""
+    from hocuspocus_tpu_torch.tpu import merge_plane as mp
+
+    tag = "edge_server"
+    recorder = Recorder(mp, *ARENAS["unit"]["wrap"])
+    recorder.cell = None
+    out = asyncio.run(run_edge_server(rng, num_docs, capacity, recorder=recorder))
+    counters = out["counters"]
+    launches = sum(out["integrate_launches"].values())
+    emit(
+        tag,
+        gpu=nvidia_smi_line(),
+        config="BASELINE config 2's Y.Text edits through the split front door: 2 stateless edges, "
+               "2 merge cells (tests/edge/test_edge_e2e.py's topology)",
+        arena="unit",
+        docs=num_docs,
+        rows=EDGE_ROWS,
+        capacity=capacity,
+        watermark=EDGE_WATERMARK,
+        cuts=cuts,
+        **{k: v for k, v in out.items() if k != "counters"},
+        plane_counters={
+            cell: {k: c[k] for k in (
+                "cpu_fallbacks", "docs_retired_unsupported", "plane_broadcasts", "sync_serves",
+                "flush_fast_ops", "flush_slow_ops")}
+            for cell, c in counters.items()
+        },
+    )
+    for cell, c in counters.items():
+        check(c["cpu_fallbacks"] == 0, f"{tag}: {c['cpu_fallbacks']} CPU fallbacks on {cell}")
+        check(c["docs_retired_unsupported"] == 0, f"{tag}: unsupported retires on {cell}")
+        check(out["ops_integrated"][cell] > 0, f"{tag}: no op integrated on {cell}")
+        check(out["cell_launches"][cell] > 0, f"{tag}: K1 never launched on {cell}")
+        check(out["k1_ops"][cell] > 0, f"{tag}: no op integrated through K1 on {cell}")
+    check(out["launches_outside_flush"] == 0,
+          f"{tag}: {out['launches_outside_flush']} K1 launches outside both cells' flushes")
+    check(sum(out["cell_launches"].values()) == launches,
+          f"{tag}: the cells' launches {out['cell_launches']} do not add up to the wrappers' {launches}")
+    check(out["served_docs"][out["survivor"]] == num_docs,
+          f"{tag}: {out['served_docs'][out['survivor']]} of {num_docs} docs served by the survivor")
+    check(out["rebuilt"] == num_docs, f"{tag}: {out['rebuilt']} of {num_docs} docs rebuilt")
+    hot = out["hot_doc"]
+    check(hot["replica_serves"][hot["owner"]]["snapshot"] >= 1,
+          f"{tag}: the owner's plane did not serve the follower's bootstrap: {hot}")
+    check(not any(hot["cpu_fallbacks"].values()), f"{tag}: the hot doc's step fell back to the CPU: {hot}")
+    check(not out["client_closes"], f"{tag}: client-visible disconnects: {out['client_closes']}")
+    for edge, c in out["gateways"].items():
+        check(c.get("relay_overflows", 0) == 0, f"{tag}: {c['relay_overflows']} relay overflows on {edge}")
+        check(c.get("handoffs", 0) >= 1, f"{tag}: {edge} handed nothing off in the drain")
+    check(out["redis"]["slow_disconnects"] == 0 and out["redis"]["dropped_slow"] == 0,
+          f"{tag}: mini-redis dropped frames: {out['redis']}")
+    check(launches > 0, f"{tag}: K1 never launched from the edge path")
+    err = phase_served_replay(recorder.best, "unit", path="edge_server")
     recorder.best = recorder.before = None
     return launches, err
 
@@ -3973,7 +4439,13 @@ LOADGEN_DOCS_SCENARIO = "replication_lag"
 LOADGEN_HASHES = {
     ("smoke", None): "6ba1ee244d310ad46e5660213b8725400f0e02f5480f3944d13951af736a9eb6",
     ("replication_lag", 1024): "bb255b3a250b59ad056ab26e217d3d246efa40ce40715597eef8a887a99d9f32",
+    ("edge_fanout", None): "2f3892d5fc975743c1ce22b196cd7417d138e303678f98742642d5afeb0999d0",
+    ("edge_handoff", None): "04a7e2616a26fd07da5ccf943569bc7568aace596d32d91138276e29f37a48ab",
 }
+# the edge scenarios, at their published defaults (2 edges, 2 cells, each
+# cell's plane on the card); mega_audience's three planes in one process
+# stay in the CPU twin tests (ROADMAP Queue A item 7)
+LOADGEN_EDGE_SCENARIOS = ("edge_fanout", "edge_handoff")
 LOADGEN_ACK_S = 120.0  # acknowledged edits must be observed on the other instance within this
 LOADGEN_READERS_PER_CHUNK = 64  # fresh readers joining the other instance at once
 LOADGEN_CUTS = {"docs": "replication_lag's 16 docs widened to 1,024 (its other parameters as published)"}
@@ -4373,11 +4845,15 @@ def acked_runner(schedule, device):
 
     class Runner(ScenarioRunner):
         acked = None
+        convergence = None
 
         async def _teardown(self):
             try:
                 harness = self.harness
                 if harness.servers:
+                    if harness.edges > 0:
+                        # writers and sampled readers, on different edges
+                        self.convergence = await self._check_convergence()
                     await self._acknowledged(harness)
             finally:
                 await super()._teardown()
@@ -4454,13 +4930,19 @@ async def run_loadgen(num_docs, device="cuda", seed=LOADGEN_SEED):
     """The port's ScenarioRunner: `smoke` at its defaults (its verdict must
     be pass), then `replication_lag` widened to `num_docs` (two instances
     over the port's MiniRedis, the scenario's other parameters as
-    published; its SLO verdicts are reported, not gated), each schedule's
-    hash held to the JAX package's. Returns the numbers."""
+    published; its SLO verdicts are reported, not gated), then the edge
+    scenarios at their published defaults (two edges, two merge cells;
+    verdicts gated, writers and readers converged byte for byte), each
+    schedule's hash held to the JAX package's. Returns the numbers."""
     from hocuspocus_tpu_torch.loadgen import get_scenario
+    from hocuspocus_tpu_torch.tpu import integrate as ti
     from hocuspocus_tpu_torch.tpu.scheduler import reset_device_lane
 
+    dense_fn, sparse_fn = (getattr(ti, name) for name in ARENAS["unit"]["wrap"])
     out = {}
-    for name, docs in (("smoke", None), (LOADGEN_DOCS_SCENARIO, num_docs)):
+    runs = [("smoke", None), (LOADGEN_DOCS_SCENARIO, num_docs)]
+    runs += [(name, None) for name in LOADGEN_EDGE_SCENARIOS]
+    for name, docs in runs:
         reset_device_lane()
         scenario = get_scenario(name) if docs is None else get_scenario(name, num_docs=docs)
         schedule = scenario.compile(seed)
@@ -4469,12 +4951,27 @@ async def run_loadgen(num_docs, device="cuda", seed=LOADGEN_SEED):
               f"loadgen {name}: schedule hash {schedule.schedule_hash} against the reference's {expected}")
         runner = acked_runner(schedule, device)
         started = time.perf_counter()
+        launches0 = dense_fn.launches + sparse_fn.launches
         result = await runner.run()
         check(result["schedule_hash"] == schedule.schedule_hash, f"loadgen {name}: the run's hash differs")
         out[name] = {"seconds": round(time.perf_counter() - started, 3), "docs": scenario.num_docs,
+                     "k1_launches": dense_fn.launches + sparse_fn.launches - launches0,
                      "acked": runner.acked, **_scenario_summary(result)}
         if name == LOADGEN_DOCS_SCENARIO:
             out[name]["mini_redis"] = result["extra"].get("mini_redis")
+        if name in LOADGEN_EDGE_SCENARIOS:
+            # every edit of these scenarios is an append: reported, not
+            # gated, since the cells' warm grid alone launches K1
+            out[name]["k1_launches_are"] = (
+                "the cells' warm grid's no-op batches: no op went through K1"
+                if not any(out[name]["k1_ops"]) else "warm-grid and integrate batches"
+            )
+            out[name]["convergence"] = runner.convergence
+            out[name]["mini_redis"] = result["extra"].get("mini_redis")
+            out[name]["edge"] = {
+                edge: {k: v["counters"].get(k, 0) for k in ("handoffs", "relay_overflows", "remaps")}
+                for edge, v in result["extra"].get("edge", {}).items()
+            }
     return out
 
 
@@ -4536,6 +5033,15 @@ def phase_loadgen(num_docs, cuts):
     check(out[LOADGEN_DOCS_SCENARIO]["acked"] is not None, "loadgen: the acknowledgement check did not run")
     check(out[LOADGEN_DOCS_SCENARIO]["acked"]["docs_observed"] == num_docs,
           f"loadgen: {out[LOADGEN_DOCS_SCENARIO]['acked']} docs observed on the other instance")
+    for name in LOADGEN_EDGE_SCENARIOS:
+        run = out[name]
+        check(run["verdict"] == "pass", f"loadgen {name}: verdict {run['verdict']} ({run['breached']})")
+        check(run["convergence"] is not None and run["convergence"]["converged"],
+              f"loadgen {name}: writers and readers diverged: {run['convergence']}")
+        check(run["acked"] is not None and run["acked"]["docs_observed"] == run["docs"],
+              f"loadgen {name}: {run['acked']} docs observed through the other edge")
+        check(not any(c["relay_overflows"] for c in run["edge"].values()),
+              f"loadgen {name}: relay overflows {run['edge']}")
     check(launches > 0, "loadgen: K1 never launched from the scenario runs")
     return launches, 0
 
@@ -4631,6 +5137,10 @@ def main(argv=None) -> int:
         results["unit"]["cluster_server"], results["unit"]["cluster_server_err"] = phase_cluster_server(
             rng, num_docs=CLUSTER_DOCS, capacity=4096, cuts=CLUSTER_CUTS,
         )
+        # the edge tier: two stateless edges in front of two merge cells
+        results["unit"]["edge_server"], results["unit"]["edge_server_err"] = phase_edge_server(
+            rng, num_docs=EDGE_DOCS, capacity=4096, cuts=EDGE_CUTS,
+        )
         results["rle"]["tiptap_server"], results["rle"]["tiptap_server_err"] = phase_tiptap_server(
             rng, num_docs=TIPTAP_DOCS, capacity=4096, cuts=TIPTAP_CUTS,
         )
@@ -4642,7 +5152,7 @@ def main(argv=None) -> int:
         results["unit"]["loadgen"], results["unit"]["loadgen_err"] = phase_loadgen(
             num_docs=1024, cuts=LOADGEN_CUTS,
         )
-        for arena, path in (("rle", "cluster_server"), ("unit", "tiptap_server"),
+        for arena, path in (("rle", "cluster_server"), ("rle", "edge_server"), ("unit", "tiptap_server"),
                             ("rle", "cli_server"), ("rle", "loadgen")):
             results[arena][path] = results[arena][f"{path}_err"] = 0
         phase_supervised_full(args.seed, started)

@@ -7,8 +7,10 @@ CUDA) unless `--tpu-device cpu` asks for the CPU. The branches whose
 modules are not ported yet exit with code 2 and one line on stderr
 naming their ROADMAP.md Queue A item: `--tpu-shards > 1`,
 `--tpu-devices != 1`, `--tpu-scheduler off` and the lane and governor
-tuning flags away from their defaults (item 7), `--fleet-autoscale`
-(item 8), `--role cell` and `--role edge` (item 9).
+tuning flags away from their defaults (item 7), and `--fleet-autoscale`
+(items 7 and 8). `--role cell` makes the server a merge cell of the edge
+tier (with `--tpu-serve`, its plane on the card by default), and
+`--role edge` a stateless edge server in front of the cells.
 """
 
 from __future__ import annotations
@@ -541,10 +543,6 @@ _LANE_DEFAULTS = {
 def unported_branch(args: argparse.Namespace) -> "str | None":
     """Why this command line asks for something the port does not have
     yet, naming its ROADMAP.md Queue A item, or None."""
-    if args.role == "cell":
-        return "--role cell needs the edge tier, not ported yet: ROADMAP.md, Queue A item 9"
-    if args.role == "edge":
-        return "--role edge needs the edge tier, not ported yet: ROADMAP.md, Queue A item 9"
     if args.fleet_autoscale:
         return (
             "--fleet-autoscale needs the fleet controller and per-card cells, not "
@@ -631,6 +629,18 @@ async def run(args: argparse.Namespace) -> None:
         )
     if args.webhook:
         extensions.append(Webhook(url=args.webhook))
+    if args.role == "cell":
+        from .edge import CellIngressExtension
+
+        extensions.append(
+            CellIngressExtension(
+                cell_id=args.cell_id or f"cell-{args.port}",
+                host_id=args.host_id,
+                host=args.relay_redis_host,
+                port=args.relay_redis_port,
+                prefix=args.relay_prefix,
+            )
+        )
     if args.tpu_merge or args.tpu_serve:
         # The supervised extension defers the plane's construction and
         # the kernels' builds to a deadline-bounded worker thread; on the
@@ -665,7 +675,25 @@ async def run(args: argparse.Namespace) -> None:
         # with the overload controller off (three-way wire parity)
         retry_after_s=args.overload_retry_after,
     )
-    server = Server(configuration)
+    if args.role == "edge":
+        # the stateless front door: no documents, no merge plane — just
+        # door auth/admission and the relay fabric. Doc-serving flags
+        # (--sqlite/--wal-dir/--tpu-*) are inert here by construction.
+        from .edge import EdgeGatewayExtension, EdgeServer
+
+        extensions.append(
+            EdgeGatewayExtension(
+                edge_id=args.edge_id,
+                host_id=args.host_id,
+                host=args.relay_redis_host,
+                port=args.relay_redis_port,
+                prefix=args.relay_prefix,
+                relay_queue_limit=args.relay_queue_limit,
+            )
+        )
+        server = EdgeServer(configuration)
+    else:
+        server = Server(configuration)
     await server.listen(port=args.port, host=args.host)
 
     stop = asyncio.Event()

@@ -15,8 +15,10 @@ Run one from the command line::
 
 The planes run on the card; ``--device cpu`` (``device="cpu"`` for
 ``ScenarioRunner`` and ``ServedLoadHarness``) asks for the CPU.
-Sharded, multi-device and edge scenarios are not ported yet and raise
-NotImplementedError naming their ROADMAP.md Queue A item.
+The edge scenarios boot the split front door (stateless edges and merge
+cells over a MiniRedis relay bus). Sharded and multi-device scenarios
+are not ported yet and raise NotImplementedError naming ROADMAP.md,
+Queue A item 7.
 
 Import weight: the schedule/timeline layers (scenario, scenarios,
 timeline) are stdlib-only and imported eagerly — tools and the

@@ -13,10 +13,13 @@ chain, and docs are served by one `TpuMergeExtension` plane per
 instance, on the card unless `device="cpu"` is given. Only the network
 framing (websocket upgrade + TCP) is absent.
 
+With `edges > 0` the harness boots the split front door instead:
+`cells` merge cells (each a server with `CellIngressExtension` and its
+plane) and `edges` stateless `EdgeServer`s over one MiniRedis relay bus.
+
 Not ported yet, and raising NotImplementedError at construction:
 sharded planes and per-card cells (`shards > 1`, `devices > 1`;
-ROADMAP.md, Queue A item 7), and the edge topology with its fleet
-controller (`edges > 0`; items 8 and 9).
+ROADMAP.md, Queue A item 7).
 """
 
 from __future__ import annotations
@@ -35,17 +38,12 @@ from ..server import Configuration
 from ..tpu import TpuMergeExtension
 
 
-def unported_topology(shards: int = 1, devices: int = 0, edges: int = 0) -> "Optional[str]":
+def unported_topology(shards: int = 1, devices: int = 0) -> "Optional[str]":
     """Why a population cannot run on the port yet, or None when it can."""
     if shards > 1 or devices > 1:
         return (
             "sharded planes (shards > 1) and per-card cells (devices > 1) are not "
             "ported yet: ROADMAP.md, Queue A item 7"
-        )
-    if edges > 0:
-        return (
-            "the edge topology and its fleet controller are not ported yet: "
-            "ROADMAP.md, Queue A items 8 and 9"
         )
     return None
 
@@ -60,9 +58,12 @@ class ServedLoadHarness:
       sampled readers on the SECOND instance so the timed path crosses
       the fan-out, exactly like benchmarks/config4.
     - sampled: docs that get a reader and are latency-timed.
+    - edges / cells: edges > 0 boots `edges` stateless EdgeServers and
+      `cells` merge cells over one MiniRedis relay bus (the readers on
+      edge 1, so the timed path crosses edge -> cell -> edge).
     - shard_rows / capacity / flush_interval_ms: plane layout per
-      instance (rows must exceed num_docs). `shards` must be 1 and
-      `devices` at most 1 (one plane per instance), `edges` 0.
+      instance or cell (rows must exceed num_docs). `shards` must be 1
+      and `devices` at most 1 (one plane per instance or cell).
     - device: where each instance's plane runs ("cuda" by default;
       "cpu" only when asked).
     - docs_per_socket: provider multiplexing width per in-process socket.
@@ -76,6 +77,7 @@ class ServedLoadHarness:
         num_docs: int = 1024,
         instances: int = 1,
         edges: int = 0,
+        cells: int = 0,
         sampled: int = 32,
         edits: int = 200,
         shards: int = 1,
@@ -90,10 +92,11 @@ class ServedLoadHarness:
         seed: int = 0,
         overload: "Optional[dict]" = None,
         anti_entropy_s: "Optional[float]" = None,
+        replica_watermark: "Optional[int]" = None,
         device: str = "cuda",
         progress=None,
     ) -> None:
-        unported = unported_topology(shards, devices, edges)
+        unported = unported_topology(shards, devices)
         if unported is not None:
             raise NotImplementedError(unported)
         if str(device).startswith("cuda"):
@@ -106,6 +109,12 @@ class ServedLoadHarness:
                 )
         self.num_docs = num_docs
         self.instances = instances
+        # edge topology: edges > 0 boots `edges` stateless EdgeServers +
+        # `cells` merge-cell servers over one mini_redis relay bus;
+        # self.servers then holds the EDGE servers (providers terminate
+        # there) and self.extensions the cells' plane extensions
+        self.edges = int(edges)
+        self.cells = int(cells) if edges else 0
         self.sampled = min(sampled, num_docs)
         self.edits = edits
         self.shards = 1
@@ -116,6 +125,10 @@ class ServedLoadHarness:
         self.sync_timeout = sync_timeout
         self.background_fraction = background_fraction
         self.device = device
+        # hot-doc replication knob: None keeps the gateway default;
+        # mega-audience scenarios set a CI-scale watermark so a small
+        # join wave grows follower cells
+        self.replica_watermark = replica_watermark
         # with_metrics: add a Metrics extension per instance (enables
         # the wire telemetry singleton and binds each plane's trace
         # book to the e2e histogram)
@@ -142,6 +155,9 @@ class ServedLoadHarness:
 
         self.servers: list[Any] = []  # server.Server (aiohttp, imported when they start)
         self.extensions: list[Any] = []
+        self.cell_servers: list[Any] = []
+        self.cell_ingresses: list[Any] = []
+        self.edge_gateways: list[Any] = []
         self.sockets: list[InProcessProviderSocket] = []
         self.writers: list[HocuspocusProvider] = []
         self.readers: list[HocuspocusProvider] = []
@@ -168,13 +184,95 @@ class ServedLoadHarness:
         )
         return ext, [ext.plane]
 
+    async def _start_edge_topology(self) -> None:
+        """The split front door: `cells` merge cells + `edges` stateless
+        edge servers over one mini_redis relay bus. self.servers = the
+        EDGE servers (writers land on edge 0, readers on edge 1 — the
+        timed path crosses edge->cell->edge), self.extensions = the
+        cells' plane extensions (merge capacity)."""
+        from ..edge import CellIngressExtension, EdgeGatewayExtension, EdgeServer
+        from ..net.mini_redis import MiniRedis
+        from ..server import Server
+
+        self._mini_redis = await MiniRedis().start()
+        host, port = "127.0.0.1", self._mini_redis.port
+        for i in range(max(self.cells, 1)):
+            plane_ext, planes = self._plane_extension()
+            ingress = CellIngressExtension(
+                cell_id=self.cell_identifier(i),
+                host=host,
+                port=port,
+                announce_interval_s=0.25,
+            )
+            extensions: list[Any] = [ingress]
+            if self.overload is not None:
+                from ..server.overload import OverloadExtension
+
+                extensions.append(OverloadExtension(**self.overload))
+            if self.with_metrics:
+                from ..observability import Metrics
+
+                metrics = Metrics()
+                self.metrics.append(metrics)
+                extensions.append(metrics)
+            extensions.append(plane_ext)
+            server = Server(Configuration(quiet=True, extensions=extensions))
+            await server.listen(port=0)
+            for plane in planes:
+                plane.warmup_compiles()
+            self.cell_servers.append(server)
+            self.cell_ingresses.append(ingress)
+            self.extensions.append(plane_ext)
+        for i in range(self.edges):
+            gateway_options: "dict[str, Any]" = {
+                "edge_id": f"loadgen-edge-{i}",
+                "host": host,
+                "port": port,
+            }
+            if self.replica_watermark is not None:
+                gateway_options["replica_watermark"] = int(self.replica_watermark)
+            gateway_ext = EdgeGatewayExtension(**gateway_options)
+            server = EdgeServer(
+                Configuration(quiet=True, extensions=[gateway_ext])
+            )
+            await server.listen(port=0)
+            self.servers.append(server)
+            self.edge_gateways.append(gateway_ext.gateway)
+        # population sync storms must not race discovery: every edge
+        # sees every cell before providers connect
+        deadline = time.perf_counter() + 10.0
+        want = len(self.cell_servers)
+        for gateway in self.edge_gateways:
+            while len(gateway.router.healthy_cells()) < want:
+                if time.perf_counter() > deadline:
+                    raise TimeoutError(
+                        f"edge {gateway.edge_id} saw "
+                        f"{gateway.router.healthy_cells()} of {want} cells"
+                    )
+                await asyncio.sleep(0.02)
+
+    async def drain_cell(self, index: int) -> dict:
+        """Gracefully drain merge cell `index` (the scenario `drain`
+        op): the cell announces departure, edges remap its docs and
+        re-establish sessions on the survivors — no client-visible
+        disconnect beyond the resync exchange."""
+        server = self.cell_servers[index]
+        return await server.drain(timeout_secs=10.0)
+
+    def cell_identifier(self, index: int) -> str:
+        return f"loadgen-cell-{index}"
+
     def plane_health(self) -> "list[dict]":
-        """Plane counters per instance."""
+        """Plane counters per merge-capacity holder (instances in the
+        replicated topology, cells in the edge topology)."""
         return [dict(self._counters(i)) for i in range(len(self.extensions))]
 
     async def _start_servers(self) -> None:
         from ..server import Server
 
+        if self.edges > 0:
+            await self._start_edge_topology()
+            return
         redis_cfg = None
         if self.instances > 1:
             host = os.environ.get("REDIS_HOST")
@@ -254,7 +352,8 @@ class ServedLoadHarness:
         self._bg_len = [0] * self.num_docs
 
     async def _connect_readers(self) -> None:
-        # second instance (replicated): the timed path crosses the fan-out
+        # second instance (replicated) or second edge (edge topology):
+        # the timed path crosses the fan-out either way
         server = self.servers[1 if len(self.servers) > 1 else 0]
         socket = InProcessProviderSocket(server)
         self.sockets.append(socket)
@@ -416,6 +515,8 @@ class ServedLoadHarness:
         # let the destroy-close tasks run before the servers go away
         await asyncio.sleep(0)
         for server in self.servers:
+            await server.destroy()
+        for server in self.cell_servers:
             await server.destroy()
         if self._mini_redis is not None:
             await self._mini_redis.stop()

@@ -83,12 +83,14 @@ class ScenarioRunner:
         # achieved frames/s per rung plus the headroom model's verdict
         # inputs as extra.wire_saturation (docs/guides/load-testing.md)
         self._wire_sat_config = params.get("wire_saturation")
-        # sharded, multi-device and edge populations raise here, before
-        # anything starts (ROADMAP.md, Queue A items 7-9)
+        self._tracer_state = None  # (enabled, sample) to restore post-run
+        # sharded and multi-device populations raise here, before
+        # anything starts (ROADMAP.md, Queue A item 7)
         self.harness = ServedLoadHarness(
             num_docs=pop["num_docs"],
             instances=pop["instances"],
             edges=pop.get("edges", 0),
+            cells=pop.get("cells", 0),
             sampled=pop["sampled"],
             shards=pop["shards"],
             devices=pop.get("devices", 0),
@@ -100,6 +102,7 @@ class ScenarioRunner:
             seed=schedule.seed,
             overload=self._overload_config,
             anti_entropy_s=params.get("anti_entropy_s"),
+            replica_watermark=params.get("replica_watermark"),
             device=device,
             progress=self._progress,
         )
@@ -242,6 +245,22 @@ class ScenarioRunner:
         harness.readers[doc] = provider
         return await self._await_synced(provider)
 
+    async def _op_drain(self, value: int) -> "Optional[float]":
+        """Gracefully drain merge cell `value` mid-run (edge topology):
+        the handoff contract — remap + transparent re-establishment —
+        is what the rest of the phase then measures."""
+        if not self.harness.cell_servers:
+            return 0.0
+        outcome = await self.harness.drain_cell(value % len(self.harness.cell_servers))
+        get_flight_recorder().record(
+            "__loadgen__",
+            "cell_drained",
+            cell=value,
+            stored=outcome.get("stored"),
+            duration_s=outcome.get("duration_s"),
+        )
+        return 0.0
+
     def _op_lag(self, value: int) -> "Optional[float]":
         redis = self.harness.mini_redis
         if redis is not None:
@@ -304,9 +323,7 @@ class ScenarioRunner:
             latency = self._op_overload(op.value)
             measured = False
         elif op.kind == "drain":
-            # no merge cell to drain without the edge topology (which
-            # the harness refuses): a no-op, as in the reference
-            latency = 0.0
+            latency = await self._op_drain(op.value)
             measured = False
         ok = latency is not None
         if measured:
@@ -407,20 +424,38 @@ class ScenarioRunner:
         )
 
     async def _check_convergence(self, timeout_s: float = 8.0) -> dict:
-        """Zero-silent-loss acceptance in the replicated topology: every
+        """Zero-silent-loss acceptance. Replicated topology: every
         sampled doc's server-side state must converge BYTE-IDENTICALLY
         across the two instances (encode_state_as_update orders structs
         deterministically, so equal logical state means equal bytes).
-        Waits out the trailing resync/anti-entropy exchange; a doc still
-        diverged at the deadline is reported and latches the verdict."""
+        Edge topology: the kill-9-style assertion runs against the
+        SURVIVING REFERENCE CLIENTS — writer and reader docs (which
+        hold every acknowledged update, connected through DIFFERENT
+        edges) must converge byte-identically even across a mid-run
+        cell drain. Waits out the trailing resync/anti-entropy
+        exchange; a doc still diverged at the deadline is reported and
+        latches the verdict."""
         from ..crdt import encode_state_as_update
 
         harness = self.harness
-        docs_a = harness.servers[0].hocuspocus.documents
-        docs_b = harness.servers[1].hocuspocus.documents
+        if harness.edges > 0:
+            pairs = [
+                (f"load-{d}", harness.writers[d].document, harness.readers[d].document)
+                for d in range(harness.sampled)
+            ]
 
-        def states(name):
-            return docs_a.get(name), docs_b.get(name)
+            def states(name):
+                for label, doc_a, doc_b in pairs:
+                    if label == name:
+                        return doc_a, doc_b
+                return None, None
+
+        else:
+            docs_a = harness.servers[0].hocuspocus.documents
+            docs_b = harness.servers[1].hocuspocus.documents
+
+            def states(name):
+                return docs_a.get(name), docs_b.get(name)
 
         names = [f"load-{d}" for d in range(harness.sampled)]
         pending = set(names)
@@ -460,6 +495,74 @@ class ScenarioRunner:
         mini = self.harness.mini_redis
         if mini is not None:
             evidence["mini_redis"] = dict(mini.counters)
+        if self.harness.edge_gateways:
+            # handoff evidence: relay/handoff/stale-drop counters + the
+            # router's final view, per edge — "the drain handed off
+            # transparently" is checkable from the artifact alone
+            evidence["edge"] = {
+                gateway.edge_id: {
+                    "counters": dict(gateway.counters),
+                    "router": gateway.router.table(),
+                }
+                for gateway in self.harness.edge_gateways
+            }
+            # fleet observability evidence (docs/guides/observability.md
+            # fleet view): digest federation counts, cross-tier
+            # edge→cell→edge latency quantiles, stale peers — the
+            # bench gate's edge_fanout.cross_tier_e2e_p99 stage reads
+            # the p99 from here
+            from ..observability.fleet import get_fleet_view
+
+            view = get_fleet_view()
+            fleet_status = view.status()
+            evidence["fleet"] = {
+                "peers": fleet_status["totals"]["peers"],
+                "fresh_peers": fleet_status["totals"]["fresh"],
+                "stale_peers": len(fleet_status["stale_peers"]),
+                "digests_ingested": view.counters["digests_ingested"],
+                "epoch_skew": any(
+                    info["skew"] for info in fleet_status["epoch_skew"].values()
+                ),
+                "cross_tier_e2e_ms": fleet_status["cross_tier_e2e_ms"],
+                "traces_stamped": sum(
+                    gateway.counters.get("traces_stamped", 0)
+                    for gateway in self.harness.edge_gateways
+                ),
+                "traces_closed": sum(
+                    gateway.counters.get("traces_closed", 0)
+                    for gateway in self.harness.edge_gateways
+                ),
+            }
+        if self.harness.edge_gateways:
+            # hot-doc replication evidence (docs/guides/
+            # hot-doc-replication.md): each edge's owner+follower route
+            # tables and each cell's ReplicaManager stats — follower
+            # counts, tick seqs, lag and resync/promotion counters —
+            # so "the audience fanned out over followers with bounded
+            # owner work" is checkable from the artifact alone
+            replica_evidence: dict = {
+                "edges": {
+                    gateway.edge_id: {
+                        "watermark": gateway.replica_watermark,
+                        "docs": (gateway.status().get("replica") or {}).get(
+                            "docs", {}
+                        ),
+                    }
+                    for gateway in self.harness.edge_gateways
+                },
+                "cells": {
+                    ingress.cell_id: ingress.replicas.stats()
+                    for ingress in self.harness.cell_ingresses
+                    if getattr(ingress, "replicas", None) is not None
+                },
+            }
+            if any(
+                edge["docs"] for edge in replica_evidence["edges"].values()
+            ) or any(
+                stats.get("owned") or stats.get("following")
+                for stats in replica_evidence["cells"].values()
+            ):
+                evidence["replica"] = replica_evidence
         publish = {}
         for i, server in enumerate(self.harness.servers):
             for ext in getattr(server.hocuspocus, "_extensions", []):
@@ -585,6 +688,27 @@ class ScenarioRunner:
             schedule_hash=schedule.schedule_hash,
         )
         verdict = "fail"
+        self._tracer_state = None
+        if harness.edges > 0:
+            # edge topology: light cross-tier tracing so the run lands
+            # fleet evidence (extra.fleet cross_tier_e2e_ms feeds the
+            # bench gate). The fleet view resets to this run — like the
+            # overload controller, it is process-global state a scenario
+            # must not inherit; the tracer is restored at teardown.
+            from ..observability.fleet import get_fleet_view
+            from ..observability.tracing import get_tracer
+
+            view = get_fleet_view()
+            view.reset()
+            view.enable()
+            tracer = get_tracer()
+            self._tracer_state = (tracer.enabled, tracer.sample)
+            tracer.enabled = True
+            # 1-in-4: enough observations for the cross-tier quantiles
+            # at CI scale without perturbing the gated interactive_p99
+            # (every sampled update pays an aux encode + span chain +
+            # one TRACE_RET round trip)
+            tracer.sample = 4
         try:
             self._progress(
                 f"scenario {schedule.scenario}: booting population "
@@ -655,7 +779,9 @@ class ScenarioRunner:
                 get_overload_controller().stop()
 
             convergence = None
-            if self._verify_convergence and harness.instances > 1:
+            if self._verify_convergence and (
+                harness.instances > 1 or harness.edges > 0
+            ):
                 convergence = await self._check_convergence()
                 if not convergence["converged"]:
                     # zero-silent-loss acceptance: divergence after the
@@ -755,6 +881,12 @@ class ScenarioRunner:
         self._join_sockets.clear()
         await asyncio.sleep(0)
         await self.harness._teardown()
+        if self._tracer_state is not None:
+            from ..observability.tracing import get_tracer
+
+            tracer = get_tracer()
+            tracer.enabled, tracer.sample = self._tracer_state
+            self._tracer_state = None
         if self._overload_config:
             # the controller is process-global: a scenario that tuned +
             # drove it must hand the next run a cold GREEN one

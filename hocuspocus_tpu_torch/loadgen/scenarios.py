@@ -6,9 +6,10 @@ arguments (defaults are CI-scale; pass bigger numbers for real storms).
 ``python -m hocuspocus_tpu_torch.loadgen`` CLI and ``chip_smoke.py`` go
 through it. The library is the reference's, every scenario included;
 the port runs the single-plane ones (``smoke``, ``replication_lag``,
-``overload_storm``, ``partition_heal``, ``wire_saturation``) and raises
-NotImplementedError for the sharded, multi-device and edge ones
-(ROADMAP.md, Queue A items 7-9).
+``overload_storm``, ``partition_heal``, ``wire_saturation``) and the edge
+ones (``edge_fanout``, ``edge_handoff``, ``mega_audience``), and raises
+NotImplementedError for the sharded and multi-device ones (ROADMAP.md,
+Queue A item 7).
 
 The mixes (ROADMAP item 5, Collabs arXiv:2212.02618 composed multi-user
 workloads, Eg-walker arXiv:2409.14252 realistic-concurrency merges):

@@ -1890,6 +1890,9 @@ class TpuMergeExtension(Extension):
         # docs whose recycle attempt found no headroom for their live
         # state: further attempts are suppressed until unload
         self._recycle_declined: set[str] = set()
+        # each lane-demoted doc's latest spawned rebuild, which a sync
+        # serve that met the demote window waits for (_settle_lane_demote)
+        self._lane_rebuilds: dict[str, asyncio.Task] = {}
         if serve:
             from .serving import PlaneServing
 
@@ -2027,10 +2030,17 @@ class TpuMergeExtension(Extension):
         from .serving import TpuSyncSource
 
         document.sync_source = TpuSyncSource(
-            self.serving, name, document, on_fault=self._device_fault
+            self.serving, name, document, on_fault=self._device_fault,
+            settle=self._settle_lane_demote,
         )
         document.broadcast_source = self
         self._docs[name] = document
+        if self.residency is not None:
+            # every re-attach (a compaction's un-retire, a recycle, a
+            # hydration) re-enters the activity clock: the eviction scan
+            # drops a retired doc's entry, and without a new one the doc
+            # would never be evicted until its next edit
+            self.residency.touch(name)
 
     async def after_load_document(self, data: Payload) -> None:
         from ..crdt import encode_state_as_update
@@ -2185,7 +2195,7 @@ class TpuMergeExtension(Extension):
                 # Re-spawn per update: an earlier attempt may have
                 # bailed, and the rebuild's guards make redundant
                 # spawns no-ops
-                self._spawn_tracked(self._rebuild_lane_doc(document))
+                self._spawn_rebuild(document)
                 return False
             # already degraded (e.g. a device OVERFLOW retire from the
             # post-flush health sweep, where no recycle seam runs) —
@@ -2213,7 +2223,7 @@ class TpuMergeExtension(Extension):
                 # op): rebuild it on the Python plane IN PLACE — serving
                 # stays attached, this and subsequent updates ride the
                 # per-update CPU fan-out until the rebuild lands
-                self._spawn_tracked(self._rebuild_lane_doc(document))
+                self._spawn_rebuild(document)
                 return False
             self._fallback_to_cpu(document)
             self._maybe_recycle(document, reason)
@@ -2225,6 +2235,36 @@ class TpuMergeExtension(Extension):
         self._schedule_flush()
         self._schedule_broadcast()
         return True
+
+    # how long a sync serve that met a lane-demote window waits for the
+    # doc's rebuild before the CPU document answers it
+    _SETTLE_WAIT_S = 0.25
+
+    def _spawn_rebuild(self, document) -> None:
+        name = document.name
+        task = self._spawn_tracked(self._rebuild_lane_doc(document))
+        self._lane_rebuilds[name] = task
+        task.add_done_callback(
+            lambda done: self._lane_rebuilds.get(name) is done and self._lane_rebuilds.pop(name)
+        )
+
+    async def _settle_lane_demote(self, name: str, document, registration) -> bool:
+        """A sync serve that met the doc's lane-demote window (the
+        demoting update rode the CPU fan-out; the plane is behind the CPU
+        document until the rebuild lands) found the plane behind. Wait a
+        bounded time for the spawned rebuild, and say whether the doc has
+        a new, serving registration since the request came, so the serve
+        asks the plane again instead of answering from the CPU document."""
+        task = self._lane_rebuilds.get(name)
+        if task is not None and not task.done():
+            await asyncio.wait({task}, timeout=self._SETTLE_WAIT_S)
+        doc = self.plane.docs.get(name)
+        return (
+            doc is not None
+            and doc is not registration
+            and not doc.retired
+            and name in self._docs
+        )
 
     async def _rebuild_lane_doc(self, document) -> None:
         """In-place re-onboard of a lane-demoted doc onto the Python
@@ -2350,7 +2390,8 @@ class TpuMergeExtension(Extension):
             existing = plane.docs.get(name)
             if existing is None or not existing.retired:
                 return  # registration changed under us; leave it be
-            if self.residency is not None and existing.retire_reason in ("capacity", "overflow"):
+            reason = existing.retire_reason
+            if self.residency is not None and reason in ("capacity", "overflow"):
                 # compaction on the device first: when the doc's LIVE state
                 # fits its rows, the compaction program recycles it in
                 # place (no release, no snapshot re-lower). When it
@@ -2403,6 +2444,13 @@ class TpuMergeExtension(Extension):
                 plane.retire_doc(name, "fallback", count=False)
                 return
         self._schedule_flush()
+        if reason != "lane_demote":
+            # the snapshot's presync replay marked the doc dirty and only
+            # a broadcast tick clears the mark (an evictable doc must not
+            # keep it; see ResidencyManager.compact_and_replay_locked). A
+            # lane-demote retire recycles only after its rebuild failed,
+            # and that doc is left to its next edit's tick
+            self._schedule_broadcast()
 
     def _detach_serving(self, name: str, document) -> None:
         """Unhook a document from the plane's serving seams and drop its

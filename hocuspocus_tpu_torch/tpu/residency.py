@@ -81,9 +81,11 @@ class ResidencyManager:
     Normally constructed by `TpuMergeExtension` (pass
     `evict_idle_secs` / `hydrate_batch` / `compact_threshold` there);
     standalone construction with (plane, serving) lets benches and tests
-    drive the policy directly. The JAX package's cross-cell migration and
-    replica seams come with the ports of its cells and edge (ROADMAP.md,
-    Queue A items 7 and 9).
+    drive the policy directly. The hot-doc replica seams
+    (`adopt_snapshot`, `replica_snapshot`, `replica_catchup`) serve the
+    edge tier's follower cells; the JAX package's cross-cell migration
+    seams (`evict_for_migration`, `quiesce`) come with its per-card cells
+    (ROADMAP.md, Queue A item 7).
     """
 
     def __init__(
@@ -153,6 +155,12 @@ class ResidencyManager:
         self._sweep_ring: list[str] = []
         self._tasks: set = set()
         self.plane.residency = self  # retire-time log preservation seam
+        # a card plane's failed device step raises (_fault); tests of the
+        # card's rails set it on a CPU plane
+        self.on_card = self.plane.device.type == "cuda"
+        # replica seams' SyncStep2s the plane served (a None for a held
+        # doc counts in the plane's cpu_fallbacks instead)
+        self.replica_serves = {"snapshot": 0, "catchup": 0}
         # a card fault propagates (see _fault); only a CPU plane declines
         # device-lane arbiter (tpu/scheduler.py): hydration batches ride
         # the catch-up class, compaction sweeps the background class —
@@ -287,7 +295,7 @@ class ResidencyManager:
         """Called inside the handler of a failed device step: on the card
         the error propagates, as the flush and serve paths raise there;
         on a CPU plane the caller declines the step and goes on."""
-        if self.plane.device.type == "cuda":
+        if self.on_card:
             raise
 
     def _spawn(self, coro) -> None:
@@ -421,6 +429,74 @@ class ResidencyManager:
             )
             self._publish_stats(last_eviction_ms=eviction_ms)
         return True
+
+    # -- hot-doc replica seams (edge/replica.py) ------------------------------
+
+    def adopt_snapshot(self, name: str, snapshot: bytes) -> None:
+        """Follower side: seed the evicted-record cache with the owner's
+        snapshot, so the hydration drain warm-loads it exactly like a
+        local eviction's re-entry (the live document's tail replayed on
+        top keeps the round trip lossless)."""
+        self._evicted_add(name, snapshot)
+
+    def replica_snapshot(self, name: str, document) -> Optional[bytes]:
+        """Owner side, cold follower: the eviction's full-state encode
+        through the plane's serving path, WITHOUT evicting (the owner
+        keeps its rows, write path and WAL). The CPU document answers
+        where the plane does not hold the doc, and, counted in
+        `cpu_fallbacks` as a joiner's would be, where the plane holds it
+        but cannot serve it (behind, unhealthy, paused). On the card a
+        failed serve raises (`_fault`)."""
+        self.touch(name)
+        payload = self._replica_serve("snapshot", name, document, None)
+        if payload is not None:
+            return payload
+        try:
+            from ..crdt import encode_state_as_update
+
+            return encode_state_as_update(document)
+        except Exception:
+            return None
+
+    def replica_catchup(
+        self, name: str, document, sv_bytes: Optional[bytes]
+    ) -> Optional[bytes]:
+        """Owner side, warm follower resyncing after a gap: the SV-diff
+        served from the plane, as a stale reconnect's SyncStep2. None
+        where the plane does not serve it (the caller then diffs the CPU
+        document); for a doc the plane holds, that None is counted in
+        `cpu_fallbacks`. A failed serve goes to `_fault`: on the card it
+        raises, on a CPU plane it declines with None."""
+        self.touch(name)
+        return self._replica_serve("catchup", name, document, sv_bytes)
+
+    def _replica_serve(
+        self, seam: str, name: str, document, sv_bytes: Optional[bytes]
+    ) -> Optional[bytes]:
+        """The plane's SyncStep2 for a replica seam, or None. Counts each
+        plane serve in `replica_serves[seam]`, and each None for a doc
+        the plane holds (attached to its serving seams) in the plane's
+        `cpu_fallbacks`."""
+        if self.serving is None:
+            return None
+        try:
+            payload = self.serving.encode_state_as_update(name, document, sv_bytes)
+        except Exception:
+            self._fault()
+            payload = None
+        if payload is not None:
+            self.replica_serves[seam] += 1
+        elif self._holds(name):
+            self.plane.counters["cpu_fallbacks"] += 1
+        return payload
+
+    def _holds(self, name: str) -> bool:
+        """Whether the plane holds the doc: attached to the extension's
+        serving seams (a sync source answers its joiners), or, without
+        an extension, registered on the plane."""
+        if self.extension is not None:
+            return name in self.extension._docs
+        return name in self.plane.docs
 
     def _snapshot(self, name: str, document) -> Optional[bytes]:
         """Encoded full state for the eviction record. The plane's own
@@ -751,6 +827,11 @@ class ResidencyManager:
             ):
                 extension._attach_serving(name, document)
                 extension._schedule_flush()
+                # the replay's presync enqueue marked the doc dirty, and
+                # broadcast ticks are capture-driven: a compaction after
+                # the doc's last edit would otherwise keep the mark, and
+                # with it the doc resident, for good (as in hydration)
+                extension._schedule_broadcast()
             return True
         # the tail re-exhausted the row: stop the preserve/compact
         # ping-pong until a full (re-registering) recycle
@@ -852,6 +933,9 @@ class ResidencyManager:
                     name, encode_state_as_update(document), presync=True
                 )
                 self.extension._schedule_flush()
+                # the replay marked the doc dirty: a tick clears the mark
+                # (see compact_and_replay_locked)
+                self.extension._schedule_broadcast()
         self._publish_stats(
             last_compaction_ms=round((time.perf_counter() - t0) * 1000.0, 3)
         )

@@ -931,13 +931,21 @@ class TpuSyncSource:
     or launch, a failed encode) goes to `on_fault`, called inside the
     handler: without one it propagates. TpuMergeExtension passes its
     `_device_fault`, which re-raises on the card and, on a CPU plane,
-    degrades the served docs; the CPU document then answers (counted)."""
+    degrades the served docs; the CPU document then answers (counted).
+    When the batched variant finds the plane behind, it awaits
+    `settle(name, document, registration)` (the doc's plane registration
+    when the request came): True means the doc left the native lane
+    meanwhile and its rebuild has landed, so the request is asked of the
+    plane once more."""
 
-    def __init__(self, serving: PlaneServing, name: str, document, on_fault=None) -> None:
+    def __init__(
+        self, serving: PlaneServing, name: str, document, on_fault=None, settle=None
+    ) -> None:
         self.serving = serving
         self.name = name
         self.document = document
         self.on_fault = on_fault
+        self.settle = settle
 
     def _counted(self, payload: Optional[bytes]) -> Optional[bytes]:
         if payload is None:
@@ -961,7 +969,14 @@ class TpuSyncSource:
         """Batched (storm) variant: concurrent SyncStep1s share one
         state-vector-diff triage — see PlaneServing.batched_sync."""
         try:
+            registration = self.serving.plane.docs.get(self.name)
             payload = await self.serving.batched_sync(self.name, self.document, sv_bytes)
+            if (
+                payload is None
+                and self.settle is not None
+                and await self.settle(self.name, self.document, registration)
+            ):
+                payload = await self.serving.batched_sync(self.name, self.document, sv_bytes)
         except Exception:
             self._fault()
             payload = None

@@ -4,7 +4,7 @@ Twins of tests/server/test_cli.py. Each flow boots both packages' CLI on a
 free port (the port's with `--tpu-device cpu`), drives it with that
 package's provider over a real websocket, and returns what it observed
 (texts, endpoint answers) with the CLI's exit codes; the two packages'
-observations must be equal and the port's CLI must exit 0. The port's sharded, multi-device, edge, fleet and
+observations must be equal and the port's CLI must exit 0. The port's sharded, multi-device, fleet and
 lane-tuning branches exit with code 2 and one line on stderr naming their
 ROADMAP.md Queue A item, and without `--tpu-device cpu` the plane needs
 CUDA. The flows are plain tests over `asyncio.run`: two CLI boots can
@@ -302,10 +302,8 @@ def _port_cli(*args, env=None):
         (("--tpu-serve", "--tpu-scheduler", "off"), "Queue A item 7"),
         (("--tpu-serve", "--tpu-drain-watermark", "64"), "Queue A item 7"),
         (("--tpu-serve", "--fleet-autoscale", "--tpu-devices", "0"), "Queue A items 7 and 8"),
-        (("--role", "edge"), "Queue A item 9"),
-        (("--role", "cell"), "Queue A item 9"),
     ],
-    ids=["shards", "devices", "scheduler-off", "drain-watermark", "fleet", "edge", "cell"],
+    ids=["shards", "devices", "scheduler-off", "drain-watermark", "fleet"],
 )
 def test_unported_branches_exit_naming_their_queue_a_item(args, item):
     proc = _port_cli(*args, "--tpu-device", "cpu")

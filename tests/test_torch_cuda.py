@@ -645,7 +645,8 @@ def test_cli_and_loadgen_phases_on_the_card(cuda):
     byte-identically to its providers and a joiner, /metrics counts every
     edit integrated, SIGTERM drains with exit code 0 and a second process
     replays the WAL; the scenario runner's smoke passes, replication_lag's
-    acknowledged edits are all observed on the other instance."""
+    acknowledged edits are all observed on the other instance, and the
+    edge scenarios pass with writers and readers converged."""
     import asyncio
 
     from chip_smoke import run_cli_server, run_loadgen
@@ -659,6 +660,9 @@ def test_cli_and_loadgen_phases_on_the_card(cuda):
     scenarios = asyncio.run(run_loadgen(16))
     assert scenarios["smoke"]["verdict"] == "pass"
     assert scenarios["replication_lag"]["acked"]["docs_observed"] == 16
+    for name in ("edge_fanout", "edge_handoff"):
+        assert scenarios[name]["verdict"] == "pass", scenarios[name]
+        assert scenarios[name]["convergence"]["converged"], scenarios[name]
 
 
 async def _supervised_on_the_card(arena):
@@ -788,10 +792,42 @@ def test_redis_fanout_between_two_planes_on_the_card(cuda):
     assert sum(out["integrate_launches"].values()) > 0, out["integrate_launches"]
     for side in ("a", "b"):
         counters = out["counters"][side]
-        assert counters["cpu_fallbacks"] == 0, (side, counters, out["settle_counters"])
+        assert counters["cpu_fallbacks"] == 0, (
+            side, counters, out["settle_counters"]
+        )
         assert counters["docs_retired_unsupported"] == 0, (side, counters)
         assert counters["plane_broadcasts"] > 0, (side, counters)
         assert out["served_docs"][side] == 16, (side, out["served_docs"])
+
+
+@pytest.mark.cuda
+def test_edge_topology_on_the_card(cuda):
+    """The split front door at 16 docs (chip_smoke.run_edge_server, which
+    checks every reader byte-identical to its writer after each round, the
+    hot doc's follower byte-identical to its owner, every doc on the
+    survivor byte-identical to its writer and rebuilt from its served
+    bytes): two cells with card planes behind two edges, a follower and a
+    drain under traffic; K1 launches on both planes, no CPU fallback, no
+    client-visible disconnect."""
+    import asyncio
+
+    from chip_smoke import run_edge_server
+
+    out = asyncio.run(
+        run_edge_server(np.random.default_rng(5), 16, 1024, device=cuda, rows=64,
+                        hot_readers=16, watermark=4)
+    )
+    assert sum(out["integrate_launches"].values()) > 0, out["integrate_launches"]
+    assert out["launches_outside_flush"] == 0, out["launches_outside_flush"]
+    assert sum(out["cell_launches"].values()) == sum(out["integrate_launches"].values())
+    for cell, launches in out["cell_launches"].items():
+        assert launches > 0 and out["k1_ops"][cell] > 0, (out["cell_launches"], out["k1_ops"])
+        assert out["counters"][cell]["cpu_fallbacks"] == 0, (cell, out["counters"][cell])
+        assert out["ops_integrated"][cell] > 0, out["ops_integrated"]
+    assert out["served_docs"][out["survivor"]] == 16 and out["rebuilt"] == 16
+    assert out["hot_doc"]["replica_serves"][out["hot_doc"]["owner"]]["snapshot"] >= 1, out["hot_doc"]
+    assert not any(out["hot_doc"]["cpu_fallbacks"].values()), out["hot_doc"]
+    assert not out["client_closes"], out["client_closes"]
 
 
 @pytest.mark.cuda

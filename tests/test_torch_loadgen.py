@@ -7,9 +7,10 @@ packages' harness and runner, the port's planes on the CPU
 (`device="cpu"`); what a run's schedule fixes (verdicts, phase names,
 measured op counts, served docs, sample counts, the ladder's path) must be
 equal, while latencies are each package's own. `/debug/loadgen` answers
-from the port's Metrics as from the JAX package's. Populations the port
-has not ported yet raise NotImplementedError naming their ROADMAP.md
-Queue A item. The twins that run both packages are plain tests over
+from the port's Metrics as from the JAX package's. The edge populations
+run through the split front door; the sharded and multi-device ones,
+not ported yet, raise NotImplementedError naming ROADMAP.md, Queue A
+item 7. The twins that run both packages are plain tests over
 `asyncio.run`: two runs can outlast the 60 s that tests/conftest.py gives
 one coroutine test when the suite runs in parallel.
 """
@@ -60,9 +61,10 @@ SINGLE_PLANE = ("smoke", "replication_lag", "overload_storm", "partition_heal", 
 UNPORTED = {
     "diurnal": "item 7", "flash_crowd": "item 7", "reconnect_herd": "item 7",
     "mega_doc": "item 7", "storm": "item 7", "multi_device_storm": "item 7",
-    "diurnal_autoscale": "item 7", "edge_fanout": "items 8 and 9",
-    "edge_handoff": "items 8 and 9", "mega_audience": "items 8 and 9",
+    "diurnal_autoscale": "item 7",
 }
+# the split front door: edges in front of merge cells (tests/test_torch_edge.py)
+EDGE = ("edge_fanout", "edge_handoff", "mega_audience")
 
 
 # -- the schedule compilers ---------------------------------------------------
@@ -71,7 +73,7 @@ UNPORTED = {
 def test_the_library_names_the_same_scenarios_and_suite():
     assert list(port_scenarios.SCENARIOS) == list(jax_scenarios.SCENARIOS)
     assert list(port_loadgen.BENCH_SUITE) == list(jax_loadgen.BENCH_SUITE)
-    assert set(SINGLE_PLANE) | set(UNPORTED) == set(port_scenarios.SCENARIOS)
+    assert set(SINGLE_PLANE) | set(EDGE) | set(UNPORTED) == set(port_scenarios.SCENARIOS)
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -167,11 +169,32 @@ def test_sharded_harness_and_extensions_raise_naming_item_7():
         port_loadgen.ServedLoadHarness(num_docs=8, shards=2, device="cpu")
     with pytest.raises(NotImplementedError, match="Queue A item 7"):
         port_loadgen.ServedLoadHarness(num_docs=8, devices=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A items 8 and 9"):
-        port_loadgen.ServedLoadHarness(num_docs=8, edges=2, device="cpu")
     for cls in (ShardedTpuMergeExtension, MultiDeviceMergeExtension):
         with pytest.raises(NotImplementedError, match="Queue A item 7"):
             cls(shards=2, num_docs=8, serve=True)
+
+
+def test_the_edge_harness_runs_like_the_jax_packages():
+    """`edges=2` boots the split front door in both packages' harness: two
+    stateless edges in front of two merge cells (the port's planes on the
+    CPU), writers on edge 0 and readers on edge 1; every timed edit is
+    observed through the other edge, and the counts a run's parameters fix
+    are equal."""
+    runs = {}
+    for package, harness_cls, extra in (
+        ("jax", jax_loadgen.ServedLoadHarness, {}),
+        ("port", port_loadgen.ServedLoadHarness, {"device": "cpu"}),
+    ):
+        harness = harness_cls(num_docs=8, edges=2, cells=2, sampled=4, edits=6,
+                              shard_rows=64, capacity=512, seed=3, **extra)
+        result = asyncio.run(harness.run(budget_s=120.0))
+        assert len(harness.cell_servers) == 2 and len(harness.edge_gateways) == 2, package
+        assert len(harness.servers) == 2 and len(harness.extensions) == 2, package
+        runs[package] = result["extra"]
+    for key in ("docs", "sampled_docs", "samples", "straggler_timeouts"):
+        assert runs["port"][key] == runs["jax"][key], key
+    assert runs["port"]["samples"] == 6
+    assert [h["cpu_fallbacks"] for h in runs["port"]["plane_health"]] == [0]
 
 
 def test_the_harness_runs_on_the_card_unless_asked_for_the_cpu():

@@ -458,11 +458,32 @@ def _families(series) -> set:
     return {name for name, _labels in series if name.startswith(FAMILIES)}
 
 
+def _fresh_process_books(name) -> None:
+    """Start one package's process-global books from nothing: the compile
+    families every plane of the process feeds, the fleet view, the cost
+    ledger, the profiler's table and the overload ladder. Earlier tests of
+    the same worker light their labelled series in one package only (a
+    compile storm, a fleet peer), and a family with a series shows in that
+    package's /metrics alone."""
+    package = PACKAGES[name].obs.__name__.split(".")[0]
+    device_watch = importlib.import_module(f"{package}.observability.device_watch")
+    for metric in device_watch.compile_metrics():
+        for book in ("_values", "_series"):
+            if isinstance(getattr(metric, book, None), dict):
+                getattr(metric, book).clear()
+    importlib.import_module(f"{package}.observability.costs").get_cost_ledger().reset()
+    importlib.import_module(f"{package}.observability.fleet").get_fleet_view().reset()
+    importlib.import_module(f"{package}.server.overload").get_overload_controller().reset()
+    PACKAGES[name].profiler.get_profiler().reset()
+
+
 async def test_metrics_of_a_served_plane_lists_every_jax_family(tmp_path):
     from tests.test_torch_parity_isolation import resolve_jax_codec
     from tests.test_torch_server_parity import _editors, _round
 
     resolve_jax_codec()
+    for name in PACKAGES:
+        _fresh_process_books(name)
     rng = np.random.default_rng(17)
     names = [f"doc-{i}" for i in range(4)]
     sides = [_MeteredSide("jax", str(tmp_path / "jax")), _MeteredSide("port", str(tmp_path / "port"))]

@@ -396,3 +396,117 @@ async def test_same_stream_converges_equally_through_both_packages(arena):
     assert results["port"]["docs"] == results["jax"]["docs"]
     assert results["port"]["served"] and results["jax"]["served"]
     assert results["port"]["counters"] == [(0, 0), (0, 0)]
+
+
+# -- the subscriber queue's bound (mini-redis) against one burst ------------------
+
+
+async def _burst_through_redis(package: str, num_docs: int, chunk: int) -> dict:
+    """`num_docs` docs with a writer each on instance `a` (no plane), and
+    `b` subscribed to every doc's channel through a reader of its own;
+    then one edit a writer, `chunk` of them before the loop may run the
+    subscribers' pumps, each chunk observed on `b` before the next (when
+    there is more than one). Returns mini-redis's counters, the deepest
+    any subscriber queue got, and how many of `b`'s readers hold their
+    writer's edit."""
+    if package == "jax":
+        from hocuspocus_tpu.extensions import Redis as PkgRedis
+        from hocuspocus_tpu.net.mini_redis import MiniRedis as PkgMiniRedis
+        from hocuspocus_tpu.provider import HocuspocusProvider as PkgProvider
+        from hocuspocus_tpu.provider import InProcessProviderSocket as PkgSocket
+        from hocuspocus_tpu.server import Configuration as PkgConfiguration
+        from hocuspocus_tpu.server import Hocuspocus as PkgHocuspocus
+        from hocuspocus_tpu.server.types import Payload as PkgPayload
+    else:
+        PkgRedis, PkgMiniRedis, PkgProvider, PkgSocket = (
+            Redis, MiniRedis, HocuspocusProvider, InProcessProviderSocket
+        )
+        PkgConfiguration, PkgHocuspocus, PkgPayload = Configuration, Hocuspocus, Payload
+    redis = await PkgMiniRedis().start()
+    peak = {"depth": 0}
+    enqueue = redis._enqueue
+
+    def measured(writer, message):
+        queue = redis._sub_queues.get(writer)
+        if queue is not None:
+            peak["depth"] = max(peak["depth"], queue.qsize() + 1)
+        return enqueue(writer, message)
+
+    redis._enqueue = measured
+    cores = {}
+    for side in ("a", "b"):
+        core = PkgHocuspocus(PkgConfiguration(
+            quiet=True, extensions=[PkgRedis(port=redis.port, identifier=f"burst-{side}")]
+        ))
+        await core.ensure_configured()
+        await core.hooks("on_listen", PkgPayload(instance=core, port=None))
+        cores[side] = core
+    providers = {side: [] for side in cores}
+    try:
+        for side in ("a", "b"):
+            for d in range(num_docs):
+                provider = PkgProvider(name=f"burst-{d}", websocket_provider=PkgSocket(cores[side]))
+                provider.attach()
+                providers[side].append(provider)
+            await until(lambda s=side: _assert(all(p.synced for p in providers[s])))
+        before = dict(redis.counters)
+
+        def observed(docs) -> int:
+            return sum(
+                providers["b"][d].document.get_text("t").to_string() == f"w{d};" for d in docs
+            )
+
+        for base in range(0, num_docs, chunk):
+            docs = range(base, min(base + chunk, num_docs))
+            for d in docs:
+                providers["a"][d].document.get_text("t").insert(0, f"w{d};")
+            if chunk < num_docs:
+                # paced: the next chunk waits until this one was observed
+                deadline = time.monotonic() + DEADLINE_S
+                while observed(docs) < len(docs) and time.monotonic() < deadline:
+                    await asyncio.sleep(0.01)
+        # the burst ends in a drop or with every edit observed
+        deadline = time.monotonic() + DEADLINE_S
+        while (
+            redis.counters["dropped_slow"] == before["dropped_slow"]
+            and observed(range(num_docs)) < num_docs
+            and time.monotonic() < deadline
+        ):
+            await asyncio.sleep(0.01)
+        counters = {k: v - before[k] for k, v in redis.counters.items()}
+        return {
+            "counters": counters,
+            "peak_depth": peak["depth"],
+            "limit": redis.subscriber_queue_limit,
+            "observed": observed(range(num_docs)),
+        }
+    finally:
+        for provider in providers["a"] + providers["b"]:
+            provider.destroy()
+            provider.websocket_provider.destroy()
+        for core in cores.values():
+            await core.hooks("on_destroy", PkgPayload(instance=core))
+        await redis.stop()
+
+
+async def test_a_burst_past_the_subscriber_queue_drops_the_subscriber_in_both_packages():
+    """Why 1,018 joins at once could lose sync frames: every frame for an
+    instance rides ONE mini-redis subscriber connection, whose queue holds
+    1,024 frames (a real Redis's pubsub output-buffer limit plays that
+    part). A burst of one frame a doc for 1,024 docs, published before the
+    pump may run (a join wave's SyncStep2s while a flush holds the loop),
+    overflows it, and mini-redis drops the frame and disconnects the
+    subscriber; nothing resends what it dropped. The JAX package's
+    mini-redis and Redis extension are the same code and drop the same
+    frames. Paced 64 at a time, each chunk observed before the next, as
+    loadgen joins, the queue stays far below its bound and every frame
+    arrives."""
+    burst = {package: await _burst_through_redis(package, 1024, 1024) for package in ("jax", "port")}
+    for package, out in burst.items():
+        assert out["peak_depth"] == out["limit"] + 1, (package, out)
+        assert out["counters"]["dropped_slow"] > 0, (package, out)
+        assert out["counters"]["slow_disconnects"] > 0, (package, out)
+    paced = await _burst_through_redis("port", 1024, 64)
+    assert paced["counters"]["dropped_slow"] == paced["counters"]["slow_disconnects"] == 0, paced
+    assert paced["peak_depth"] < paced["limit"] // 2, paced
+    assert paced["observed"] == 1024, paced

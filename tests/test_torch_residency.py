@@ -657,6 +657,74 @@ async def test_preserved_retired_doc_reclaimed_by_sweep():
         await until(serves_again)
 
 
+@pytest.mark.parametrize("path", ["retired", "live", "recycle"])
+async def test_compaction_reattach_reenters_the_activity_clock(path):
+    """A compaction's replay of the live document marks the doc dirty, and
+    eviction declines a dirty doc: the compaction must schedule the
+    broadcast tick that clears the mark, or a doc compacted after its last
+    edit is never evicted (the supervised deployment test waited for
+    that). Broadcast ticks are capture-driven, so none comes otherwise.
+    On the retired path the eviction scan has also dropped the doc from
+    the activity clock, and the compaction's re-attach must put it back.
+    Where the compaction declines, the snapshot recycle re-registers the
+    doc, with the same duties."""
+    ext = _served_ext(compact_threshold=0.75, native_lane=False, evict_idle_secs=0.05)
+    async with Served(ext) as served:
+        a = served.provider("idle-after-compaction")
+        await served.synced(a)
+        name = "idle-after-compaction"
+        t = a.document.get_text("t")
+        t.insert(0, "abcdefgh")
+        t.delete(0, 4)
+
+        def flushed():
+            ext.plane.flush()
+            assert ext.plane.text(name) == "efgh"
+            assert ext.plane.pending_ops() == 0 and name not in ext.plane.dirty
+
+        await until(flushed)
+        ext._instance = served.core
+        residency = ext.residency
+        evicted_before = ext.plane.counters["docs_evicted"]
+        compacted_before = ext.plane.counters["docs_compacted"]
+        if path == "retired":
+            ext.plane.retire_doc(name, "overflow")
+            ext._fallback_to_cpu(ext._docs[name])
+            await asyncio.sleep(0.06)
+            # the eviction scan visits the retired doc and drops its entry
+            preserved = set(residency._preserved)
+            residency._preserved.clear()  # the scan alone, without the reclaim pass
+            await residency.run_maintenance()
+            residency._preserved |= preserved
+            assert name not in residency.last_active
+            await residency._visit_preserved()
+            assert name in residency.last_active, "the compaction's re-attach left the activity clock"
+        elif path == "live":
+            async with ext.plane.flush_lock:
+                assert await residency.compact_doc_locked(name)
+        else:
+            ext.plane.retire_doc(name, "capacity")
+            ext._fallback_to_cpu(ext._docs[name])
+            residency._compact_declined.add(name)  # the compaction declines
+            await ext._recycle_capacity_doc(served.core.documents[name])
+            assert ext.plane.counters["docs_recycled"] >= 1 and name in residency.last_active
+            compacted_before -= 1  # no compaction on this path
+        assert name in ext._docs and ext.plane.counters["docs_compacted"] == compacted_before + 1
+
+        async def evicted_when_idle():
+            # the re-attach's replay must ship before the doc can go
+            await ext._flush_now(max_batches=None)
+            await asyncio.sleep(0.06)
+            await residency.run_maintenance()
+            return residency.is_evicted(name)
+
+        for _ in range(20):
+            if await evicted_when_idle():
+                break
+        assert residency.is_evicted(name), f"still dirty: {name in ext.plane.dirty}"
+        assert ext.plane.counters["docs_evicted"] == evicted_before + 1
+
+
 def _stream_edit(rng, text, live: int, words: tuple, delete: tuple) -> None:
     """chip_smoke.py's compaction stream: random-position inserts of a few
     words and deletes, deletes likelier as the live text passes `live`."""

@@ -474,6 +474,36 @@ async def test_failed_lane_demote_rebuild_is_a_fault_not_a_content_verdict(card)
             ext.plane.device = real_device
 
 
+async def test_a_sync_serve_in_the_lane_demote_window_is_served_by_the_plane():
+    """A SyncStep1 served while its doc demotes off the text lane (the
+    cluster smoke saw one relayed by Redis during its settle) used to find
+    the plane behind the CPU document, which answered it and counted a
+    CPU fallback. The serve now lands the rebuild and asks the plane
+    again: the plane answers, with the map write the demote came from."""
+    from hocuspocus_tpu_torch.crdt import Doc, apply_update
+
+    ext = _served_ext(flush_interval_ms=60_000, governor=False)
+    async with Served(ext) as served:
+        a = served.provider("demote")
+        await served.synced(a)
+        a.document.get_text("t").insert(0, "plain ")
+        document = served.core.documents["demote"]
+        await until(lambda: _assert(document.get_text("t").to_string() == "plain "))
+        assert ext.plane.docs["demote"].lane_slot is not None
+        fallbacks = ext.plane.counters["cpu_fallbacks"]
+        serve = asyncio.ensure_future(document.sync_source.encode_state_as_update_async(None))
+        await asyncio.sleep(0)  # the request is queued and its drain scheduled
+        document.get_map("m").set("k", "v")  # demotes the doc; the rebuild is spawned
+        served_bytes = await serve
+        assert served_bytes is not None
+        assert ext.plane.counters["cpu_fallbacks"] == fallbacks
+        assert ext.plane.counters["docs_retired_lane_demote"] == 1
+        rebuilt = Doc()
+        apply_update(rebuilt, served_bytes)
+        assert rebuilt.get_text("t").to_string() == "plain "
+        assert rebuilt.get_map("m").get("k") == "v"
+
+
 async def test_catchup_storm_batches_sync_triage_on_device(monkeypatch):
     """Concurrent SyncStep1s share state_vector_diff calls."""
     import hocuspocus_tpu_torch.tpu.serving as serving_mod

@@ -70,8 +70,9 @@ def test_supervised_server_phase_on_the_cpu(arena, durable):
         assert out["device_profile"]["device_events"] == 0
         [attempt] = out["device_profile"]["attempts"]  # one capture on the CPU
         assert attempt["device_events"] == 0 and not attempt["names_kernel"]
-        began, ended = attempt["probe_s"]  # as the 0.2 s window opens
-        assert 0 <= began <= ended
+        assert not attempt["trace_file_names_kernel"] and attempt["probe_launches"] == 0
+        began, ended = attempt["probe_s"]  # a quarter of the 0.2 s window in
+        assert 0.04 < began <= ended
     else:
         assert out["device_profile"] is None
 
@@ -150,6 +151,42 @@ def test_cluster_server_phase_on_the_cpu():
     }
 
 
+def test_edge_server_phase_on_the_cpu():
+    """The edge phase at 16 docs on CPU planes: every reader converges to
+    its writer through the other edge in every round, a hot doc's
+    audience grows a follower bootstrapped through the owner's
+    replica_snapshot, the owner drains under traffic and every doc
+    re-establishes on the survivor, whose served bytes rebuild each one;
+    no client sees a disconnect, nothing overflows, nothing falls back."""
+    smoke = _smoke()
+    out = asyncio.run(
+        smoke.run_edge_server(np.random.default_rng(7), 16, 1024, device="cpu", rows=64,
+                              hot_readers=16, watermark=4)
+    )
+    assert out["edit_observe_across_edges"]["n"] == 3 * 16
+    assert out["join_synced_writers"]["n"] == out["join_synced_readers"]["n"] == 16
+    hot = out["hot_doc"]
+    # the owner's plane served the bootstrap; nothing fell back
+    assert hot["replica_serves"][hot["owner"]]["snapshot"] == 1
+    assert hot["replica_serves"][hot["follower"]] == {"snapshot": 0, "catchup": 0}
+    assert hot["cpu_fallbacks"] == {hot["owner"]: 0, hot["follower"]: 0}
+    assert hot["owner_replicas"]["bootstraps"] >= 1 and hot["follower_replicas"]["ticks_in"] >= 1
+    assert hot["edit_observe"]["n"] == 16
+    assert out["drain"]["cell"] == hot["owner"] and out["survivor"] == hot["follower"]
+    assert out["drain"]["docs"] >= 1 and out["rebuilt"] == 16
+    assert out["served_docs"][out["survivor"]] == 16
+    assert not out["client_closes"]
+    for edge, counters in out["gateways"].items():
+        assert counters["relay_overflows"] == 0 and counters["handoffs"] >= 1, (edge, counters)
+    for cell, counters in out["counters"].items():
+        assert counters["cpu_fallbacks"] == 0 and out["ops_integrated"][cell] > 0, cell
+    assert out["redis"]["slow_disconnects"] == out["redis"]["dropped_slow"] == 0
+    # on the CPU the plain version integrates; only the card's kernel counts
+    assert out["cell_launches"] == {cell: 0 for cell in out["counters"]}
+    assert out["launches_outside_flush"] == 0
+    assert all(out["k1_ops"][cell] > 0 for cell in out["counters"]), out["k1_ops"]
+
+
 def test_tiptap_server_phase_on_the_cpu(monkeypatch):
     """BASELINE configs 3 and 1 at 4 docs: every doc loads the receiver's
     Tiptap JSON through the webhook, readers follow the bursts, History
@@ -198,7 +235,9 @@ def test_loadgen_phase_on_the_cpu():
     """The scenario runner's phase at 8 docs on the CPU: smoke passes, and
     every acknowledged edit of replication_lag is observed on the other
     instance (the runner's added check), on every doc: the 6 sampled ones'
-    readers and a fresh reader on the other instance for the 2 others."""
+    readers and a fresh reader on the other instance for the 2 others.
+    The edge scenarios at their defaults pass, writers and readers
+    converged through the two edges, and edge_handoff's drain hands off."""
     smoke = _smoke()
     out = asyncio.run(smoke.run_loadgen(8, device="cpu"))
     assert out["smoke"]["verdict"] == "pass" and out["smoke"]["acked"]["writers"] == 6
@@ -210,6 +249,14 @@ def test_loadgen_phase_on_the_cpu():
     assert len(lag["k1_ops"]) == len(lag["append_ops"]) == 2 and sum(lag["append_ops"]) > 0
     assert [phase["name"] for phase in lag["phases"]] == ["healthy", "lagged", "recovered"]
     assert lag["cpu_fallbacks"] == [0, 0] and lag["mini_redis"]["delivered"] > 0
+    for name in smoke.LOADGEN_EDGE_SCENARIOS:
+        edge = out[name]
+        assert edge["verdict"] == "pass" and edge["convergence"]["converged"], edge
+        assert edge["acked"]["docs_observed"] == edge["docs"], edge
+        assert edge["cpu_fallbacks"] == [0, 0], edge
+        assert edge["k1_launches_are"].startswith("the cells' warm grid") == (not any(edge["k1_ops"])), edge
+        assert not any(c["relay_overflows"] for c in edge["edge"].values()), edge
+    assert sum(c["handoffs"] for c in out["edge_handoff"]["edge"].values()) >= 1
 
 
 def test_loadgen_phase_holds_the_jax_packages_schedule_hashes():
