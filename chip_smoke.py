@@ -40,9 +40,15 @@ replay. Then the port's entry points: `cli_server` starts `python -m
 hocuspocus_tpu_torch.cli --tpu-serve --metrics --wal-dir D` in a process
 of its own and drives it over websockets from here (1,024 docs, SIGTERM's
 drain, a second process replaying the WAL), and `loadgen` runs the
-scenario runner (`smoke`, `replication_lag` at 1,024 docs, `edge_fanout`
-and `edge_handoff` at their defaults) and `python
--m hocuspocus_tpu_torch.loadgen --scenario smoke`. Last, where the
+scenario runner (`smoke`, `replication_lag` at 1,024 docs, `edge_fanout`,
+`edge_handoff`, `mega_audience` and `multi_device_storm` at their
+defaults) and `python
+-m hocuspocus_tpu_torch.loadgen --scenario smoke`. Then the CLI's
+`--tpu-serve --tpu-devices 4` deployment in process, four supervised
+per-device merge cells on the card, each with its own lane, through a
+skew round that makes the rebalancer migrate docs and a late cell whose
+breaker opens and closes alone (`multi_device_server`, unit arena, with
+its replay). Last, where the
 smoke's own 850 s budget leaves room, `supervised_server_full` runs the
 unit supervised phase once more with all 1,024 docs driven, in a child
 process (`--supervised-docs 1024`), and reports how it ended without
@@ -152,7 +158,7 @@ FLUSH_BUDGET_MS = 50.0
 # Python card planes), server (native lane), server_python
 PATHS = (
     "plane", "server", "server_python", "supervised_server", "compact_plane",
-    "cluster_server", "edge_server", "tiptap_server", "cli_server", "loadgen",
+    "cluster_server", "edge_server", "tiptap_server", "cli_server", "loadgen", "multi_device_server",
 )
 
 CLIENTS = np.asarray([7, 0x9000_0001], np.uint32)
@@ -3568,6 +3574,621 @@ def phase_edge_server(rng, num_docs, capacity, cuts):
     return launches, err
 
 
+# -- per-device merge cells: the CLI's --tpu-serve --tpu-devices 4 ------------
+
+MULTI_DOCS = 1024
+MULTI_CELLS = 4
+MULTI_ROWS = 512  # a cell's rows: 4 x 512 hold the 1,024 docs twice over
+MULTI_EDITORS = 2
+MULTI_JOIN_CHUNK = 64  # docs joined at once (both editors of each)
+# the mega doc's appends: multi_device_storm's 64 storm-phase inserts, but
+# of 24-80 units instead of its 256-512, which would fill the 4,096-unit
+# row in about 11 inserts and retire the doc to its CPU document before the
+# rebalancer saw its work; 64 of these keep about 3.3k units in the row
+MULTI_MEGA_INSERTS = 64
+MULTI_MEGA_UNITS = (24, 80)
+# multi_device_storm's rebalancer (hocuspocus_tpu_torch/loadgen/scenarios.py)
+MULTI_REBALANCE = {"rebalance_interval_s": 0.25, "rebalance_ratio": 1.5,
+                   "rebalance_min_units": 64.0, "migrate_batch": 4}
+# the CLI's supervisor and residency defaults, but the watchdog's cadence cut
+# from 5 s to 1 s and the canary deadline (the cadence by default) to 3 s, so
+# that the late cell's three overruns fit the phase
+MULTI_SUPERVISOR = {"init_timeout": 60.0, "watchdog_interval": 1.0, "canary_deadline": 3.0,
+                    "breaker_threshold": 3, "compact_threshold": 0.75, "hydrate_batch": 64}
+# the late cell's probe sleeps twice the deadline: it overruns one tick, and
+# the next two find it still outstanding, so the breaker opens in three ticks
+MULTI_LATE_DEADLINES = 2.0
+MULTI_CUTS = {
+    "docs": "1k docs as config 2, 2 editors a doc (10 clients in config 2), joined 64 docs at a time",
+    "rounds": "one config 2 edit an editor a round: before the skew, under the late cell, after it",
+    "watchdog": "the CLI's 5 s watchdog cadence cut to 1 s, its canary deadline to 3 s",
+    "devices": "4 cells wrapped onto the one card the machine has, each with its own lane",
+    "mega": "multi_device_storm's mega inserts of 256-512 units cut to 24-80, so the doc fits its row",
+}
+
+
+async def run_multi_device_server(rng, num_docs, capacity, device=None, recorder=None,
+                                  rows=MULTI_ROWS, chunk=MULTI_JOIN_CHUNK,
+                                  mega_inserts=MULTI_MEGA_INSERTS, mega_units=MULTI_MEGA_UNITS,
+                                  supervisor=None):
+    """The CLI's `--tpu-serve --tpu-devices 4` deployment in process: the
+    port's Hocuspocus core with `Metrics` and
+    `SupervisedTpuMergeExtension(devices=4)` (no `device`: the card), four
+    unit-arena cells of `rows` rows each with its own lane
+    (`get_device_lane(i)`) and timer phase, the rebalancer at
+    multi_device_storm's cadence (MULTI_REBALANCE).
+
+    Each doc has MULTI_EDITORS editors on in-process sockets of their own,
+    joined `chunk` docs at a time, and starts with one word. Round 1 is
+    one config 2 edit an editor. The skew round: doc 0 takes
+    `mega_inserts` appends of `mega_units` units (multi_device_storm's
+    mega doc), one after every few other docs' one edit, and the
+    rebalancer must migrate docs off the hot cell. The late-cell round:
+    one cell's `plane.canary_probe` sleeps past the canary deadline until
+    its breaker opens (fault injection here, nothing in the package), a
+    round of edits runs while its docs are on the CPU documents, then the
+    probe is restored and the cell restored and re-onboarded. A last
+    round, then a fresh joiner for every doc. From round 1 on each K1
+    launch is counted at its wrapper under the cell whose flush (or
+    canary) made it; `recorder` keeps cell 0's biggest integrate batch.
+    Each CPU fallback is attributed: the late cell's docs in its window,
+    a migration's CPU snapshot, or the mega doc outgrowing its row.
+    Returns the phase's numbers."""
+    import contextlib
+
+    from hocuspocus_tpu_torch.crdt import Doc, apply_update, encode_state_as_update
+    from hocuspocus_tpu_torch.observability import Metrics
+    from hocuspocus_tpu_torch.provider import HocuspocusProvider, InProcessProviderSocket
+    from hocuspocus_tpu_torch.server import Configuration, Hocuspocus
+    from hocuspocus_tpu_torch.server.types import Payload
+    from hocuspocus_tpu_torch.tpu import SupervisedTpuMergeExtension
+    from hocuspocus_tpu_torch.tpu import integrate as ti
+    from hocuspocus_tpu_torch.tpu import merge_plane as mp
+    from hocuspocus_tpu_torch.tpu.scheduler import get_device_lane, reset_device_lane
+    from hocuspocus_tpu_torch.tpu.supervisor import STATE_DEGRADED, STATE_INITIALIZING, STATE_READY
+
+    tag = "multi_device_server"
+    supervisor = dict(MULTI_SUPERVISOR if supervisor is None else supervisor)
+    reset_device_lane()
+    started = time.perf_counter()
+    ext = SupervisedTpuMergeExtension(
+        devices=MULTI_CELLS, num_docs=rows, capacity=capacity, serve=True, arena="unit",
+        **supervisor, **MULTI_REBALANCE, **({} if device is None else {"device": device}),
+    )
+    metrics = Metrics(**METRICS_DEFAULTS)
+    core = Hocuspocus(Configuration(quiet=True, extensions=[metrics, ext]))
+    await core.ensure_configured()
+    await core.hooks("on_listen", Payload(instance=core, configuration=core.configuration, port=None))
+    deadline = time.perf_counter() + 180
+    while ext.supervisor.state != STATE_READY:
+        check(ext.supervisor.state == STATE_INITIALIZING,
+              f"{tag}: the supervisor is {ext.supervisor.state}: {ext.health_status()}")
+        check(time.perf_counter() < deadline, f"{tag}: the cells never attached")
+        await asyncio.sleep(0.02)
+    runtime = ext.runtime
+    cells = runtime.cells
+    check(len(cells) == MULTI_CELLS, f"{tag}: {len(cells)} cells")
+    for cell in cells:
+        await cell.warmup_task
+        check(cell.plane.compile_watch.warmed, f"{tag}: a cell's warm grid did not finish")
+    lanes = [cell.lane for cell in cells]
+    check(lanes == [get_device_lane(i) for i in range(MULTI_CELLS)] and len(set(map(id, lanes))) == MULTI_CELLS,
+          f"{tag}: the cells do not each admit through a lane of their own")
+    ready_seconds = time.perf_counter() - started
+
+    # per-cell launch counts: each cell's flush (the lane's, a serve's, a
+    # hydration's, on whichever thread) and each canary mark their thread,
+    # and each launch of a wrapper the plane calls is counted under that
+    # mark where it launches (a card tensor)
+    dense_name, sparse_name = ARENAS["unit"]["wrap"]
+    dense_fn, sparse_fn = getattr(ti, dense_name), getattr(ti, sparse_name)
+    marking = threading.local()
+    flush_launches = collections.Counter()  # cell -> launches in its flushes; None: outside all
+    canary_launches = collections.Counter()
+    flushes = collections.Counter()  # cell -> flush calls while counting
+    counting = {"on": False}
+    for i, cell in enumerate(cells):
+        plane = cell.plane
+        real_flush, real_probe = plane.flush, plane.canary_probe
+
+        def marked_flush(max_batches=None, real_flush=real_flush, i=i, plane=plane):
+            outer = getattr(marking, "site", None)
+            marking.site = ("flush", i)
+            try:
+                count = real_flush(max_batches)
+            finally:
+                marking.site = outer
+            if counting["on"]:
+                flushes[i] += 1
+            if recorder is not None and i == recorder.cell:
+                recorder.after_flush(plane.state)
+            return count
+
+        def marked_probe(real_probe=real_probe, i=i):
+            marking.site = ("canary", i)
+            try:
+                return real_probe()
+            finally:
+                marking.site = None
+
+        plane.flush, plane.canary_probe = marked_flush, marked_probe
+    if recorder is not None:
+        recorder.gate = lambda: getattr(marking, "site", None) == ("flush", recorder.cell)
+
+    @contextlib.contextmanager
+    def counted_by_cell():
+        current = {name: getattr(mp, name) for name in (dense_name, sparse_name)}
+
+        def counted(fn):
+            def call(state, *args):
+                out = fn(state, *args)
+                if counting["on"] and state.id_client.is_cuda:
+                    site = getattr(marking, "site", None)
+                    if site is not None and site[0] == "canary":
+                        canary_launches[site[1]] += 1
+                    else:
+                        flush_launches[None if site is None else site[1]] += 1
+                return out
+            return call
+
+        for name, fn in current.items():
+            setattr(mp, name, counted(fn))
+        try:
+            yield
+        finally:
+            for name, fn in current.items():
+                setattr(mp, name, fn)
+
+    # every CPU fallback, attributed: (cell, doc, window)
+    window = {"now": "join"}
+    fallbacks = []
+    for i, cell in enumerate(cells):
+        real_fallback = cell._fallback_to_cpu
+
+        def recorded_fallback(document, real_fallback=real_fallback, i=i, cell=cell):
+            if document.name in cell._docs:
+                plane_doc = cell.plane.docs.get(document.name)
+                fallbacks.append((i, document.name, window["now"],
+                                  None if plane_doc is None else plane_doc.retire_reason))
+            return real_fallback(document)
+
+        cell._fallback_to_cpu = recorded_fallback
+    # migrations: start, and when the target serves the doc
+    migrations = []
+    real_migrate = runtime.migrate_doc
+
+    async def timed_migrate(name, src, dst):
+        t0 = time.perf_counter()
+        moved = await real_migrate(name, src, dst)
+        if moved:
+            migrations.append({"doc": name, "src": src, "dst": dst, "window": window["now"],
+                               "started": t0, "evicted": time.perf_counter(), "hydrated": None})
+        return moved
+
+    runtime.migrate_doc = timed_migrate
+
+    def note_hydrated() -> None:
+        now = time.perf_counter()
+        for move in migrations:
+            if move["hydrated"] is None and move["doc"] in cells[move["dst"]]._docs:
+                move["hydrated"] = now
+
+    names = [f"multi-{i}" for i in range(num_docs)]
+    closes = collections.Counter()
+
+    def provider(name):
+        p = HocuspocusProvider(name=name, websocket_provider=InProcessProviderSocket(core))
+        p.on("close", lambda *_a, **_k: closes.update(["close"]))
+        p.on("authentication_failed", lambda *_a, **_k: closes.update(["denied"]))
+        return p
+
+    async def join(doc_names, per_doc) -> tuple:
+        """`chunk` docs at a time: (providers by doc, join -> synced seconds)."""
+        out, waits = {}, []
+        for s in range(0, len(doc_names), chunk):
+            wave = [(name, provider(name)) for name in doc_names[s:s + chunk] for _ in range(per_doc)]
+            synced_at = {}
+            t_join = time.perf_counter()
+            for _name, p in wave:
+                p.on("synced", lambda payload, p=p: payload.get("state")
+                     and synced_at.setdefault(p, time.perf_counter()))
+                p.attach()
+            await asyncio.wait_for(_all_synced([p for _n, p in wave]), 300)
+            waits += [synced_at.get(p, time.perf_counter()) - t_join for _n, p in wave]
+            for name, p in wave:
+                out.setdefault(name, []).append(p)
+        return out, waits
+
+    editors, editor_joins = await join(names, MULTI_EDITORS)
+
+    def diverged(groups) -> list:
+        out = []
+        for name, group in groups.items():
+            states = {encode_state_as_update(p.document) for p in group}
+            server = core.documents.get(name)
+            if server is not None:
+                states.add(encode_state_as_update(server))
+            if len(states) != 1:
+                out.append(name)
+        return out
+
+    async def until_converged(what, groups=None, timeout=300):
+        groups = editors if groups is None else groups
+        deadline = time.perf_counter() + timeout
+        left = diverged(groups)
+        while left:
+            check(time.perf_counter() < deadline, f"{tag}: {what}: {len(left)} docs never converged: {left[:4]}")
+            await asyncio.sleep(0.02)
+            left = diverged({name: groups[name] for name in left})
+
+    async def until_idle(what):
+        deadline = time.perf_counter() + 120
+        while any(cell.plane.pending_ops() > 0 or cell._flush_inflight for cell in cells):
+            check(time.perf_counter() < deadline, f"{tag}: {what}: the queues never drained")
+            await asyncio.sleep(0.005)
+
+    for d, name in enumerate(names):
+        editors[name][0].document.get_text("t").insert(0, WORDS[d % len(WORDS)])
+        if d % 16 == 15:
+            await asyncio.sleep(0)
+    await until_converged("the first words")
+    await until_idle("the first words")
+    setup_seconds = time.perf_counter() - started
+
+    clocks = {}
+
+    async def edit_round(what, docs=None):
+        """One config 2 edit an editor of every doc, each insert timed to
+        the doc's other editor; then every doc converged."""
+        clock = clocks[what] = EditClock(asyncio.Event())
+        for group in editors.values():
+            for p in group:
+                clock.watch(p)
+        for d, name in enumerate(names if docs is None else docs):
+            group = editors[name]
+            for k, p in enumerate(group):
+                if _server_edit(rng, p.document.get_text("t")):
+                    clock.expect(group[(k + 1) % len(group)], p)
+            if d % 16 == 15:
+                await asyncio.sleep(0)
+        await asyncio.wait_for(clock.idle.wait(), 300)
+        await until_converged(what)
+
+    base = [{k: cell.plane.counters[k] for k in ("flush_fast_ops", "flush_slow_ops", "cpu_fallbacks")}
+            for cell in cells]
+    lane0 = [dict(lane.counters) for lane in lanes]
+    dense_fn.launches = sparse_fn.launches = 0
+    counting["on"] = True
+    recording = recorder if recorder is not None else contextlib.nullcontext()
+    rounds = {}
+
+    async def watch_hydrations():
+        while counting["on"]:
+            note_hydrated()
+            await asyncio.sleep(0.005)
+
+    watcher = asyncio.ensure_future(watch_hydrations())
+    with recording, counted_by_cell():
+        window["now"] = "round 1"
+        t0 = time.perf_counter()
+        await edit_round("round 1")
+        rounds["round 1"] = time.perf_counter() - t0
+
+        # the skew: the mega doc's appends among one edit of every other doc
+        window["now"] = "skew"
+        mega = names[0]
+        mega_cell = runtime.cell_index_for(mega)
+        migrated0 = runtime.migration_stats["docs_migrated"]
+        stats_before = runtime.cell_stats()
+        t0 = time.perf_counter()
+        clock = clocks["skew"] = EditClock(asyncio.Event())
+        for group in editors.values():
+            for p in group:
+                clock.watch(p)
+        others = names[1:]
+        every = max(len(others) // max(mega_inserts, 1), 1)
+        writer = editors[mega][0]
+        inserted = 0
+        for d, name in enumerate(others):
+            group = editors[name]
+            if _server_edit(rng, group[0].document.get_text("t")):
+                clock.expect(group[1], group[0])
+            if d % every == every - 1 and inserted < mega_inserts:
+                text = writer.document.get_text("t")
+                text.insert(len(text), "x" * int(rng.integers(mega_units[0], mega_units[1] + 1)))
+                clock.expect(editors[mega][1], writer)
+                inserted += 1
+                await asyncio.sleep(0)
+        while inserted < mega_inserts:
+            text = writer.document.get_text("t")
+            text.insert(len(text), "x" * int(rng.integers(mega_units[0], mega_units[1] + 1)))
+            clock.expect(editors[mega][1], writer)
+            inserted += 1
+            await asyncio.sleep(0)
+        await asyncio.wait_for(clock.idle.wait(), 300)
+        await until_converged("the skew round")
+        skew_stats = runtime.cell_stats()
+        deadline = time.perf_counter() + 30
+        while runtime.migration_stats["docs_migrated"] == migrated0:
+            check(time.perf_counter() < deadline,
+                  f"{tag}: no doc migrated off the hot cell {mega_cell}: {runtime.migration_stats} "
+                  f"work before {[s['work_units'] for s in stats_before]}, after {[s['work_units'] for s in skew_stats]}, "
+                  f"now {[s['work_units'] for s in runtime.cell_stats()]}; fallbacks {fallbacks[:4]}")
+            await asyncio.sleep(0.05)
+        deadline = time.perf_counter() + 60
+        while True:
+            note_hydrated()
+            if all(move["hydrated"] is not None for move in migrations):
+                break
+            check(time.perf_counter() < deadline, f"{tag}: a migrated doc never hydrated on its target")
+            await asyncio.sleep(0.005)
+        await until_converged("after the migrations")
+        rounds["skew"] = time.perf_counter() - t0
+
+        # the late cell: its canary sleeps past the deadline until the
+        # breaker opens; a round runs while its docs are on the CPU path
+        window["now"] = "late"
+        late = (mega_cell + 1) % MULTI_CELLS
+        sup = ext.supervisor
+        late_plane = cells[late].plane
+        on_time_probe = late_plane.canary_probe
+        sleep_s = sup.canary_deadline * MULTI_LATE_DEADLINES
+
+        def late_probe():
+            time.sleep(sleep_s)
+            return on_time_probe()
+
+        late_docs = sorted(name for name in cells[late]._docs)
+        t0 = time.perf_counter()
+        late_plane.canary_probe = late_probe
+        deadline = time.perf_counter() + 60
+        while not (sup.cell_breakers and sup.cell_breakers[late].state == "open"
+                   and sup.cell_states[late] == STATE_DEGRADED):
+            check(time.perf_counter() < deadline, f"{tag}: the late cell's breaker never opened: {sup.snapshot()}")
+            await asyncio.sleep(0.01)
+        degrade_seconds = time.perf_counter() - t0
+        check(late not in runtime.placement.healthy and lanes[late].paused,
+              f"{tag}: the late cell still places docs or admits")
+        # the rebalancer may have moved some of its docs off just before
+        check(not cells[late]._docs, f"{tag}: the late cell still serves {len(cells[late]._docs)} docs")
+        moved_off = [name for name in late_docs if runtime.is_served(name)]
+        check(sup.state == STATE_READY, f"{tag}: the supervisor left READY: {sup.state}")
+        opened = [i for i, b in enumerate(sup.cell_breakers) if b.state != "closed"]
+        check(opened == [late], f"{tag}: breakers not closed: {opened}")
+        t_round = time.perf_counter()
+        await edit_round("late cell")
+        rounds["late cell"] = time.perf_counter() - t_round
+        late_plane.canary_probe = on_time_probe
+        t_restore = time.perf_counter()
+        deadline = time.perf_counter() + 60
+        while True:
+            placed_late = [name for name in names if runtime.placement.place(name) == late]
+            if (sup.cell_states[late] == STATE_READY and sup.cell_breakers[late].state == "closed"
+                    and placed_late and all(runtime.is_served(name) for name in placed_late)):
+                break
+            check(time.perf_counter() < deadline,
+                  f"{tag}: the late cell never came back: {sup.snapshot().get('cells')} "
+                  f"{sum(not runtime.is_served(n) for n in placed_late)} of its docs unserved")
+            await asyncio.sleep(0.01)
+        restore_seconds = time.perf_counter() - t_restore
+        breaker_transitions = dict(sup.cell_breakers[late].transitions)
+        check(all(b.state == "closed" for b in sup.cell_breakers), f"{tag}: a breaker is open after the restore")
+        check(sup.state == STATE_READY, f"{tag}: the supervisor left READY: {sup.state}")
+
+        window["now"] = "last"
+        t0 = time.perf_counter()
+        await edit_round("last round")
+        rounds["last round"] = time.perf_counter() - t0
+        joiners, joiner_joins = await join(names, 1)
+        groups = {name: editors[name] + joiners[name] for name in names}
+        await until_converged("the joiners", groups)
+        await until_idle("the last round")
+        note_hydrated()
+    counting["on"] = False
+    await watcher
+    check(all(not p.has_unsynced_changes for group in editors.values() for p in group),
+          f"{tag}: an editor's edit was never acknowledged")
+    launches = {dense_name: dense_fn.launches, sparse_name: sparse_fn.launches}
+    k1_ops = [cell.plane.counters["flush_slow_ops"] - base[i]["flush_slow_ops"] for i, cell in enumerate(cells)]
+    append_ops = [cell.plane.counters["flush_fast_ops"] - base[i]["flush_fast_ops"] for i, cell in enumerate(cells)]
+    fallback_total = sum(cell.plane.counters["cpu_fallbacks"] - base[i]["cpu_fallbacks"]
+                         for i, cell in enumerate(cells))
+    migration_cpu = sum(cell.plane.residency_stats.get("migration_cpu_snapshots", 0) for cell in cells)
+    attributed = collections.Counter()
+    unattributed = []
+    for i, name, when, reason in fallbacks:
+        if when == "late" and i == late:
+            attributed["late_cell"] += 1
+        elif name == mega and reason == "capacity":
+            attributed["mega_capacity"] += 1
+        else:
+            unattributed.append((i, name, when, reason))
+    attributed["migration_snapshots"] = migration_cpu
+    # /metrics: the cells' labelled gauges against their books, at rest
+    status, text = await scrape(metrics, "/metrics")
+    books = runtime.cell_stats()
+    check(status == 200, f"{tag}: /metrics answered {status}")
+    series = parse_prometheus(text, f"{tag} /metrics")
+    gauge_mismatch = []
+    # a card cell's device bytes are the card's allocator total, which the
+    # watchdog's canaries move between the scrape and the books: there
+    # the gauges must agree with each other (one card), on the CPU with
+    # the books (arena and staging bytes)
+    on_card = cells[0].plane.device.type == "cuda"
+    books_keys = [("hocuspocus_tpu_cell_docs", "docs"), ("hocuspocus_tpu_cell_rows_in_use", "rows_in_use"),
+                  ("hocuspocus_tpu_cell_pending_ops", "pending_ops"),
+                  ("hocuspocus_tpu_cell_work_units", "work_units")]
+    if not on_card:
+        books_keys.append(("hocuspocus_tpu_cell_hbm_bytes", "hbm_bytes"))
+    hbm_gauges = []
+    for stat in books:
+        labels = (("cell", str(stat["cell"])), ("device", stat["device"]))
+        hbm_gauges.append(series.get(("hocuspocus_tpu_cell_hbm_bytes", labels)))
+        for family, key in books_keys:
+            if series.get((family, labels)) != float(stat[key]):
+                gauge_mismatch.append((family, stat["cell"], series.get((family, labels)), stat[key]))
+    if on_card and (len(set(hbm_gauges)) != 1 or not hbm_gauges[0]):
+        gauge_mismatch.append(("hocuspocus_tpu_cell_hbm_bytes", "all", hbm_gauges, "one card's total"))
+    # every doc served from a cell, its served bytes rebuilding it (the
+    # mega doc where it outgrew its row: its CPU document, held above)
+    rebuilt = 0
+    served_by = collections.Counter()
+    for name in names:
+        document = core.documents[name]
+        if name == mega and attributed["mega_capacity"]:
+            continue
+        check(document.sync_source is not None, f"{tag}: {name} is not served by a cell: {fallbacks[-4:]}")
+        served = await document.sync_source.encode_state_as_update_async(None)
+        check(served is not None, f"{tag}: {name} was not served from its cell")
+        doc = Doc()
+        apply_update(doc, served)
+        check(encode_state_as_update(doc) == encode_state_as_update(document),
+              f"{tag}: {name}: served bytes rebuild another doc")
+        rebuilt += 1
+        served_by[runtime.cell_index_for(name)] += 1
+    lanes_out = []
+    for i, lane in enumerate(lanes):
+        lanes_out.append({k: lane.counters[k] - lane0[i].get(k, 0)
+                          for k in ("admissions", "dispatches_in_lane", "dispatches_bypass", "deferrals")})
+    note_hydrated()
+    migration_s = [m["hydrated"] - m["started"] for m in migrations if m["hydrated"] is not None]
+    out = {
+        "ready_seconds": round(ready_seconds, 3),
+        "setup_seconds": round(setup_seconds, 3),
+        "round_seconds": {k: round(v, 3) for k, v in rounds.items()},
+        "seconds": round(time.perf_counter() - started, 3),
+        "edit_observe": {k: percentiles_ms(c.samples) for k, c in clocks.items()},
+        "join_synced_editors": percentiles_ms(editor_joins),
+        "join_synced_joiners": percentiles_ms(joiner_joins),
+        "mega": {"doc": mega, "cell": mega_cell, "inserts": mega_inserts, "units": list(mega_units)},
+        "work_before_skew": [s["work_units"] for s in stats_before],
+        "work_after_skew": [s["work_units"] for s in skew_stats],
+        "migrations": {
+            "docs": len(migrations),
+            "in_skew_round": sum(m["window"] == "skew" for m in migrations),
+            "moves": [(m["doc"], m["src"], m["dst"]) for m in migrations[:16]],
+            "seconds": percentiles_ms(migration_s),
+            "stats": dict(runtime.migration_stats),
+        },
+        "late_cell": {
+            "cell": late, "docs": len(late_docs), "migrated_off_before_the_trip": len(moved_off),
+            "sleep_s": sleep_s,
+            "degrade_seconds": round(degrade_seconds, 3), "restore_seconds": round(restore_seconds, 3),
+            "breaker_transitions": breaker_transitions, "placed_docs_served": len(placed_late),
+        },
+        "supervisor": {"state": ext.supervisor.state, "counters": dict(ext.supervisor.counters)},
+        "cpu_fallbacks": {"total": fallback_total, **attributed, "unattributed": unattributed[:8],
+                          "unattributed_count": len(unattributed)},
+        "client_closes": dict(closes),
+        "integrate_launches": launches,
+        "cell_launches": {str(i): flush_launches[i] for i in range(MULTI_CELLS)},
+        "canary_launches": {str(i): canary_launches[i] for i in range(MULTI_CELLS)},
+        "launches_outside_flush": flush_launches[None],
+        "cell_flushes": {str(i): flushes[i] for i in range(MULTI_CELLS)},
+        "k1_ops": {str(i): k1_ops[i] for i in range(MULTI_CELLS)},
+        "append_ops": {str(i): append_ops[i] for i in range(MULTI_CELLS)},
+        "lanes": lanes_out,
+        "gauge_mismatch": gauge_mismatch,
+        "hbm_gauges": hbm_gauges,
+        "rebuilt": rebuilt,
+        "served_by_cell": {str(i): served_by[i] for i in range(MULTI_CELLS)},
+        "utilization_spread": runtime.utilization_spread(),
+        "per_device_latency": runtime.per_device_latency(),
+        "phase_offsets_ms": [cell.phase_offset_ms for cell in cells],
+        "placement_hash": runtime.placement.placement_hash(),
+        "counters": [{k: cell.plane.counters[k] for k in (
+            "cpu_fallbacks", "docs_retired_capacity", "docs_retired_unsupported", "docs_evicted",
+            "docs_hydrated", "docs_compacted", "plane_broadcasts", "sync_serves",
+            "flush_fast_ops", "flush_slow_ops")} for cell in cells],
+    }
+    for group in list(editors.values()) + list(joiners.values()):
+        for p in group:
+            p.destroy()
+            p.websocket_provider.destroy()
+    await asyncio.sleep(0)
+    await core.hooks("on_destroy", Payload(instance=core))
+    return out
+
+
+def phase_multi_device_server(rng, num_docs, capacity, cuts):
+    """Per-device merge cells on the card (run_multi_device_server), with
+    its checks: every doc byte-identical across its editors, its joiner
+    and the server after each round, and served from a cell whose bytes
+    rebuild it; K1 launched with ops of its own on every cell, each launch
+    counted under the cell whose flush or canary made it, none outside,
+    the cells' counts adding up to the wrapper's; each lane admitted only
+    its cell's work (no bypass) and at least as often as its cell flushed;
+    at least one doc migrated in the skew round, nothing acknowledged
+    lost, no client-visible close; the late cell's breaker opened and
+    closed and no other; every CPU fallback attributed to the late cell's
+    window, a migration or the mega doc's row; the /metrics cell gauges
+    equal to the cells' books. Then cell 0's biggest integrate batch is
+    replayed through the kernel and the plain version. Returns
+    (launches, max_abs_err of the replay)."""
+    from hocuspocus_tpu_torch.tpu import merge_plane as mp
+
+    recorder = Recorder(mp, *ARENAS["unit"]["wrap"])
+    recorder.cell = 0
+    out = asyncio.run(run_multi_device_server(rng, num_docs, capacity, recorder=recorder))
+    launches = check_multi_device(out, num_docs, cuts, on_card=True)
+    err = phase_served_replay(recorder.best, "unit", path="multi_device_server")
+    recorder.best = recorder.before = None
+    return launches, err
+
+
+def check_multi_device(out, num_docs, cuts, on_card) -> int:
+    """The multi_device_server phase's line and gates; the wrapper's
+    launches. On the CPU (`on_card` False) the plain version integrates,
+    so no launch is counted and the launch gates are left out."""
+    tag = "multi_device_server"
+    launches = sum(out["integrate_launches"].values())
+    emit(
+        tag,
+        gpu=nvidia_smi_line() if on_card else None,
+        config="BASELINE config 2's Y.Text edits through the CLI's --tpu-serve --tpu-devices 4 "
+               "deployment (tests/tpu/test_multi_device.py's cell plane)",
+        arena="unit",
+        docs=num_docs,
+        cells=MULTI_CELLS,
+        rows=MULTI_ROWS,
+        rebalance=MULTI_REBALANCE,
+        cuts=cuts,
+        **out,
+    )
+    for i in map(str, range(MULTI_CELLS)):
+        check(out["k1_ops"][i] > 0, f"{tag}: no op integrated through K1 on cell {i}")
+        check(out["lanes"][int(i)]["dispatches_bypass"] == 0, f"{tag}: cell {i}'s dispatches bypassed its lane")
+        check(out["lanes"][int(i)]["dispatches_in_lane"] > 0, f"{tag}: cell {i} dispatched nothing in its lane")
+        check(out["lanes"][int(i)]["admissions"] >= out["cell_flushes"][i],
+              f"{tag}: cell {i} flushed {out['cell_flushes'][i]} times on {out['lanes'][int(i)]['admissions']} "
+              "admissions of its lane")
+        if on_card:
+            check(out["cell_launches"][i] > 0, f"{tag}: K1 never launched in cell {i}'s flushes")
+    check(out["launches_outside_flush"] == 0,
+          f"{tag}: {out['launches_outside_flush']} K1 launches outside every cell's flush and canary")
+    check(sum(out["cell_launches"].values()) + sum(out["canary_launches"].values()) == launches,
+          f"{tag}: the cells' launches {out['cell_launches']} + canaries {out['canary_launches']} "
+          f"do not add up to the wrappers' {launches}")
+    if on_card:
+        check(launches > 0, f"{tag}: K1 never launched from the cells")
+    check(out["migrations"]["in_skew_round"] >= 1, f"{tag}: no doc migrated in the skew round")
+    check(not out["client_closes"], f"{tag}: client-visible closes: {out['client_closes']}")
+    late = out["late_cell"]
+    check(late["breaker_transitions"].get("closed->open", 0) >= 1
+          and late["breaker_transitions"].get("half_open->closed", 0) >= 1,
+          f"{tag}: the late cell's breaker did not open and close: {late}")
+    check(out["supervisor"]["state"] == "ready", f"{tag}: the supervisor ended {out['supervisor']['state']}")
+    fallbacks = out["cpu_fallbacks"]
+    check(fallbacks["unattributed_count"] == 0, f"{tag}: CPU fallbacks outside the late cell and migrations: "
+                                                f"{fallbacks}")
+    check(fallbacks["total"] == fallbacks.get("late_cell", 0) + fallbacks.get("mega_capacity", 0)
+          + fallbacks["migration_snapshots"], f"{tag}: CPU fallbacks do not add up: {fallbacks}")
+    check(not out["gauge_mismatch"], f"{tag}: /metrics cell gauges differ from the books: {out['gauge_mismatch']}")
+    expected = num_docs - (1 if fallbacks.get("mega_capacity") else 0)
+    check(out["rebuilt"] == expected, f"{tag}: {out['rebuilt']} of {expected} docs rebuilt from their cells")
+    return launches
+
+
 # -- Tiptap docs behind the CLI's persistence stack (BASELINE configs 3 and 1) --
 
 TIPTAP_ROUNDS = 2
@@ -4441,11 +5062,19 @@ LOADGEN_HASHES = {
     ("replication_lag", 1024): "bb255b3a250b59ad056ab26e217d3d246efa40ce40715597eef8a887a99d9f32",
     ("edge_fanout", None): "2f3892d5fc975743c1ce22b196cd7417d138e303678f98742642d5afeb0999d0",
     ("edge_handoff", None): "04a7e2616a26fd07da5ccf943569bc7568aace596d32d91138276e29f37a48ab",
+    ("multi_device_storm", None): "e52390f0efbb491c3268e5ed52151036cb11a2e6c1ac0bf218265cabc9fdb99b",
+    ("mega_audience", None): "4b6cfc8bf10bbfbabe44dc74bc73877a323ebc7ab80d7f8107913381661d7f0f",
 }
 # the edge scenarios, at their published defaults (2 edges, 2 cells, each
-# cell's plane on the card); mega_audience's three planes in one process
-# stay in the CPU twin tests (ROADMAP Queue A item 7)
+# cell's plane on the card), gated
 LOADGEN_EDGE_SCENARIOS = ("edge_fanout", "edge_handoff")
+# mega_audience at its defaults: three cell planes in one process on one
+# card behind two edges, gated as the edge scenarios (its CPU fallbacks,
+# the follower seams' CPU answers, reported)
+LOADGEN_AUDIENCE_SCENARIOS = ("mega_audience",)
+# per-device merge cells at multi_device_storm's published defaults: 24
+# docs, 2 instances of 4 cells, so 8 cells in one process on one card
+LOADGEN_MULTI_SCENARIOS = ("multi_device_storm",)
 LOADGEN_ACK_S = 120.0  # acknowledged edits must be observed on the other instance within this
 LOADGEN_READERS_PER_CHUNK = 64  # fresh readers joining the other instance at once
 LOADGEN_CUTS = {"docs": "replication_lag's 16 docs widened to 1,024 (its other parameters as published)"}
@@ -4932,8 +5561,12 @@ async def run_loadgen(num_docs, device="cuda", seed=LOADGEN_SEED):
     over the port's MiniRedis, the scenario's other parameters as
     published; its SLO verdicts are reported, not gated), then the edge
     scenarios at their published defaults (two edges, two merge cells;
-    verdicts gated, writers and readers converged byte for byte), each
-    schedule's hash held to the JAX package's. Returns the numbers."""
+    verdicts gated, writers and readers converged byte for byte),
+    `mega_audience` at its defaults (three cells; gated as the edge
+    scenarios), and
+    `multi_device_storm` at its defaults (two instances of four per-device
+    cells; verdict, convergence and migrations gated in phase_loadgen),
+    each schedule's hash held to the JAX package's. Returns the numbers."""
     from hocuspocus_tpu_torch.loadgen import get_scenario
     from hocuspocus_tpu_torch.tpu import integrate as ti
     from hocuspocus_tpu_torch.tpu.scheduler import reset_device_lane
@@ -4941,7 +5574,8 @@ async def run_loadgen(num_docs, device="cuda", seed=LOADGEN_SEED):
     dense_fn, sparse_fn = (getattr(ti, name) for name in ARENAS["unit"]["wrap"])
     out = {}
     runs = [("smoke", None), (LOADGEN_DOCS_SCENARIO, num_docs)]
-    runs += [(name, None) for name in LOADGEN_EDGE_SCENARIOS]
+    runs += [(name, None) for name in
+             LOADGEN_EDGE_SCENARIOS + LOADGEN_AUDIENCE_SCENARIOS + LOADGEN_MULTI_SCENARIOS]
     for name, docs in runs:
         reset_device_lane()
         scenario = get_scenario(name) if docs is None else get_scenario(name, num_docs=docs)
@@ -4959,13 +5593,26 @@ async def run_loadgen(num_docs, device="cuda", seed=LOADGEN_SEED):
                      "acked": runner.acked, **_scenario_summary(result)}
         if name == LOADGEN_DOCS_SCENARIO:
             out[name]["mini_redis"] = result["extra"].get("mini_redis")
-        if name in LOADGEN_EDGE_SCENARIOS:
+        if name in LOADGEN_EDGE_SCENARIOS + LOADGEN_AUDIENCE_SCENARIOS + LOADGEN_MULTI_SCENARIOS:
             # every edit of these scenarios is an append: reported, not
             # gated, since the cells' warm grid alone launches K1
             out[name]["k1_launches_are"] = (
                 "the cells' warm grid's no-op batches: no op went through K1"
                 if not any(out[name]["k1_ops"]) else "warm-grid and integrate batches"
             )
+        if name in LOADGEN_MULTI_SCENARIOS:
+            extra = result["extra"]
+            out[name]["convergence"] = extra.get("convergence")
+            out[name]["multi_device"] = {
+                instance: {"migrations": m["migrations"], "utilization": m["utilization"],
+                           "devices": m["devices"]}
+                for instance, m in extra.get("multi_device", {}).items()
+            }
+            out[name]["docs_migrated"] = sum(
+                m["migrations"]["docs_migrated"] for m in extra.get("multi_device", {}).values()
+            )
+            out[name]["lanes"] = [phase.get("lane") for phase in result["phases"]]
+        if name in LOADGEN_EDGE_SCENARIOS + LOADGEN_AUDIENCE_SCENARIOS:
             out[name]["convergence"] = runner.convergence
             out[name]["mini_redis"] = result["extra"].get("mini_redis")
             out[name]["edge"] = {
@@ -5033,7 +5680,15 @@ def phase_loadgen(num_docs, cuts):
     check(out[LOADGEN_DOCS_SCENARIO]["acked"] is not None, "loadgen: the acknowledgement check did not run")
     check(out[LOADGEN_DOCS_SCENARIO]["acked"]["docs_observed"] == num_docs,
           f"loadgen: {out[LOADGEN_DOCS_SCENARIO]['acked']} docs observed on the other instance")
-    for name in LOADGEN_EDGE_SCENARIOS:
+    for name in LOADGEN_MULTI_SCENARIOS:
+        run = out[name]
+        check(run["verdict"] == "pass", f"loadgen {name}: verdict {run['verdict']} ({run['breached']})")
+        check(run["convergence"] is not None and run["convergence"]["converged"],
+              f"loadgen {name}: sampled docs diverged across instances: {run['convergence']}")
+        check(run["docs_migrated"] >= 1, f"loadgen {name}: no doc migrated: {run['multi_device']}")
+        check(run["acked"] is not None and run["acked"]["docs_observed"] == run["docs"],
+              f"loadgen {name}: {run['acked']} docs observed on the other instance")
+    for name in LOADGEN_EDGE_SCENARIOS + LOADGEN_AUDIENCE_SCENARIOS:
         run = out[name]
         check(run["verdict"] == "pass", f"loadgen {name}: verdict {run['verdict']} ({run['breached']})")
         check(run["convergence"] is not None and run["convergence"]["converged"],
@@ -5152,7 +5807,15 @@ def main(argv=None) -> int:
         results["unit"]["loadgen"], results["unit"]["loadgen_err"] = phase_loadgen(
             num_docs=1024, cuts=LOADGEN_CUTS,
         )
-        for arena, path in (("rle", "cluster_server"), ("rle", "edge_server"), ("unit", "tiptap_server"),
+        # the CLI's --tpu-serve --tpu-devices 4 in process: four supervised
+        # cells, a lane each, the rebalancer's migrations and one late
+        # cell. Last of the gated phases: its 3,072 providers and four
+        # arenas in this process come after every earlier phase's clients
+        results["unit"]["multi_device_server"], results["unit"]["multi_device_server_err"] = (
+            phase_multi_device_server(rng, num_docs=MULTI_DOCS, capacity=4096, cuts=MULTI_CUTS)
+        )
+        for arena, path in (("rle", "cluster_server"), ("rle", "edge_server"),
+                            ("rle", "multi_device_server"), ("unit", "tiptap_server"),
                             ("rle", "cli_server"), ("rle", "loadgen")):
             results[arena][path] = results[arena][f"{path}_err"] = 0
         phase_supervised_full(args.seed, started)

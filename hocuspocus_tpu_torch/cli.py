@@ -3,12 +3,15 @@
 The port's counterpart of the JAX package's `hocuspocus-tpu`, with the
 same flags. With `--tpu-serve` (or `--tpu-merge`) the merge plane runs
 on the card (`--tpu-device cuda`, the default, which fails without
-CUDA) unless `--tpu-device cpu` asks for the CPU. The branches whose
-modules are not ported yet exit with code 2 and one line on stderr
-naming their ROADMAP.md Queue A item: `--tpu-shards > 1`,
-`--tpu-devices != 1`, `--tpu-scheduler off` and the lane and governor
-tuning flags away from their defaults (item 7), and `--fleet-autoscale`
-(items 7 and 8). `--role cell` makes the server a merge cell of the edge
+CUDA) unless `--tpu-device cpu` asks for the CPU. `--tpu-devices N`
+runs N supervised merge cells (0 = one per visible card; more cells
+than cards wrap, so one card holds several), each with its own arena
+and device lane, `--tpu-docs` / `--tpu-capacity` sized per cell. The
+branches whose modules are not ported yet exit with code 2 and one line
+on stderr naming their ROADMAP.md Queue A item: `--tpu-shards > 1`,
+`--tpu-scheduler off` and the lane and governor tuning flags away from
+their defaults (item 7b), and `--fleet-autoscale` (item 8).
+`--role cell` makes the server a merge cell of the edge
 tier (with `--tpu-serve`, its plane on the card by default), and
 `--role edge` a stateless edge server in front of the cells.
 """
@@ -532,7 +535,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 # defaults of the flags that tune the lane and the governor: the port
-# keeps them as constants until Queue A item 7 (tpu/scheduler.py)
+# keeps them as constants until Queue A item 7b (tpu/scheduler.py)
 _LANE_DEFAULTS = {
     "tpu_drain_watermark": 256,
     "tpu_flush_stretch": 4.0,
@@ -545,13 +548,13 @@ def unported_branch(args: argparse.Namespace) -> "str | None":
     yet, naming its ROADMAP.md Queue A item, or None."""
     if args.fleet_autoscale:
         return (
-            "--fleet-autoscale needs the fleet controller and per-card cells, not "
-            "ported yet: ROADMAP.md, Queue A items 7 and 8"
+            "--fleet-autoscale needs the fleet controller, not ported yet: "
+            "ROADMAP.md, Queue A item 8"
         )
-    if args.tpu_shards > 1 or args.tpu_devices != 1:
+    if args.tpu_shards > 1:
         return (
-            "--tpu-shards > 1 (a sharded plane) and --tpu-devices != 1 (per-card "
-            "cells) are not ported yet: ROADMAP.md, Queue A item 7"
+            "--tpu-shards > 1 (a sharded plane) is not ported yet: ROADMAP.md, "
+            "Queue A item 7b"
         )
     if args.tpu_scheduler == "off" or any(
         getattr(args, name) != value for name, value in _LANE_DEFAULTS.items()
@@ -559,12 +562,19 @@ def unported_branch(args: argparse.Namespace) -> "str | None":
         return (
             "--tpu-scheduler off and the lane and governor tuning flags "
             "(--tpu-drain-watermark, --tpu-flush-stretch, --tpu-lane-promote-ms) "
-            "are not ported yet: ROADMAP.md, Queue A item 7"
+            "are not ported yet: ROADMAP.md, Queue A item 7b"
         )
     return None
 
 
 async def run(args: argparse.Namespace) -> None:
+    if (args.tpu_merge or args.tpu_serve) and args.tpu_devices != 1 and args.tpu_shards > 1:
+        print(
+            "--tpu-devices and --tpu-shards are mutually exclusive "
+            "(per-device cells subsume doc-sharding across devices)",
+            file=sys.stderr,
+        )
+        sys.exit(2)
     unported = unported_branch(args)
     if unported is not None:
         raise NotImplementedError(unported)
@@ -648,8 +658,19 @@ async def run(args: argparse.Namespace) -> None:
         # CUDA, --tpu-device cuda raises here, before the server starts.
         from .tpu import SupervisedTpuMergeExtension
 
+        cell_kwargs = (
+            {
+                "devices": args.tpu_devices,
+                "rebalance_interval_s": args.tpu_rebalance_interval,
+                "rebalance_ratio": args.tpu_rebalance_ratio,
+                "migrate_batch": args.tpu_migrate_batch,
+            }
+            if args.tpu_devices != 1
+            else {}
+        )
         extensions.append(
             SupervisedTpuMergeExtension(
+                **cell_kwargs,
                 init_timeout=args.tpu_init_timeout,
                 watchdog_interval=args.tpu_watchdog_interval,
                 breaker_threshold=args.tpu_breaker_threshold,

@@ -4,8 +4,10 @@ edge tier's placement, and (not ported yet) the autoscaling controller.
 `roster.py` is a copy of the JAX package's: the host-qualified cell ids,
 the edges' clock-gated `AdmissionGate` and the cells' `PeerRoster`
 membership epochs, which `edge/` imports. `FleetController` and
-`FleetControllerExtension` drive the multi-device cell plane, which is
-not ported yet: they stay importable and raise when constructed.
+`FleetControllerExtension` drive the multi-device cell plane's
+`park_cell` / `activate_cell` (tpu/cells.py); they are not ported yet
+(ROADMAP.md, Queue A item 8): they stay importable and raise when
+constructed.
 """
 
 from .roster import AdmissionGate, PeerRoster, cell_host, qualify_cell_id
@@ -20,7 +22,7 @@ class _NotPortedYet:
     def __init__(self, *args, **kwargs) -> None:
         raise NotImplementedError(
             f"{type(self).__name__} ({self.what}) is not ported yet: "
-            "ROADMAP.md, Queue A items 7 and 8"
+            "ROADMAP.md, Queue A item 8"
         )
 
 

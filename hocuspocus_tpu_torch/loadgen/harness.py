@@ -17,9 +17,11 @@ With `edges > 0` the harness boots the split front door instead:
 `cells` merge cells (each a server with `CellIngressExtension` and its
 plane) and `edges` stateless `EdgeServer`s over one MiniRedis relay bus.
 
+With `devices > 1` each instance is served by per-device merge cells
+(`MultiDeviceMergeExtension`, tpu/cells.py) instead of one plane.
+
 Not ported yet, and raising NotImplementedError at construction:
-sharded planes and per-card cells (`shards > 1`, `devices > 1`;
-ROADMAP.md, Queue A item 7).
+sharded planes (`shards > 1`; ROADMAP.md, Queue A item 7b).
 """
 
 from __future__ import annotations
@@ -38,13 +40,10 @@ from ..server import Configuration
 from ..tpu import TpuMergeExtension
 
 
-def unported_topology(shards: int = 1, devices: int = 0) -> "Optional[str]":
+def unported_topology(shards: int = 1) -> "Optional[str]":
     """Why a population cannot run on the port yet, or None when it can."""
-    if shards > 1 or devices > 1:
-        return (
-            "sharded planes (shards > 1) and per-card cells (devices > 1) are not "
-            "ported yet: ROADMAP.md, Queue A item 7"
-        )
+    if shards > 1:
+        return "sharded planes (shards > 1) are not ported yet: ROADMAP.md, Queue A item 7b"
     return None
 
 
@@ -62,8 +61,11 @@ class ServedLoadHarness:
       `cells` merge cells over one MiniRedis relay bus (the readers on
       edge 1, so the timed path crosses edge -> cell -> edge).
     - shard_rows / capacity / flush_interval_ms: plane layout per
-      instance or cell (rows must exceed num_docs). `shards` must be 1
-      and `devices` at most 1 (one plane per instance or cell).
+      instance, edge-tier cell or device cell (rows must exceed the
+      docs a plane holds). `shards` must be 1.
+    - devices / multi_device: devices > 1 serves each instance from that
+      many per-device merge cells (tpu/cells.py); multi_device carries
+      the rebalancer's tuning (interval, ratio, batch) to the extension.
     - device: where each instance's plane runs ("cuda" by default;
       "cpu" only when asked).
     - docs_per_socket: provider multiplexing width per in-process socket.
@@ -82,6 +84,7 @@ class ServedLoadHarness:
         edits: int = 200,
         shards: int = 1,
         devices: int = 0,
+        multi_device: "Optional[dict]" = None,
         shard_rows: Optional[int] = None,
         capacity: int = 1024,
         flush_interval_ms: float = 2.0,
@@ -96,7 +99,7 @@ class ServedLoadHarness:
         device: str = "cuda",
         progress=None,
     ) -> None:
-        unported = unported_topology(shards, devices)
+        unported = unported_topology(shards)
         if unported is not None:
             raise NotImplementedError(unported)
         if str(device).startswith("cuda"):
@@ -118,7 +121,13 @@ class ServedLoadHarness:
         self.sampled = min(sampled, num_docs)
         self.edits = edits
         self.shards = 1
-        self.shard_rows = shard_rows or max(int(num_docs * 1.25), 64)
+        # per-device merge cells: devices > 1 serves each instance from
+        # that many cells (tpu/cells.py); multi_device carries the
+        # rebalancer's tuning (interval, ratio, batch) to the extension
+        self.devices = int(devices)
+        self.multi_device = dict(multi_device or {})
+        partitions = self.devices if self.devices > 1 else 1
+        self.shard_rows = shard_rows or max(int(num_docs / partitions * 1.25), 64)
         self.capacity = capacity
         self.flush_interval_ms = flush_interval_ms
         self.docs_per_socket = docs_per_socket
@@ -174,7 +183,20 @@ class ServedLoadHarness:
     # -- topology ----------------------------------------------------------
 
     def _plane_extension(self) -> "tuple[Any, list]":
-        """One serve-mode plane extension + its plane."""
+        """One serve-mode plane extension + its planes, per the layout."""
+        if self.devices > 1:
+            from ..tpu import MultiDeviceMergeExtension
+
+            ext = MultiDeviceMergeExtension(
+                devices=self.devices,
+                num_docs=self.shard_rows,
+                capacity=self.capacity,
+                flush_interval_ms=self.flush_interval_ms,
+                serve=True,
+                device=self.device,
+                **self.multi_device,
+            )
+            return ext, [cell.plane for cell in ext.cells]
         ext = TpuMergeExtension(
             num_docs=self.shard_rows,
             capacity=self.capacity,
@@ -314,7 +336,9 @@ class ServedLoadHarness:
             server = Server(Configuration(quiet=True, extensions=extensions))
             await server.listen(port=0)
             for plane in planes:
-                plane.warmup_compiles()
+                # per-device cells of one geometry on one device warm their
+                # shapes once (the process-wide warm registry)
+                plane.warmup_compiles(shared=self.devices > 1)
             self.servers.append(server)
             self.extensions.append(ext)
 

@@ -84,8 +84,15 @@ class ScenarioRunner:
         # inputs as extra.wire_saturation (docs/guides/load-testing.md)
         self._wire_sat_config = params.get("wire_saturation")
         self._tracer_state = None  # (enabled, sample) to restore post-run
-        # sharded and multi-device populations raise here, before
-        # anything starts (ROADMAP.md, Queue A item 7)
+        # the fleet controller is not ported yet (ROADMAP.md, Queue A
+        # item 8): an autoscaled population raises before anything starts
+        if params.get("autoscale"):
+            raise NotImplementedError(
+                "autoscaled populations need the fleet controller, not ported "
+                "yet: ROADMAP.md, Queue A item 8"
+            )
+        # sharded populations raise here, before anything starts
+        # (ROADMAP.md, Queue A item 7b)
         self.harness = ServedLoadHarness(
             num_docs=pop["num_docs"],
             instances=pop["instances"],
@@ -94,6 +101,7 @@ class ScenarioRunner:
             sampled=pop["sampled"],
             shards=pop["shards"],
             devices=pop.get("devices", 0),
+            multi_device=params.get("multi_device"),
             shard_rows=pop.get("shard_rows"),
             capacity=pop["capacity"],
             flush_interval_ms=pop.get("flush_interval_ms", 2.0),
@@ -563,6 +571,22 @@ class ScenarioRunner:
                 for stats in replica_evidence["cells"].values()
             ):
                 evidence["replica"] = replica_evidence
+        multi = {}
+        for i, ext in enumerate(self.harness.extensions):
+            if callable(getattr(ext, "utilization_spread", None)):
+                # per-device placement evidence: "docs spread, no device
+                # over 2x the mean, every migration accounted" is
+                # checkable from the artifact
+                multi[f"instance{i}"] = {
+                    "placement": ext.placement.table(),
+                    "placement_hash": ext.placement.placement_hash(),
+                    "migrations": dict(ext.migration_stats),
+                    "utilization": ext.utilization_spread(),
+                    "per_device": ext.per_device_latency(),
+                    "devices": len(ext.cells),
+                }
+        if multi:
+            evidence["multi_device"] = multi
         publish = {}
         for i, server in enumerate(self.harness.servers):
             for ext in getattr(server.hocuspocus, "_extensions", []):
@@ -642,11 +666,15 @@ class ScenarioRunner:
         total: "dict[str, int]" = {}
         found = False
         for ext in self.harness.extensions:
-            counters = getattr(getattr(ext, "lane", None), "counters", None)
-            if isinstance(counters, dict):
-                found = True
-                for key, value in counters.items():
-                    total[key] = total.get(key, 0) + int(value)
+            lanes_fn = getattr(ext, "lanes", None)
+            # the cell plane has one arbiter per cell
+            lanes = lanes_fn() if callable(lanes_fn) else [getattr(ext, "lane", None)]
+            for lane in lanes:
+                counters = getattr(lane, "counters", None)
+                if isinstance(counters, dict):
+                    found = True
+                    for key, value in counters.items():
+                        total[key] = total.get(key, 0) + int(value)
         return total if found else None
 
     # -- the run -------------------------------------------------------------

@@ -61,6 +61,7 @@ class Metrics(Extension):
         self.debug_endpoints = debug_endpoints
         self._instance = None
         self._plane_owner = None  # extension owning the plane, for /debug/docs
+        self._cell_owner = None  # multi-device cell plane (labelled gauges)
         self._slow_span_cb = None
         self._slo_task: Optional[asyncio.Task] = None
 
@@ -434,9 +435,122 @@ class Metrics(Extension):
                         fn=(lambda p=plane, k=key: p.memory_stats()[k]),
                     )
             return True
-        # the sharded router and the multi-device cell plane (their
-        # summed and labelled gauges) come with sharding (ROADMAP.md,
-        # Queue A)
+        shards = getattr(owner, "shards", None)
+        if shards:
+            self._plane_owner = owner
+            # multi-device cell plane (tpu/cells.py): adopt its labelled
+            # per-device gauges (docs/rows/lane-depth/device bytes/work per cell,
+            # migration counters, placement epoch) alongside the summed
+            # shard-style aggregates below; the series refresh at scrape
+            # time (on_request) from a live load snapshot
+            if callable(getattr(owner, "cell_metrics", None)):
+                self._cell_owner = owner
+                for metric in owner.cell_metrics():
+                    try:
+                        reg.register(metric)
+                    except ValueError:
+                        pass  # already adopted (shared registry, repeat bind)
+            for shard in shards:
+                self._bind_trace_book(shard.plane)
+            for key in shards[0].plane.counters:
+                metric = f"hocuspocus_tpu_plane_{key.removeprefix('plane_')}"
+                reg.gauge(
+                    metric,
+                    f"TPU merge plane counter (summed over shards): {key}",
+                    fn=(lambda o=owner, k=key: o.counters.get(k, 0)),
+                )
+            reg.gauge(
+                "hocuspocus_tpu_plane_arena_rows_in_use",
+                "Arena rows (sequences) allocated, summed over shards",
+                fn=(
+                    lambda o=owner: sum(
+                        s.plane.num_docs - len(s.plane.free) for s in o.shards
+                    )
+                ),
+            )
+            reg.gauge(
+                "hocuspocus_tpu_plane_ops_integrated",
+                "Ops integrated by the device since start, summed over shards",
+                fn=(
+                    lambda o=owner: sum(s.plane.total_integrated for s in o.shards)
+                ),
+            )
+            # stage times/widths aren't summable across shards: report
+            # the worst shard (the one an operator would chase)
+            for key in getattr(shards[0].plane, "flush_stats", {}):
+                reg.gauge(
+                    f"hocuspocus_tpu_plane_flush_{key}",
+                    f"TPU merge plane flush stage stat: {key} (max over shards)",
+                    fn=(
+                        lambda o=owner, k=key: max(
+                            s.plane.flush_stats[k] for s in o.shards
+                        )
+                    ),
+                )
+            reg.gauge(
+                "hocuspocus_tpu_plane_slots_free",
+                "Arena rows on the free lists, summed over shards",
+                fn=(lambda o=owner: sum(len(s.plane.free) for s in o.shards)),
+            )
+            reg.gauge(
+                "hocuspocus_tpu_plane_slots_live",
+                "Arena rows bound to live docs, summed over shards",
+                fn=(
+                    lambda o=owner: sum(
+                        int(s.plane.slot_live.sum()) for s in o.shards
+                    )
+                ),
+            )
+            reg.gauge(
+                "hocuspocus_tpu_plane_slots_retired",
+                "Arena rows held by retired docs, summed over shards",
+                fn=(
+                    lambda o=owner: sum(
+                        s.plane.num_docs
+                        - len(s.plane.free)
+                        - int(s.plane.slot_live.sum())
+                        for s in o.shards
+                    )
+                ),
+            )
+            # depth/population stats sum; latency quantiles report the
+            # worst shard, like the flush stage times above
+            for key in getattr(shards[0].plane, "residency_stats", {}):
+                if key.endswith("_ms"):
+                    fn = lambda o=owner, k=key: max(
+                        s.plane.residency_stats[k] for s in o.shards
+                    )
+                else:
+                    fn = lambda o=owner, k=key: sum(
+                        s.plane.residency_stats[k] for s in o.shards
+                    )
+                reg.gauge(
+                    f"hocuspocus_tpu_plane_residency_{key}",
+                    f"TPU plane residency stat: {key} (over shards)",
+                    fn=fn,
+                )
+            if hasattr(shards[0].plane, "memory_stats"):
+                # bytes/stall totals sum across shards; the upload PEAK
+                # is a per-cycle maximum — summing would report an
+                # upload no single cycle ever performed (same worst-
+                # shard convention as the stage times above)
+                for key in shards[0].plane.memory_stats():
+                    if key == "upload_bytes_peak":
+                        fn = lambda o=owner, k=key: max(
+                            s.plane.memory_stats()[k] for s in o.shards
+                        )
+                        how = "max over shards"
+                    else:
+                        fn = lambda o=owner, k=key: sum(
+                            s.plane.memory_stats()[k] for s in o.shards
+                        )
+                        how = "summed over shards"
+                    reg.gauge(
+                        f"hocuspocus_tpu_plane_{key}",
+                        f"TPU plane device-memory stat: {key} ({how})",
+                        fn=fn,
+                    )
+            return True
         return False
 
     def _bind_durability_metrics(self, durability) -> None:
@@ -653,6 +767,11 @@ class Metrics(Extension):
             # keep the burn-rate gauges and build-info labels fresh
             self.slo.maybe_sample()
             self._set_build_info()
+            if self._cell_owner is not None:
+                try:
+                    self._cell_owner.refresh_cell_metrics()
+                except Exception:
+                    pass  # a mid-teardown cell must not fail the scrape
             try:
                 # hocuspocus_fleet_* rollup gauges re-label from the
                 # current peer table at scrape time (like the cell gauges)
@@ -862,9 +981,14 @@ class Metrics(Extension):
 
     def _planes(self) -> list:
         owner = self._plane_owner
-        plane = getattr(owner, "plane", None) if owner is not None else None
+        if owner is None:
+            return []
+        plane = getattr(owner, "plane", None)
         if plane is not None and hasattr(plane, "_busy_slots"):
             return [plane]
+        shards = getattr(owner, "shards", None)
+        if shards:
+            return [shard.plane for shard in shards]
         return []
 
     def _scheduler_overview(self) -> dict:

@@ -1,7 +1,8 @@
 """The merge plane, its kernels, its serving path, its residency manager
-and supervisor, and the server extensions that put live documents on it,
-in PyTorch."""
+and supervisor, the per-device merge cells, and the server extensions
+that put live documents on them, in PyTorch."""
 
+from .cells import DevicePlacement, MultiDeviceMergeExtension, plan_migrations
 from .integrate import compact_doc_rows_fast, compact_doc_rows_rle_fast
 from .merge_plane import LogRec, MergePlane, PlaneDoc, TpuMergeExtension
 from .residency import EvictedDoc, ResidencyManager
@@ -18,7 +19,7 @@ class _NotPortedYet:
     def __init__(self, *args, **kwargs) -> None:
         raise NotImplementedError(
             f"{type(self).__name__} ({self.what}) is not ported yet: "
-            "ROADMAP.md, Queue A item 7"
+            "ROADMAP.md, Queue A item 7b"
         )
 
 
@@ -26,12 +27,10 @@ class ShardedTpuMergeExtension(_NotPortedYet):
     what = "doc-sharded merge planes"
 
 
-class MultiDeviceMergeExtension(_NotPortedYet):
-    what = "per-card merge cells"
-
 
 __all__ = [
     "CircuitBreaker",
+    "DevicePlacement",
     "EvictedDoc",
     "LogRec",
     "MergePlane",
@@ -47,4 +46,5 @@ __all__ = [
     "TpuSyncSource",
     "compact_doc_rows_fast",
     "compact_doc_rows_rle_fast",
+    "plan_migrations",
 ]

@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import math
 import threading
 import time
 from dataclasses import dataclass, field
@@ -266,6 +267,10 @@ class MergePlane:
         # last completed flush: health checks compare device lengths
         # against the VALIDATED snapshot, never the (ahead) host logs
         self.dispatched_units = np.zeros(num_docs, np.int64)
+        # insert units dispatched since start, credited only at the
+        # dispatch sites (never by slot rebinds or hydration): a rate
+        # that stays honest while docs migrate between cells
+        self.dispatched_total = 0
         self.validated_units = np.zeros(num_docs, np.int64)
         # minimal-work run merge: a drained column takes the append fast
         # path only when every op chains off the column's host-tracked
@@ -1361,6 +1366,7 @@ class MergePlane:
             if len(take) > depth:
                 depth = len(take)
             self.dispatched_units[slot] += dispatched
+            self.dispatched_total += dispatched
         lane = None
         if self._lane is not None:
             # native lane drain: one C call pops up to k ops per lane
@@ -1370,7 +1376,9 @@ class MergePlane:
             if drained[0]:
                 lane = drained
                 ds = np.frombuffer(drained[11], np.int64)
-                self.dispatched_units[ds] += np.frombuffer(drained[12], np.int64)
+                lane_units = np.frombuffer(drained[12], np.int64)
+                self.dispatched_units[ds] += lane_units
+                self.dispatched_total += int(lane_units.sum())
                 built += drained[0]
                 lane_rows = np.frombuffer(drained[1], np.int64)
                 depth = max(depth, int(lane_rows.max()) + 1)
@@ -1785,8 +1793,9 @@ class TpuMergeExtension(Extension):
     The counterpart of the JAX package's extension of the same name on
     one device. The plane runs on the card unless `device="cpu"` is
     given (`device=None` means the card, and raises without CUDA).
-    Sharding (`mesh=`) is not ported yet (ROADMAP.md, Queue A) and
-    raises NotImplementedError. `native_lane` (default on, serve mode
+    Sharding (`mesh=`) is not ported yet (ROADMAP.md, Queue A item 7b)
+    and raises NotImplementedError; per-device cells are
+    `MultiDeviceMergeExtension` (tpu/cells.py), one extension a cell. `native_lane` (default on, serve mode
     only) runs every plain-text doc's host path in the port's C++ text
     lane (`hocuspocus_tpu_torch/native`); a doc whose updates carry
     rich content demotes to the Python path (`docs_retired_lane_demote`)
@@ -1824,6 +1833,7 @@ class TpuMergeExtension(Extension):
         compact_threshold: float = 0.0,
         governor: bool = True,
         lane=None,
+        phase_offset_ms: Optional[float] = None,
     ) -> None:
         """governor — arrival-aware batching (tpu/scheduler.py): the
         flush cadence and the kernel calls per cycle follow the
@@ -1831,11 +1841,15 @@ class TpuMergeExtension(Extension):
         fixed flush_interval_ms (which stays the governor's BASE
         cadence). False restores the fixed timer exactly. lane — the
         DeviceLane the device work admits through (None: the
-        process-global one).
+        process-global one of device index 0). phase_offset_ms — a
+        deterministic timer phase: the multi-device router
+        (tpu/cells.py) gives cell i of N the offset i/N of the interval,
+        so N cells on one event loop stop tick-aligning their flush and
+        broadcast passes. None (one plane) leaves the timers unaligned.
         """
         if mesh is not None:
             raise NotImplementedError(
-                "mesh= (a sharded plane) is not ported yet: ROADMAP.md, Queue A item 7"
+                "mesh= (a sharded plane) is not ported yet: ROADMAP.md, Queue A item 7b"
             )
         if plane is not None and device is not None:
             raise ValueError(
@@ -1865,6 +1879,7 @@ class TpuMergeExtension(Extension):
         if self.native_lane:
             self.plane.enable_lane()
         self.flush_interval_ms = flush_interval_ms
+        self.phase_offset_ms = phase_offset_ms
         # broadcasts build from the HOST serve logs and run on their own
         # (shorter) coalescing window, decoupled from the device flush:
         # edits landing within the window share one frame per doc, and
@@ -1924,13 +1939,13 @@ class TpuMergeExtension(Extension):
         return [] if self.serving is None else [self.serving]
 
     def scheduler_snapshot(self) -> dict:
-        """Lane + governor state for /debug/scheduler. One plane, so one
-        governor; the timer phase offset is 0 until several planes share
-        the lane (ROADMAP.md, Queue A)."""
+        """Lane + governor state for /debug/scheduler: one plane, so one
+        governor and one timer phase offset (None unless a multi-device
+        router set it)."""
         return {
             "lane": None if self.lane is None else self.lane.snapshot(),
             "governors": [None if self.governor is None else self.governor.snapshot()],
-            "phase_offsets_ms": [0.0],
+            "phase_offsets_ms": [self.phase_offset_ms],
         }
 
     def is_served(self, document_name: str) -> bool:
@@ -2723,6 +2738,10 @@ class TpuMergeExtension(Extension):
             delay = self.governor.flush_delay_s(self._policy_depth(), self.lane.contended())
         else:
             delay = self.flush_interval_ms / 1000
+        if delay:
+            # sustained-cadence ticks quantize onto the cell's phase
+            # grid; the watermark's zero-delay drain stays immediate
+            delay = self._align_to_phase(delay, self.flush_interval_ms / 1000)
         self._flush_handle = asyncio.get_event_loop().call_later(delay, run)
 
     def _policy_depth(self) -> int:
@@ -2732,6 +2751,20 @@ class TpuMergeExtension(Extension):
             self._depth_cache = self.plane.pending_ops()
             self._depth_cache_at = now
         return self._depth_cache
+
+    def _align_to_phase(self, delay: float, interval_s: float) -> float:
+        """Deterministic per-cell timer stagger: quantize the fire time
+        onto this cell's phase grid (offset i/N of the interval) so N
+        cells stop tick-aligning their dispatches. Never fires earlier
+        than asked: alignment adds at most one interval. A no-op without
+        a phase offset."""
+        if self.phase_offset_ms is None or interval_s <= 0:
+            return delay
+        now = asyncio.get_event_loop().time()
+        phase = (self.phase_offset_ms / 1000.0) % interval_s
+        fire = now + delay
+        aligned = math.ceil((fire - phase) / interval_s) * interval_s + phase
+        return max(aligned - now, delay)
 
     def _schedule_residency(self) -> None:
         """Periodic residency maintenance (eviction and the compaction
@@ -2770,8 +2803,11 @@ class TpuMergeExtension(Extension):
 
         # coalescing window only under sustained traffic: a lone edit
         # after an idle gap broadcasts on the next loop tick, while
-        # back-to-back edits within the window share one frame per doc
+        # back-to-back edits within the window share one frame per doc;
+        # sustained-traffic windows quantize onto the cell's phase grid
         window = self.broadcast_interval_ms / 1000
         idle = loop.time() - self._last_broadcast_at
         delay = 0.0 if idle >= window else window
+        if delay:
+            delay = self._align_to_phase(delay, window)
         self._broadcast_handle = loop.call_later(delay, run)

@@ -1,9 +1,11 @@
 """Arena residency manager: eviction, batched hydration, compaction.
 
-The port of the JAX package's `tpu/residency.py` for one plane on one
-device. Without it an arena row is a permanent lease: a slot stays bound
-from registration to unload, and a doc whose row fills is retired to the
-CPU document for good, so a long-lived server bleeds device capacity.
+The port of the JAX package's `tpu/residency.py`: one manager for each
+plane, with the seams the multi-device cell plane (tpu/cells.py)
+migrates docs between cells through. Without it an arena row is a
+permanent lease: a slot stays bound from registration to unload, and a
+doc whose row fills is retired to the CPU document for good, so a
+long-lived server bleeds device capacity.
 This module makes residency a managed cache with three mechanisms:
 
 1. **Eviction.** Idle docs (no edit for `evict_idle_secs`, by the
@@ -83,9 +85,9 @@ class ResidencyManager:
     standalone construction with (plane, serving) lets benches and tests
     drive the policy directly. The hot-doc replica seams
     (`adopt_snapshot`, `replica_snapshot`, `replica_catchup`) serve the
-    edge tier's follower cells; the JAX package's cross-cell migration
-    seams (`evict_for_migration`, `quiesce`) come with its per-card cells
-    (ROADMAP.md, Queue A item 7).
+    edge tier's follower cells; the cross-cell migration seams
+    (`evict_for_migration`, `adopt_snapshot`, `quiesce`) serve the
+    multi-device cell plane's migrations and warm-spare parks.
     """
 
     def __init__(
@@ -368,10 +370,12 @@ class ResidencyManager:
 
     # -- eviction ------------------------------------------------------------
 
-    async def evict(self, name: str, document) -> bool:
+    async def evict(self, name: str, document, migration: bool = False) -> bool:
         """Snapshot an idle doc and free its arena rows. The doc keeps
         serving from the CPU path; hydration re-onboards it on its
-        next edit (or load)."""
+        next edit (or load). `migration` (evict_for_migration) counts a
+        snapshot the plane could not serve, taken from the CPU document
+        instead, in `cpu_fallbacks` and `migration_cpu_snapshots`."""
         plane = self.plane
         async with plane.flush_lock:
             if self.extension is not None and name not in self.extension._docs:
@@ -384,7 +388,7 @@ class ResidencyManager:
             t0 = time.perf_counter()
             loop = asyncio.get_event_loop()
             snapshot = await loop.run_in_executor(
-                None, lambda: self._snapshot(name, document)
+                None, lambda: self._scoped_snapshot(name, document, migration)
             )
             if snapshot is None:
                 return False
@@ -430,13 +434,47 @@ class ResidencyManager:
             self._publish_stats(last_eviction_ms=eviction_ms)
         return True
 
-    # -- hot-doc replica seams (edge/replica.py) ------------------------------
+    async def evict_for_migration(self, name: str, document) -> Optional[bytes]:
+        """Cross-cell migration, source side (tpu/cells.py): run the
+        ordinary eviction (snapshot through the serving path inside the
+        plane's device scope, decline while anything is un-broadcast,
+        release the rows), then pop the local evicted record and hand its
+        snapshot to the caller. The doc no longer lives on this cell in
+        any form: the target cell adopts the snapshot (`adopt_snapshot`)
+        and hydrates through its own admission queue. None when the
+        eviction declined (dirty window, already gone): the caller
+        retries next tick. A serve that raises goes to `_fault` (on the
+        card it raises); a snapshot the plane could not serve comes from
+        the CPU document and is counted (`evict(migration=True)`)."""
+        if not await self.evict(name, document, migration=True):
+            return None
+        record = self._evicted_pop(name)
+        return None if record is None else record.snapshot
+
+    def quiesce(self) -> int:
+        """Warm-spare park (tpu/cells.py `park_cell`): drop every queued
+        hydration. A parked cell serves nothing, so re-admitting docs
+        that just migrated away would only re-warm rows the spare exists
+        to keep free; the evicted-snapshot store is untouched, and any
+        doc that comes back re-queues on activate and replays its tail
+        as before. Returns the drop count."""
+        dropped = len(self._queue)
+        self._queue.clear()
+        self._queued.clear()
+        self.plane.residency_stats["hydration_queue_depth"] = 0
+        if dropped:
+            self.plane.residency_stats["hydrations_quiesced"] = (
+                self.plane.residency_stats.get("hydrations_quiesced", 0) + dropped
+            )
+        return dropped
+
+    # -- hot-doc replica and migration seams ---------------------------------
 
     def adopt_snapshot(self, name: str, snapshot: bytes) -> None:
-        """Follower side: seed the evicted-record cache with the owner's
-        snapshot, so the hydration drain warm-loads it exactly like a
-        local eviction's re-entry (the live document's tail replayed on
-        top keeps the round trip lossless)."""
+        """Follower or migration target: seed the evicted-record cache
+        with the owner's snapshot, so the hydration drain warm-loads it
+        exactly like a local eviction's re-entry (the live document's
+        tail replayed on top keeps the round trip lossless)."""
         self._evicted_add(name, snapshot)
 
     def replica_snapshot(self, name: str, document) -> Optional[bytes]:
@@ -498,11 +536,20 @@ class ResidencyManager:
             return name in self.extension._docs
         return name in self.plane.docs
 
-    def _snapshot(self, name: str, document) -> Optional[bytes]:
+    def _scoped_snapshot(self, name: str, document, counted: bool) -> Optional[bytes]:
+        """`_snapshot` with the plane's device current (it runs in an
+        executor thread, and a serve may flush through the C entries,
+        which launch on the current device)."""
+        with self.plane.device_scope():
+            return self._snapshot(name, document, counted)
+
+    def _snapshot(self, name: str, document, counted: bool = False) -> Optional[bytes]:
         """Encoded full state for the eviction record. The plane's own
         serving path first (healthy + covers the CPU doc, so the bytes
         are exactly a cold joiner's SyncStep2); the CPU document —
-        always authoritative — when the plane can't serve."""
+        always authoritative — when the plane can't serve. `counted`:
+        that CPU snapshot of a doc the plane holds is counted in
+        `cpu_fallbacks` and `migration_cpu_snapshots`."""
         if self.serving is not None:
             try:
                 payload = self.serving.encode_state_as_update(name, document)
@@ -510,6 +557,10 @@ class ResidencyManager:
                     return payload
             except Exception:
                 self._fault()
+        if counted and self._holds(name):
+            self.plane.counters["cpu_fallbacks"] += 1
+            stats = self.plane.residency_stats
+            stats["migration_cpu_snapshots"] = stats.get("migration_cpu_snapshots", 0) + 1
         try:
             from ..crdt import encode_state_as_update
 

@@ -42,14 +42,14 @@ arXiv:2409.14252). This module is that scheduling layer, in three parts:
    plane's warm pass launches, every other plane skips the covered
    shapes (seeding its warm watch).
 
-A port of the JAX package's `tpu/scheduler.py` for one plane on one
-card, the only deployment the port runs: the lane keeps its four
-priority classes (numbered as there), FIFO grants, the starvation
-guard, park and resume, queue-wait deadline and accounting. What only
-several planes use is not ported (ROADMAP.md, Queue A): holder
-preemption, a promotion threshold set per extension, and one lane per
-device. The warm registry's backend name is read from torch instead of
-jax.
+A port of the JAX package's `tpu/scheduler.py`: the lane keeps its
+four priority classes (numbered as there), FIFO grants, the starvation
+guard, park and resume, queue-wait deadline and accounting, and there
+is one lane per device index (`get_device_lane(i)`, one per merge cell
+of tpu/cells.py). What only several planes sharing one lane use is not
+ported (ROADMAP.md, Queue A item 7b): holder preemption and a promotion
+threshold set per extension. The warm registry's backend name is read
+from torch instead of jax.
 """
 
 from __future__ import annotations
@@ -419,22 +419,26 @@ class DeviceLane:
         }
 
 
-_default_lane: Optional[DeviceLane] = None
+_default_lanes: "dict[int, DeviceLane]" = {}
 
 
-def get_device_lane() -> DeviceLane:
-    """The process-global arbiter of the card: every plane and device
-    client of the process shares it."""
-    global _default_lane
-    if _default_lane is None:
-        _default_lane = DeviceLane()
-    return _default_lane
+def get_device_lane(device_index: int = 0) -> DeviceLane:
+    """The process-global arbiter for one device cell.
+
+    One `DeviceLane` per device index, not per process: a single-plane
+    deployment calls this with no argument (index 0), while the
+    multi-device cell plane (tpu/cells.py) passes each cell's index, so
+    N cells are N independent dispatch queues. Clients of the same cell
+    (its plane, residency and canaries) share that cell's lane."""
+    lane = _default_lanes.get(device_index)
+    if lane is None:
+        lane = _default_lanes[device_index] = DeviceLane()
+    return lane
 
 
 def reset_device_lane() -> None:
-    """Drop the global lane (tests): the next get builds a fresh one."""
-    global _default_lane
-    _default_lane = None
+    """Drop the global lanes (tests): the next get builds fresh ones."""
+    _default_lanes.clear()
 
 
 # -- arrival-aware batching governor -----------------------------------------

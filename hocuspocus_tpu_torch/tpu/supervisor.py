@@ -1,10 +1,11 @@
 """Plane supervisor: the merge plane's device lifecycle, supervised.
 
-The port of the JAX package's `tpu/supervisor.py` for one plane on one
-card. The supervisor owns the runtime's lifecycle, and the plane is an
-accelerator the server may acquire, never a boot dependency: the server
-boots and serves from the CPU documents whatever the card does, and the
-plane attaches when it is ready.
+The port of the JAX package's `tpu/supervisor.py`, for one plane and for
+the multi-device cell plane (tpu/cells.py). The supervisor owns the
+runtime's lifecycle, and the plane is an accelerator the server may
+acquire, never a boot dependency: the server boots and serves from the
+CPU documents whatever the card does, and the plane attaches when it is
+ready.
 
 Three mechanisms:
 
@@ -27,7 +28,12 @@ Three mechanisms:
    broadcast each (logged at error, counted in `cpu_fallbacks`). The
    breaker half-opens on the same interval; a passing canary closes it
    and the plane hot re-attaches. On the card only overruns count: a
-   canary that raises stops the server (see below).
+   canary that raises stops the server (see below). A runtime with
+   `cells` gets one breaker per cell instead: each cell's canary admits
+   through that cell's own lane, a late cell trips its own breaker and
+   only its docs go to the CPU documents (`degrade_cell`), and a passing
+   half-open probe restores it (`restore_cell`); the supervisor stays
+   READY while any cell serves.
 
 3. **State surface.** `state` (INITIALIZING / READY / DEGRADED /
    BROKEN), transition counters, breaker state and canary latency, in
@@ -46,8 +52,12 @@ serving instead (`_fail_stop`): the supervisor goes BROKEN with the error
 in `fault`, every connection is closed and new ones are refused with it,
 and the task that met it ends with it. Only a CPU plane degrades to the
 CPU documents on such an error, as the JAX package's supervisor does.
-The multi-device cell scope and the sharded runtime are not ported yet
-(ROADMAP.md, Queue A item 7).
+The same holds per cell: on the card an error raised by a cell's canary
+or by its restore's re-onboarding stops the whole server, since cells
+wrapped onto one card share its CUDA context and a sticky CUDA error
+poisons every cell on it; only a late cell degrades alone. A CPU cell
+degrades alone on a raised error too. The sharded runtime is not ported
+yet (ROADMAP.md, Queue A item 7b).
 
 This module imports no kernel module at import time: everything that
 touches the device happens inside the factory, in the worker thread,
@@ -151,7 +161,17 @@ class CircuitBreaker:
 
 
 def _runtime_lanes(runtime) -> list:
-    """The device lane a runtime admits through (one plane, one card)."""
+    """Every device lane a runtime admits through: the multi-device cell
+    plane exposes `lanes()` (one arbiter per cell), a single plane
+    `lane`."""
+    if runtime is None:
+        return []
+    lanes_fn = getattr(runtime, "lanes", None)
+    if callable(lanes_fn):
+        try:
+            return [lane for lane in lanes_fn() if lane is not None]
+        except Exception:
+            return []
     lane = getattr(runtime, "lane", None)
     return [lane] if lane is not None else []
 
@@ -230,6 +250,12 @@ class PlaneSupervisor:
         # A probe still QUEUED behind the device lane's warm-grid
         # holder is a busy lane, not a sick device — see _canary.
         self._canary_admission: Optional[dict] = None
+        # per-cell breaker scope (tpu/cells.py): when the runtime exposes
+        # `cells`, the watchdog probes each cell through its own lane and
+        # keeps one breaker per cell. Sized at the first probe.
+        self.cell_breakers: "list[CircuitBreaker]" = []
+        self.cell_states: "list[str]" = []
+        self._cell_probes: "dict[int, tuple]" = {}  # index -> (future, admission)
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -418,6 +444,14 @@ class PlaneSupervisor:
             await asyncio.sleep(self.watchdog_interval)
             if self._stopped:
                 return
+            runtime = self.runtime
+            if runtime is not None and getattr(runtime, "cells", None):
+                # the cell plane: per-cell probes and breakers while any
+                # cell is attached (READY: some cells serve; DEGRADED:
+                # every cell is open, and half-open probes still flow)
+                if self.state in (STATE_READY, STATE_DEGRADED):
+                    await self._watchdog_cells(runtime)
+                continue
             if self.state == STATE_READY:
                 ok, _latency = await self._canary()
                 if ok:
@@ -546,6 +580,157 @@ class PlaneSupervisor:
                 pass
         return True, latency
 
+    # -- per-cell watchdog (the multi-device cell plane, tpu/cells.py) --------
+
+    def _ensure_cell_scope(self, runtime) -> None:
+        cells = runtime.cells
+        while len(self.cell_breakers) < len(cells):
+            self.cell_breakers.append(CircuitBreaker(self.breaker.threshold))
+            self.cell_states.append(STATE_READY)
+
+    async def _watchdog_cells(self, runtime) -> None:
+        """One watchdog tick over every cell: a ready cell runs a canary
+        feeding its own breaker (a trip degrades that cell: its docs go
+        to the CPU documents, its lane parks, placement routes around
+        it); a degraded cell runs half-open recovery probes and is
+        restored on a pass. The supervisor's state reflects the cells:
+        READY while any cell serves, DEGRADED when every cell is out."""
+        self._ensure_cell_scope(runtime)
+        for index, cell in enumerate(runtime.cells):
+            if self._stopped:
+                return
+            breaker = self.cell_breakers[index]
+            if self.cell_states[index] == STATE_READY:
+                ok, _latency = await self._canary_cell(index, cell)
+                if ok:
+                    breaker.record_success()
+                elif ok is False and breaker.record_failure():
+                    self._trip_cell(runtime, index)
+            elif breaker.state in (BREAKER_OPEN, BREAKER_HALF_OPEN):
+                breaker.try_half_open()
+                ok, _latency = await self._canary_cell(index, cell)
+                if ok:
+                    breaker.record_success()
+                    await self._restore_cell(runtime, index)
+                elif ok is False:
+                    breaker.record_failure()
+        ready = [state == STATE_READY for state in self.cell_states]
+        if any(ready) and self.state != STATE_READY:
+            self._set_state(STATE_READY)
+        elif not any(ready) and self.state == STATE_READY:
+            self._set_state(STATE_DEGRADED)
+
+    async def _canary_cell(self, index: int, cell) -> "tuple[Optional[bool], Optional[float]]":
+        """One deadline-bounded canary for one cell's plane, admitted
+        through that cell's own lane, with the global canary's single
+        outstanding probe tracked per cell: a wedged cell holds one
+        blocked probe, and every tick it stays unfinished is an overrun
+        for that cell alone. On the card a probe that raises stops the
+        server (`_fail_stop`); on a CPU cell it is a failure."""
+        self.counters["canary_probes"] += 1
+        outstanding = self._cell_probes.get(index)
+        if outstanding is not None and not outstanding[0].done():
+            if self._cell_lane_busy_with_warmup(cell, outstanding[1]):
+                self.counters["canary_busy_skips"] += 1
+                return None, None
+            self.counters["canary_failures"] += 1
+            return False, None
+
+        loop = asyncio.get_event_loop()
+        admission = {"granted": cell.lane is None}
+
+        async def probe() -> float:
+            ticket = None
+            if cell.lane is not None:
+                from .scheduler import CLASS_CANARY
+
+                ticket = await cell.lane.admit(CLASS_CANARY, site="canary", ignore_pause=True)
+            admission["granted"] = True
+            started = time.perf_counter()
+            try:
+                async with cell.plane.flush_lock:
+                    # canary_probe makes the cell's device current itself
+                    await loop.run_in_executor(None, cell.plane.canary_probe)
+            finally:
+                if ticket is not None:
+                    ticket.release()
+            return time.perf_counter() - started
+
+        future = asyncio.ensure_future(probe())
+        future.add_done_callback(lambda f: f.exception() if not f.cancelled() else None)
+        self._cell_probes[index] = (future, admission)
+        tracer = get_tracer()
+        try:
+            latency = await asyncio.wait_for(asyncio.shield(future), self.canary_deadline)
+        except asyncio.TimeoutError:
+            if self._cell_lane_busy_with_warmup(cell, admission):
+                self.counters["canary_busy_skips"] += 1
+                return None, None
+            self.counters["canary_failures"] += 1
+            tracer.event("supervisor.canary_overrun", deadline_s=self.canary_deadline, cell=index)
+            return False, None
+        except Exception as error:
+            self.counters["canary_errors"] += 1
+            tracer.event("supervisor.canary_error", error=repr(error), cell=index)
+            if self._card():
+                self._fail_stop(f"cell {index} canary", error)
+                raise
+            self.counters["canary_failures"] += 1
+            return False, None
+        self.last_canary_latency = latency
+        for fn in list(self.on_canary):
+            try:
+                fn(latency)
+            except Exception:
+                pass
+        return True, latency
+
+    def _cell_lane_busy_with_warmup(self, cell, admission: dict) -> bool:
+        """Per-cell twin of `_lane_busy_with_warmup`: a probe still
+        queued behind the cell lane's bounded warm-grid holder is a busy
+        cell, not a sick one."""
+        if admission.get("granted") or cell.lane is None:
+            return False
+        info = cell.lane.holder_info()
+        if info is None or info[0] != "warmup":
+            return False
+        budget = max(4.0 * self.canary_deadline, 1.0)
+        return info[2] < budget
+
+    def _trip_cell(self, runtime, index: int) -> None:
+        """One cell's breaker opened: degrade that cell only. The runtime
+        pauses the cell's serving, parks its lane, drops it out of
+        placement and drains its docs to the CPU documents; the other
+        cells keep serving."""
+        self.counters["degrades"] += 1
+        self.cell_states[index] = STATE_DEGRADED
+        _logger_mod.log_error(
+            f"plane watchdog: cell {index} breaker OPEN; draining its documents "
+            "to the CPU path (other cells unaffected)"
+        )
+        get_flight_recorder().record("__plane__", "cell_breaker_open", cell=index)
+        try:
+            runtime.degrade_cell(index)
+        except Exception:
+            _logger_mod.log_error(f"cell {index} degrade sweep failed (docs heal via sync)")
+
+    async def _restore_cell(self, runtime, index: int) -> None:
+        """A half-open probe passed: restore the cell and re-onboard the
+        live docs that place on it. On the card a re-onboard that raises
+        stops the server (`_fail_stop`); on a CPU cell the docs stay on
+        the CPU documents."""
+        self.counters["attaches"] += 1
+        self.cell_states[index] = STATE_READY
+        _logger_mod.logger.info(f"plane cell {index} recovered; hot re-attaching its documents")
+        get_flight_recorder().record("__plane__", "cell_breaker_close", cell=index)
+        try:
+            await runtime.restore_cell(index, self._instance)
+        except Exception as error:
+            if self._card():
+                self._fail_stop(f"cell {index} re-onboard", error)
+                raise
+            _logger_mod.log_error(f"cell {index} restore failed; docs stay on the CPU path")
+
     def _lane_busy_with_warmup(self) -> bool:
         """True when the outstanding probe is still queued for the
         device lane AND the lane's active holder is a warm-grid
@@ -658,7 +843,14 @@ class PlaneSupervisor:
 
     def snapshot(self) -> dict:
         """JSON-able health summary (healthz payload / get_health)."""
+        cells = None
+        if self.cell_states:
+            cells = [
+                {"cell": i, "state": state, "breaker": breaker.state}
+                for i, (state, breaker) in enumerate(zip(self.cell_states, self.cell_breakers))
+            ]
         return {
+            **({"cells": cells} if cells is not None else {}),
             "state": self.state,
             "serving_from_plane": self.state == STATE_READY,
             "degraded": self.state != STATE_READY,
@@ -700,8 +892,11 @@ class SupervisedTpuMergeExtension(Extension):
     raises when CUDA is not available, before any worker thread starts,
     and on the card an error of the runtime stops serving
     (`PlaneSupervisor._fail_stop`): new connections are refused with it.
-    `devices != 1` (per-card cells) and `shards > 1` (a sharded plane)
-    are not ported yet (ROADMAP.md, Queue A item 7).
+    `devices != 1` builds the multi-device cell plane (tpu/cells.py): one
+    plane, lane and governor per cell with load-aware placement (0 = one
+    cell per visible device; on the CPU, `devices` cells on the CPU).
+    `shards > 1` (a sharded plane) is not ported yet (ROADMAP.md, Queue A
+    item 7b).
     """
 
     priority = 900
@@ -719,10 +914,15 @@ class SupervisedTpuMergeExtension(Extension):
         runtime_factory: Optional[Callable[[], Any]] = None,
         **plane_kwargs: Any,
     ) -> None:
-        if devices != 1 or shards > 1:
+        if devices != 1 and shards > 1:
+            raise ValueError(
+                "pass either devices (per-card cells) or shards "
+                "(single-card doc partitions), not both"
+            )
+        if shards > 1:
             raise NotImplementedError(
-                "devices != 1 (per-card cells) and shards > 1 (a sharded plane) "
-                "are not ported yet: ROADMAP.md, Queue A item 7"
+                "shards > 1 (a sharded plane) is not ported yet: ROADMAP.md, "
+                "Queue A item 7b"
             )
         on_card = False
         if runtime_factory is None:
@@ -740,6 +940,13 @@ class SupervisedTpuMergeExtension(Extension):
             def runtime_factory() -> Any:
                 # imported HERE, in the worker thread: the kernel modules,
                 # the CUDA context and both builds run under the init budget
+                if devices != 1:
+                    from .cells import MultiDeviceMergeExtension
+
+                    runtime = MultiDeviceMergeExtension(devices=devices, **plane_kwargs)
+                    for plane in runtime.planes():
+                        plane.load_kernels()
+                    return runtime
                 from .merge_plane import TpuMergeExtension
 
                 runtime = TpuMergeExtension(**plane_kwargs)

@@ -4,7 +4,8 @@ Twins of tests/server/test_cli.py. Each flow boots both packages' CLI on a
 free port (the port's with `--tpu-device cpu`), drives it with that
 package's provider over a real websocket, and returns what it observed
 (texts, endpoint answers) with the CLI's exit codes; the two packages'
-observations must be equal and the port's CLI must exit 0. The port's sharded, multi-device, fleet and
+observations must be equal and the port's CLI must exit 0. `--tpu-devices 2`
+serves from two merge cells in both packages. The port's sharded, fleet and
 lane-tuning branches exit with code 2 and one line on stderr naming their
 ROADMAP.md Queue A item, and without `--tpu-device cpu` the plane needs
 CUDA. The flows are plain tests over `asyncio.run`: two CLI boots can
@@ -16,6 +17,7 @@ import asyncio
 import contextlib
 import json
 import os
+import re
 import signal
 import socket
 import subprocess
@@ -32,6 +34,8 @@ import hocuspocus_tpu_torch.cli as port_cli
 import hocuspocus_tpu_torch.provider as port_provider
 
 ROOT = Path(__file__).resolve().parent.parent
+
+DRAIN_LINE = re.compile(r"drain: stored \d+/\d+ docs in ([0-9.]+)s")
 
 PACKAGES = {
     "jax": ("hocuspocus_tpu.cli", jax_provider, ()),
@@ -53,6 +57,18 @@ class Cli:
         self.port = port
         self.url = f"ws://127.0.0.1:{port}"
         self.exit_code = None
+        # stderr's lines, when the launch reads them
+        self.stderr_lines: list = []
+        self.stderr_task = None
+
+    def drain_seconds(self):
+        """The drain's own duration, from the `drain: stored N/M docs in
+        Xs` line the server logs when it ends; None without a drain."""
+        for line in self.stderr_lines:
+            match = DRAIN_LINE.match(line)
+            if match:
+                return float(match.group(1))
+        return None
 
     async def get(self, path: str) -> tuple:
         async with aiohttp.ClientSession() as session:
@@ -61,9 +77,10 @@ class Cli:
 
 
 @contextlib.asynccontextmanager
-async def _launch(package: str, *extra_args: str):
+async def _launch(package: str, *extra_args: str, read_stderr: bool = False):
     """Boot a package's CLI on a free port; SIGTERM it on the way out and
-    keep its exit code."""
+    keep its exit code. `read_stderr` keeps its stderr lines
+    (`Cli.stderr_lines`)."""
     module, _provider, device_args = PACKAGES[package]
     port = _free_port()
     process = await asyncio.create_subprocess_exec(
@@ -72,9 +89,16 @@ async def _launch(package: str, *extra_args: str):
         cwd=ROOT,
         env={**os.environ, "JAX_PLATFORMS": "cpu", "PYTHONPATH": str(ROOT)},
         stdout=asyncio.subprocess.DEVNULL,
-        stderr=asyncio.subprocess.DEVNULL,
+        stderr=asyncio.subprocess.PIPE if read_stderr else asyncio.subprocess.DEVNULL,
     )
     cli = Cli(process, port)
+    if read_stderr:
+
+        async def pump() -> None:
+            async for line in process.stderr:
+                cli.stderr_lines.append(line.decode(errors="replace"))
+
+        cli.stderr_task = asyncio.ensure_future(pump())
     try:
         yield cli
     finally:
@@ -85,6 +109,8 @@ async def _launch(package: str, *extra_args: str):
         except asyncio.TimeoutError:
             process.kill()
             await process.wait()
+        if cli.stderr_task is not None:
+            await cli.stderr_task  # ends at the pipe's end of file
 
 
 async def _wait_for(condition, timeout: float) -> None:
@@ -158,8 +184,14 @@ async def _serve_mode(package, arena):
             await _wait_for(
                 lambda: b.document.get_text("t").to_string() == "served by the plane", 30
             )
-            status, text = await cli.get("/healthz")
-            section = json.loads(text)["extensions"]["SupervisedTpuMergeExtension"]
+            # the plane attaches after boot (its init runs in a worker
+            # thread): read the state once init has ended, up to 60 s
+            for _ in range(240):
+                status, text = await cli.get("/healthz")
+                section = json.loads(text)["extensions"]["SupervisedTpuMergeExtension"]
+                if section["state"] != "initializing":
+                    break
+                await asyncio.sleep(0.25)
         finally:
             a.destroy()
             b.destroy()
@@ -245,13 +277,17 @@ def test_cli_wal_and_drain_flags(tmp_path):
 
 async def _served_wal_replay(package, tmp_path):
     """--tpu-serve --metrics --wal-dir (the smoke's cli_server at one doc):
-    SIGTERM drains with exit code 0 inside --drain-timeout-secs, and a
-    second process on the same WAL serves the doc back byte for byte."""
+    SIGTERM drains inside --drain-timeout-secs and the process exits with
+    code 0, and a second process on the same WAL serves the doc back byte
+    for byte. The 5 s bound times what the flag bounds, the drain itself
+    as the server measures and logs it ("drain: stored N/M docs in Xs"):
+    not the signal's wait for a loaded event loop, nor the teardown and
+    the interpreter's exit after the drain."""
     provider_module = PACKAGES[package][1]
     crdt = sys.modules[provider_module.__name__.rsplit(".", 1)[0] + ".crdt"]
     args = ("--tpu-serve", "--metrics", "--tpu-docs", "16", "--tpu-capacity", "512",
             "--wal-dir", str(tmp_path / f"{package}-served-wal"), "--drain-timeout-secs", "5")
-    async with _launch(package, *args) as cli:
+    async with _launch(package, *args, read_stderr=True) as cli:
         a = provider_module.HocuspocusProvider(name="served-wal", url=cli.url)
         try:
             await _wait_for(lambda: a.synced, 60)
@@ -262,10 +298,11 @@ async def _served_wal_replay(package, tmp_path):
             await asyncio.sleep(0.2)
         finally:
             a.destroy()
-        started = time.monotonic()
         cli.process.send_signal(signal.SIGTERM)
         code = await asyncio.wait_for(cli.process.wait(), 30)
-        drained_in_time = time.monotonic() - started <= 5.0
+        await cli.stderr_task
+        drain_seconds = cli.drain_seconds()
+        drained_in_time = drain_seconds is not None and drain_seconds <= 5.0
     async with _launch(package, *args) as cli:
         reader = provider_module.HocuspocusProvider(name="served-wal", url=cli.url)
         try:
@@ -297,13 +334,12 @@ def _port_cli(*args, env=None):
 @pytest.mark.parametrize(
     "args,item",
     [
-        (("--tpu-serve", "--tpu-shards", "2"), "Queue A item 7"),
-        (("--tpu-serve", "--tpu-devices", "2"), "Queue A item 7"),
-        (("--tpu-serve", "--tpu-scheduler", "off"), "Queue A item 7"),
-        (("--tpu-serve", "--tpu-drain-watermark", "64"), "Queue A item 7"),
-        (("--tpu-serve", "--fleet-autoscale", "--tpu-devices", "0"), "Queue A items 7 and 8"),
+        (("--tpu-serve", "--tpu-shards", "2"), "Queue A item 7b"),
+        (("--tpu-serve", "--tpu-scheduler", "off"), "Queue A item 7b"),
+        (("--tpu-serve", "--tpu-drain-watermark", "64"), "Queue A item 7b"),
+        (("--tpu-serve", "--fleet-autoscale", "--tpu-devices", "0"), "Queue A item 8"),
     ],
-    ids=["shards", "devices", "scheduler-off", "drain-watermark", "fleet"],
+    ids=["shards", "scheduler-off", "drain-watermark", "fleet"],
 )
 def test_unported_branches_exit_naming_their_queue_a_item(args, item):
     proc = _port_cli(*args, "--tpu-device", "cpu")
@@ -311,6 +347,60 @@ def test_unported_branches_exit_naming_their_queue_a_item(args, item):
     lines = proc.stderr.strip().splitlines()
     assert len(lines) == 1 and item in lines[0] and "NotImplementedError" not in lines[0], proc.stderr
     assert "not ported yet" in lines[0]
+
+
+async def _cells_serve(package):
+    """--tpu-serve --tpu-devices 2: two supervised merge cells (on the
+    CPU for the port) serve a doc; a late joiner's state equals the
+    writer's byte for byte, and /debug/scheduler shows both cells."""
+    provider_module = PACKAGES[package][1]
+    crdt = sys.modules[provider_module.__name__.rsplit(".", 1)[0] + ".crdt"]
+    async with _launch(
+        package, "--tpu-serve", "--tpu-devices", "2", "--tpu-docs", "16", "--tpu-capacity", "512",
+        "--tpu-flush-interval", "1", "--tpu-broadcast-interval", "1", "--metrics",
+    ) as cli:
+        a = provider_module.HocuspocusProvider(name="cli-cells", url=cli.url)
+        b = provider_module.HocuspocusProvider(name="cli-cells", url=cli.url)
+        try:
+            await _wait_for(lambda: a.synced and b.synced, 60)
+
+            async def placed() -> list:
+                status, text = await cli.get("/debug/scheduler")
+                devices = json.loads(text).get("devices", []) if status == 200 else []
+                return [cell["docs"] for cell in devices]
+
+            # the supervised cells attach after boot: edit until the doc
+            # is served by a cell
+            for attempt in range(120):
+                docs = await placed()
+                if sum(docs) == 1:
+                    break
+                if attempt % 5 == 4:
+                    a.document.get_text("t").insert(0, "x")
+                await asyncio.sleep(0.25)
+            a.document.get_text("t").insert(0, "served by a cell ")
+            await _wait_for(lambda: "served by a cell" in b.document.get_text("t").to_string(), 30)
+            await _wait_for(lambda: not a.has_unsynced_changes, 10)
+            c = provider_module.HocuspocusProvider(name="cli-cells", url=cli.url)
+            try:
+                await _wait_for(lambda: c.synced, 60)
+                await _wait_for(
+                    lambda: crdt.encode_state_as_update(c.document)
+                    == crdt.encode_state_as_update(a.document), 30,
+                )
+            finally:
+                c.destroy()
+            docs = await placed()
+        finally:
+            a.destroy()
+            b.destroy()
+    return (len(docs), sum(docs), "served by a cell" in b.document.get_text("t").to_string()), (
+        cli.exit_code,
+    )
+
+
+def test_cli_serves_a_doc_from_per_device_cells_as_the_jax_cli():
+    assert asyncio.run(_both(_cells_serve)) == (2, 1, True)
 
 
 def test_the_plane_needs_cuda_unless_asked_for_the_cpu():

@@ -831,6 +831,78 @@ def test_edge_topology_on_the_card(cuda):
 
 
 @pytest.mark.cuda
+def test_four_cells_on_the_card_migrate_a_doc_under_edits(cuda):
+    """Four per-device cells wrapped onto the card, each with its own lane:
+    a doc migrates between two cells while its editor types, nothing it
+    acknowledged is lost; then the multi-device phase at 32 docs
+    (chip_smoke.run_multi_device_server, through its gates) launches K1
+    in every cell's flushes, migrates docs in its skew round and degrades
+    and restores one late cell alone."""
+    import asyncio
+
+    import chip_smoke
+    from hocuspocus_tpu_torch.provider import HocuspocusProvider, InProcessProviderSocket
+    from hocuspocus_tpu_torch.server import Configuration, Hocuspocus
+    from hocuspocus_tpu_torch.server.types import Payload
+    from hocuspocus_tpu_torch.tpu import MultiDeviceMergeExtension
+    from hocuspocus_tpu_torch.tpu.scheduler import reset_device_lane
+
+    async def migrate_under_edits():
+        reset_device_lane()
+        ext = MultiDeviceMergeExtension(devices=4, num_docs=16, capacity=1024, serve=True,
+                                        flush_interval_ms=1, rebalance_interval_s=0)
+        assert all(cell.plane.device.type == "cuda" for cell in ext.cells)
+        assert len({id(cell.lane) for cell in ext.cells}) == 4
+        core = Hocuspocus(Configuration(quiet=True, extensions=[ext]))
+        await core.ensure_configured()
+        await core.hooks("on_listen", Payload(instance=core, port=None))
+        providers = [HocuspocusProvider(name="card-mig", websocket_provider=InProcessProviderSocket(core))
+                     for _ in range(2)]
+        try:
+            for p in providers:
+                p.attach()
+            await _until(lambda: all(p.synced for p in providers), "synced editors")
+            a, b = providers
+            a.document.get_text("t").insert(0, "before;")
+            await _until(lambda: b.document.get_text("t").to_string() == "before;", "the first edit")
+            src = ext.cell_index_for("card-mig")
+            dst = (src + 1) % 4
+
+            async def edits():
+                for i in range(20):
+                    a.document.get_text("t").insert(0, f"e{i};")
+                    await asyncio.sleep(0.002)
+
+            task = asyncio.ensure_future(edits())
+            moved = False
+            for _ in range(100):
+                if await ext.migrate_doc("card-mig", src, dst):
+                    moved = True
+                    break
+                await asyncio.sleep(0.01)
+            await task
+            assert moved, ext.migration_stats
+            await _until(lambda: "card-mig" in ext.cells[dst]._docs, "the doc on its target cell")
+            a.document.get_text("t").insert(0, "after;")
+            await _until(lambda: b.document.get_text("t").to_string() == a.document.get_text("t").to_string()
+                         and "after;" in b.document.get_text("t").to_string(), "convergence")
+            text = b.document.get_text("t").to_string()
+            assert all(f"e{i};" in text for i in range(20)), text
+            assert ext.cells[dst].plane.counters["cpu_fallbacks"] == 0
+        finally:
+            for p in providers:
+                p.destroy()
+                p.websocket_provider.destroy()
+            await core.hooks("on_destroy", Payload(instance=core))
+
+    asyncio.run(migrate_under_edits())
+    out = asyncio.run(chip_smoke.run_multi_device_server(np.random.default_rng(5), 32, 4096, rows=64, chunk=16))
+    launches = chip_smoke.check_multi_device(out, 32, chip_smoke.MULTI_CUTS, on_card=True)
+    assert launches > 0 and all(n > 0 for n in out["cell_launches"].values()), out["cell_launches"]
+    assert out["migrations"]["in_skew_round"] >= 1
+
+
+@pytest.mark.cuda
 def test_tiptap_doc_through_the_webhook_on_the_run_length_plane(cuda, monkeypatch):
     """A Tiptap doc loaded through the Webhook and the transformer, edited
     in bursts, checkpointed and restored by History, stored and reloaded

@@ -7,7 +7,7 @@ tests/test_torch_edge.py's `run_reference_test`, so providers get client
 ids fixed by the order they were made), and the cross-host twins compare
 the two packages' documents byte for byte. The port's cells run without a
 plane and with a served CPU plane. `FleetController` and its extension
-are not ported yet (ROADMAP.md, Queue A items 7 and 8): they raise when
+are not ported yet (ROADMAP.md, Queue A item 8): they raise when
 constructed.
 """
 
@@ -75,7 +75,7 @@ def test_roster_decisions_match_the_jax_package():
 def test_the_fleet_controller_raises_naming_its_queue_a_items(cls):
     import hocuspocus_tpu_torch.fleet as port_fleet
 
-    with pytest.raises(NotImplementedError, match="Queue A items 7 and 8"):
+    with pytest.raises(NotImplementedError, match="Queue A item 8"):
         getattr(port_fleet, cls)()
 
 

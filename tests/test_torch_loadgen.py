@@ -8,9 +8,10 @@ packages' harness and runner, the port's planes on the CPU
 measured op counts, served docs, sample counts, the ladder's path) must be
 equal, while latencies are each package's own. `/debug/loadgen` answers
 from the port's Metrics as from the JAX package's. The edge populations
-run through the split front door; the sharded and multi-device ones,
-not ported yet, raise NotImplementedError naming ROADMAP.md, Queue A
-item 7. The twins that run both packages are plain tests over
+run through the split front door, and `multi_device_storm` through
+per-device merge cells (the port's on the CPU); the sharded ones, not
+ported yet, raise NotImplementedError naming ROADMAP.md, Queue A item 7b,
+and `diurnal_autoscale` names item 8 (the fleet controller). The twins that run both packages are plain tests over
 `asyncio.run`: two runs can outlast the 60 s that tests/conftest.py gives
 one coroutine test when the suite runs in parallel.
 """
@@ -59,12 +60,13 @@ PACKAGES = {
 # scenarios whose population the port runs: one plane per instance
 SINGLE_PLANE = ("smoke", "replication_lag", "overload_storm", "partition_heal", "wire_saturation")
 UNPORTED = {
-    "diurnal": "item 7", "flash_crowd": "item 7", "reconnect_herd": "item 7",
-    "mega_doc": "item 7", "storm": "item 7", "multi_device_storm": "item 7",
-    "diurnal_autoscale": "item 7",
+    "diurnal": "item 7b", "flash_crowd": "item 7b", "reconnect_herd": "item 7b",
+    "mega_doc": "item 7b", "storm": "item 7b", "diurnal_autoscale": "item 8",
 }
 # the split front door: edges in front of merge cells (tests/test_torch_edge.py)
 EDGE = ("edge_fanout", "edge_handoff", "mega_audience")
+# per-device merge cells behind each instance (tests/test_torch_multi_device.py)
+MULTI_DEVICE = ("multi_device_storm",)
 
 
 # -- the schedule compilers ---------------------------------------------------
@@ -73,7 +75,9 @@ EDGE = ("edge_fanout", "edge_handoff", "mega_audience")
 def test_the_library_names_the_same_scenarios_and_suite():
     assert list(port_scenarios.SCENARIOS) == list(jax_scenarios.SCENARIOS)
     assert list(port_loadgen.BENCH_SUITE) == list(jax_loadgen.BENCH_SUITE)
-    assert set(SINGLE_PLANE) | set(EDGE) | set(UNPORTED) == set(port_scenarios.SCENARIOS)
+    assert set(SINGLE_PLANE) | set(EDGE) | set(MULTI_DEVICE) | set(UNPORTED) == set(
+        port_scenarios.SCENARIOS
+    )
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -163,15 +167,21 @@ def test_unported_scenario_raises_naming_its_queue_a_item(name):
 
 
 def test_sharded_harness_and_extensions_raise_naming_item_7():
+    """Sharded planes wait for Queue A item 7b; a `devices=2` harness
+    builds per-device cells instead of raising."""
     from hocuspocus_tpu_torch.tpu import MultiDeviceMergeExtension, ShardedTpuMergeExtension
 
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+    with pytest.raises(NotImplementedError, match="Queue A item 7b"):
         port_loadgen.ServedLoadHarness(num_docs=8, shards=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        port_loadgen.ServedLoadHarness(num_docs=8, devices=2, device="cpu")
-    for cls in (ShardedTpuMergeExtension, MultiDeviceMergeExtension):
-        with pytest.raises(NotImplementedError, match="Queue A item 7"):
-            cls(shards=2, num_docs=8, serve=True)
+    with pytest.raises(NotImplementedError, match="Queue A item 7b"):
+        ShardedTpuMergeExtension(shards=2, num_docs=8, serve=True)
+    harness = port_loadgen.ServedLoadHarness(num_docs=8, devices=2, device="cpu")
+    ext, planes = harness._plane_extension()
+    try:
+        assert isinstance(ext, MultiDeviceMergeExtension) and len(planes) == 2
+        assert harness.shard_rows == 64 and all(p.num_docs == 64 for p in planes)
+    finally:
+        ext.cancel_timers()
 
 
 def test_the_edge_harness_runs_like_the_jax_packages():
@@ -390,6 +400,49 @@ def test_partition_heal_scenario_converges_byte_identically():
     assert healed["measured_ops"] > 0 and healed["failed_ops"] == 0
     partitioned = next(p for p in result["phases"] if p["name"] == "partitioned")
     assert partitioned["measured_ops"] == 0
+
+
+def test_multi_device_storm_rebalances_cpu_cells_like_the_jax_package():
+    """`multi_device_storm` at its published defaults (24 docs, 2
+    instances of 4 cells), the port's cells on the CPU: the schedule is
+    the JAX package's, and the run passes, converges byte for byte, runs
+    every op of the schedule and migrates docs off the hot cell with
+    every dispatch in its cell's lane. The port's body only: the JAX
+    package's run of it takes minutes on the CPU (eight cells warming
+    their shapes), too long beside the suite."""
+    import time
+
+    from hocuspocus_tpu_torch.observability.flight_recorder import get_flight_recorder
+
+    schedule = port_loadgen.get_scenario("multi_device_storm").compile(seed=7)
+    reference = jax_loadgen.get_scenario("multi_device_storm").compile(seed=7)
+    assert schedule.schedule_hash == reference.schedule_hash
+    started = time.time()
+    result = asyncio.run(_runner(PACKAGES["port"], schedule).run())
+    assert result["verdict"] == "pass", result["slo"]["breached_targets"]
+    assert [p["name"] for p in result["phases"]] == ["steady", "storm", "rebalanced"]
+    assert result["extra"]["ops_failed"] == 0
+    assert result["extra"]["ops_total"] == len(schedule.ops)
+    convergence = result["extra"]["convergence"]
+    assert convergence["converged"] is True and convergence["diverged"] == []
+    assert convergence["docs_checked"] == schedule.population["sampled"]
+    multi = result["extra"]["multi_device"]
+    assert [m["devices"] for m in multi.values()] == [4, 4]
+    assert sum(m["migrations"]["docs_migrated"] for m in multi.values()) >= 1, multi
+    for phase in result["phases"]:
+        assert phase["lane"]["dispatches_bypass"] == 0, phase
+        assert phase["lane"]["dispatches_in_lane"] > 0, phase
+    # the mega doc (doc 0) outgrows its 8,192-unit row and retires to its
+    # CPU document, on each instance and again wherever it was recycled:
+    # it is the only doc any cell degraded
+    recorder = get_flight_recorder()
+    degraded = sorted(
+        d for d in range(schedule.population["num_docs"])
+        if any(e["event"] == "degrade" and e["ts"] >= started for e in recorder.events(f"load-{d}"))
+    )
+    assert degraded in ([], [0]), degraded
+    assert all(health["docs_retired_capacity"] >= 1 for health in result["extra"]["plane_health"]
+               if health["cpu_fallbacks"])
 
 
 # -- /debug/loadgen -----------------------------------------------------------

@@ -656,9 +656,12 @@ def test_extension_refuses_what_is_not_ported():
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TpuMergeExtension(device="cpu", mesh=object())
-    for kwargs in ({"devices": 2}, {"devices": 0}, {"shards": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
+    # sharded planes wait for Queue A item 7b; per-device cells are ported
+    for kwargs in ({"shards": 2}, {"shards": 4}):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 7b"):
             SupervisedTpuMergeExtension(device="cpu", serve=True, **kwargs)
+    for devices in (2, 0):
+        SupervisedTpuMergeExtension(device="cpu", serve=True, devices=devices)
     # the residency knobs are ported: in serve mode either one builds a
     # working ResidencyManager with the extension's settings
     for knob in ("evict_idle_secs", "compact_threshold"):

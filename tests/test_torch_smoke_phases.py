@@ -1,5 +1,5 @@
-"""chip_smoke.py's supervised, compaction, cluster, Tiptap, CLI and
-loadgen phases, rehearsed on the CPU.
+"""chip_smoke.py's supervised, compaction, cluster, edge, per-device
+cells, Tiptap, CLI and loadgen phases, rehearsed on the CPU.
 
 The phases run on the card at 1,024 docs; here the same functions run at
 a few docs on the CPU (`device="cpu"`), so their own checks and numbers
@@ -187,6 +187,32 @@ def test_edge_server_phase_on_the_cpu():
     assert all(out["k1_ops"][cell] > 0 for cell in out["counters"]), out["k1_ops"]
 
 
+def test_multi_device_server_phase_on_the_cpu():
+    """The per-device cells' phase at 32 docs on four CPU cells, through
+    the phase's own gates (check_multi_device): every doc byte-identical
+    across its editors, its joiner and the server after each round and
+    rebuilt from its cell's served bytes; K1 ops on every cell, every
+    dispatch in its cell's lane; docs migrated in the skew round; the
+    late cell's breaker opened and closed alone, its docs back on it;
+    every CPU fallback the late cell's; the /metrics gauges equal to the
+    books. On the CPU the plain version integrates: no launch counted."""
+    smoke = _smoke()
+    out = asyncio.run(
+        smoke.run_multi_device_server(np.random.default_rng(7), 32, 4096, device="cpu", rows=64, chunk=16)
+    )
+    assert smoke.check_multi_device(out, 32, smoke.MULTI_CUTS, on_card=False) == 0
+    assert out["join_synced_editors"]["n"] == 64 and out["join_synced_joiners"]["n"] == 32
+    assert set(out["edit_observe"]) == {"round 1", "skew", "late cell", "last round"}
+    assert out["migrations"]["in_skew_round"] >= 1 and out["migrations"]["seconds"]["n"] >= 1
+    late = out["late_cell"]
+    assert late["docs"] > 0 and late["placed_docs_served"] > 0 and late["degrade_seconds"] > 0
+    assert out["cpu_fallbacks"]["late_cell"] >= late["docs"]
+    assert out["cpu_fallbacks"]["migration_snapshots"] == 0 and not out["cpu_fallbacks"].get("mega_capacity")
+    assert out["rebuilt"] == 32 and sum(out["served_by_cell"].values()) == 32
+    assert out["phase_offsets_ms"] == [0.0, 1.25, 2.5, 3.75]
+    assert out["cell_launches"] == {str(i): 0 for i in range(4)} and out["launches_outside_flush"] == 0
+
+
 def test_tiptap_server_phase_on_the_cpu(monkeypatch):
     """BASELINE configs 3 and 1 at 4 docs: every doc loads the receiver's
     Tiptap JSON through the webhook, readers follow the bursts, History
@@ -237,7 +263,8 @@ def test_loadgen_phase_on_the_cpu():
     instance (the runner's added check), on every doc: the 6 sampled ones'
     readers and a fresh reader on the other instance for the 2 others.
     The edge scenarios at their defaults pass, writers and readers
-    converged through the two edges, and edge_handoff's drain hands off."""
+    converged through the two edges, and edge_handoff's drain hands off;
+    multi_device_storm passes on eight CPU cells and migrates docs."""
     smoke = _smoke()
     out = asyncio.run(smoke.run_loadgen(8, device="cpu"))
     assert out["smoke"]["verdict"] == "pass" and out["smoke"]["acked"]["writers"] == 6
@@ -257,6 +284,14 @@ def test_loadgen_phase_on_the_cpu():
         assert edge["k1_launches_are"].startswith("the cells' warm grid") == (not any(edge["k1_ops"])), edge
         assert not any(c["relay_overflows"] for c in edge["edge"].values()), edge
     assert sum(c["handoffs"] for c in out["edge_handoff"]["edge"].values()) >= 1
+    # per-device cells: 2 instances of 4, docs migrated, every doc observed
+    storm = out["multi_device_storm"]
+    assert storm["verdict"] == "pass" and storm["convergence"]["converged"], storm
+    assert storm["docs_migrated"] >= 1 and storm["acked"]["docs_observed"] == storm["docs"] == 24
+    assert [m["devices"] for m in storm["multi_device"].values()] == [4, 4]
+    # three cell planes behind the edges, reported by the phase
+    audience = out["mega_audience"]
+    assert audience["verdict"] == "pass" and audience["convergence"]["converged"], audience
 
 
 def test_loadgen_phase_holds_the_jax_packages_schedule_hashes():

@@ -841,9 +841,10 @@ async def test_capacity_overflow_degrades_without_data_loss(compact_threshold):
 
 
 def test_supervised_extension_refuses_sharding():
-    for kwargs in ({"devices": 4}, {"shards": 2}):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            SupervisedTpuMergeExtension(serve=True, device="cpu", **kwargs)
+    with pytest.raises(NotImplementedError, match="item 7b"):
+        SupervisedTpuMergeExtension(serve=True, device="cpu", shards=2)
+    with pytest.raises(ValueError, match="not both"):
+        SupervisedTpuMergeExtension(serve=True, device="cpu", devices=4, shards=2)
     assert np.isfinite(SupervisedTpuMergeExtension(device="cpu").supervisor.canary_deadline)
 
 
