@@ -41,14 +41,18 @@ hocuspocus_tpu_torch.cli --tpu-serve --metrics --wal-dir D` in a process
 of its own and drives it over websockets from here (1,024 docs, SIGTERM's
 drain, a second process replaying the WAL), and `loadgen` runs the
 scenario runner (`smoke`, `replication_lag` at 1,024 docs, `edge_fanout`,
-`edge_handoff`, `mega_audience` and `multi_device_storm` at their
-defaults) and `python
+`edge_handoff`, `mega_audience`, `multi_device_storm` and
+`diurnal_autoscale` at their defaults) and `python
 -m hocuspocus_tpu_torch.loadgen --scenario smoke`. Then the CLI's
 `--tpu-serve --tpu-devices 4` deployment in process, four supervised
 per-device merge cells on the card, each with its own lane, through a
 skew round that makes the rebalancer migrate docs and a late cell whose
 breaker opens and closes alone (`multi_device_server`, unit arena, with
-its replay). Last, where the
+its replay), and the same deployment under `--fleet-autoscale
+--fleet-warm-spares 2` through diurnal_autoscale's day with fresh
+sessions opening docs as it rises, the fleet controller activating
+parked cells and parking them by night with their docs migrated under
+the edits (`fleet_server`, with its replay). Last, where the
 smoke's own 850 s budget leaves room, `supervised_server_full` runs the
 unit supervised phase once more with all 1,024 docs driven, in a child
 process (`--supervised-docs 1024`), and reports how it ended without
@@ -70,6 +74,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import collections
+import contextlib
 import gc
 import json
 import os
@@ -159,6 +164,7 @@ FLUSH_BUDGET_MS = 50.0
 PATHS = (
     "plane", "server", "server_python", "supervised_server", "compact_plane",
     "cluster_server", "edge_server", "tiptap_server", "cli_server", "loadgen", "multi_device_server",
+    "fleet_server",
 )
 
 CLIENTS = np.asarray([7, 0x9000_0001], np.uint32)
@@ -3607,6 +3613,267 @@ MULTI_CUTS = {
 }
 
 
+class CellLaunches:
+    """K1 launches counted per cell of a cell plane. Each cell's flush
+    (the lane's, a serve's, a hydration's, on whichever thread) and each
+    canary mark their thread, and while `counted()` is entered each
+    launch of a wrapper the planes call is counted under that mark where
+    it launches (a card tensor): `flush_launches[cell]` (None: outside
+    every flush and canary), `canary_launches[cell]`; `flushes[cell]`
+    counts flush calls. Counting runs from `start()` until `on` is
+    cleared; `recorder`, when given, keeps its cell's biggest batch."""
+
+    def __init__(self, cells, recorder=None) -> None:
+        from hocuspocus_tpu_torch.tpu import integrate as ti
+
+        self.names = ARENAS["unit"]["wrap"]
+        self.fns = [getattr(ti, name) for name in self.names]
+        self.marking = threading.local()
+        self.flush_launches = collections.Counter()
+        self.canary_launches = collections.Counter()
+        self.flushes = collections.Counter()
+        self.on = False
+        for i, cell in enumerate(cells):
+            self._mark(i, cell.plane, recorder)
+        if recorder is not None:
+            recorder.gate = lambda: getattr(self.marking, "site", None) == ("flush", recorder.cell)
+
+    def _mark(self, i, plane, recorder) -> None:
+        marking = self.marking
+        real_flush, real_probe = plane.flush, plane.canary_probe
+
+        def marked_flush(max_batches=None):
+            outer = getattr(marking, "site", None)
+            marking.site = ("flush", i)
+            try:
+                count = real_flush(max_batches)
+            finally:
+                marking.site = outer
+            if self.on:
+                self.flushes[i] += 1
+            if recorder is not None and i == recorder.cell:
+                recorder.after_flush(plane.state)
+            return count
+
+        def marked_probe():
+            marking.site = ("canary", i)
+            try:
+                return real_probe()
+            finally:
+                marking.site = None
+
+        plane.flush, plane.canary_probe = marked_flush, marked_probe
+
+    def start(self) -> None:
+        for fn in self.fns:
+            fn.launches = 0
+        self.on = True
+
+    @contextlib.contextmanager
+    def counted(self):
+        from hocuspocus_tpu_torch.tpu import merge_plane as mp
+
+        current = {name: getattr(mp, name) for name in self.names}
+
+        def counting(fn):
+            def call(state, *args):
+                out = fn(state, *args)
+                if self.on and state.id_client.is_cuda:
+                    site = getattr(self.marking, "site", None)
+                    if site is not None and site[0] == "canary":
+                        self.canary_launches[site[1]] += 1
+                    else:
+                        self.flush_launches[None if site is None else site[1]] += 1
+                return out
+            return call
+
+        for name, fn in current.items():
+            setattr(mp, name, counting(fn))
+        try:
+            yield
+        finally:
+            for name, fn in current.items():
+                setattr(mp, name, fn)
+
+    def wrapper_launches(self) -> dict:
+        return {name: fn.launches for name, fn in zip(self.names, self.fns)}
+
+    def by_cell(self, cells: int) -> dict:
+        return {
+            "cell_launches": {str(i): self.flush_launches[i] for i in range(cells)},
+            "canary_launches": {str(i): self.canary_launches[i] for i in range(cells)},
+            "launches_outside_flush": self.flush_launches[None],
+            "cell_flushes": {str(i): self.flushes[i] for i in range(cells)},
+        }
+
+
+class CellHarness:
+    """The in-process clients and books that the cell-plane phases share
+    (multi_device_server, fleet_server) over a core and its cell runtime:
+    providers on in-process sockets of their own, counting client-visible
+    closes (`closes`); joins `chunk` docs at a time; the convergence and
+    idle waits over `editors` (doc -> its providers); each migration
+    timed from its start to the doc hydrated on its target (`migrations`,
+    `note_hydrated`); each CPU fallback of a doc a cell held recorded as
+    (cell, doc, window, during a migration, retire reason) (`fallbacks`);
+    and the served-bytes rebuild of every doc. `window` names the part of
+    the phase that runs."""
+
+    def __init__(self, tag, core, runtime, chunk) -> None:
+        self.tag, self.core, self.runtime, self.chunk = tag, core, runtime, chunk
+        self.cells = runtime.cells
+        self.window = "join"
+        self.migrating = 0
+        self.closes = collections.Counter()
+        self.editors = {}
+        self.fallbacks = []
+        self.migrations = []
+        for i, cell in enumerate(self.cells):
+            self._record_fallbacks(i, cell)
+        real_migrate = runtime.migrate_doc
+
+        async def timed_migrate(name, src, dst):
+            t0 = time.perf_counter()
+            self.migrating += 1
+            try:
+                moved = await real_migrate(name, src, dst)
+            finally:
+                self.migrating -= 1
+            if moved:
+                self.migrations.append({"doc": name, "src": src, "dst": dst, "window": self.window,
+                                        "started": t0, "hydrated": None})
+            return moved
+
+        runtime.migrate_doc = timed_migrate
+
+    def _record_fallbacks(self, i, cell) -> None:
+        real_fallback = cell._fallback_to_cpu
+
+        def recorded_fallback(document):
+            if document.name in cell._docs:
+                plane_doc = cell.plane.docs.get(document.name)
+                self.fallbacks.append((i, document.name, self.window, self.migrating > 0,
+                                       None if plane_doc is None else plane_doc.retire_reason))
+            return real_fallback(document)
+
+        cell._fallback_to_cpu = recorded_fallback
+
+    def note_hydrated(self) -> None:
+        now = time.perf_counter()
+        for move in self.migrations:
+            if move["hydrated"] is None and move["doc"] in self.cells[move["dst"]]._docs:
+                move["hydrated"] = now
+
+    async def until_hydrated(self, timeout=60) -> None:
+        deadline = time.perf_counter() + timeout
+        while True:
+            self.note_hydrated()
+            if all(move["hydrated"] is not None for move in self.migrations):
+                return
+            check(time.perf_counter() < deadline, f"{self.tag}: a migrated doc never hydrated on its target")
+            await asyncio.sleep(0.005)
+
+    def migration_ms(self, moves=None) -> dict:
+        """evict -> hydrated percentiles of `moves` (indices), or of all."""
+        chosen = self.migrations if moves is None else [self.migrations[m] for m in moves]
+        return percentiles_ms([m["hydrated"] - m["started"] for m in chosen if m["hydrated"] is not None])
+
+    def provider(self, name):
+        from hocuspocus_tpu_torch.provider import HocuspocusProvider, InProcessProviderSocket
+
+        p = HocuspocusProvider(name=name, websocket_provider=InProcessProviderSocket(self.core))
+        p.on("close", lambda *_a, **_k: self.closes.update(["close"]))
+        p.on("authentication_failed", lambda *_a, **_k: self.closes.update(["denied"]))
+        return p
+
+    async def join(self, doc_names, per_doc) -> tuple:
+        """`chunk` docs at a time: (providers by doc, join -> synced seconds)."""
+        out, waits = {}, []
+        for s in range(0, len(doc_names), self.chunk):
+            wave = [(name, self.provider(name)) for name in doc_names[s:s + self.chunk] for _ in range(per_doc)]
+            synced_at = {}
+            t_join = time.perf_counter()
+            for _name, p in wave:
+                p.on("synced", lambda payload, p=p: payload.get("state")
+                     and synced_at.setdefault(p, time.perf_counter()))
+                p.attach()
+            await asyncio.wait_for(_all_synced([p for _n, p in wave]), 300)
+            waits += [synced_at.get(p, time.perf_counter()) - t_join for _n, p in wave]
+            for name, p in wave:
+                out.setdefault(name, []).append(p)
+        return out, waits
+
+    def diverged(self, groups) -> list:
+        from hocuspocus_tpu_torch.crdt import encode_state_as_update
+
+        out = []
+        for name, group in groups.items():
+            states = {encode_state_as_update(p.document) for p in group}
+            server = self.core.documents.get(name)
+            if server is not None:
+                states.add(encode_state_as_update(server))
+            if len(states) != 1:
+                out.append(name)
+        return out
+
+    async def until_converged(self, what, groups=None, timeout=300) -> None:
+        groups = self.editors if groups is None else groups
+        deadline = time.perf_counter() + timeout
+        left = self.diverged(groups)
+        while left:
+            check(time.perf_counter() < deadline, f"{self.tag}: {what}: {len(left)} docs never converged: {left[:4]}")
+            await asyncio.sleep(0.02)
+            left = self.diverged({name: groups[name] for name in left})
+
+    async def until_idle(self, what) -> None:
+        deadline = time.perf_counter() + 120
+        while any(cell.plane.pending_ops() > 0 or cell._flush_inflight for cell in self.cells):
+            check(time.perf_counter() < deadline, f"{self.tag}: {what}: the queues never drained")
+            await asyncio.sleep(0.005)
+
+    async def first_words(self, names) -> None:
+        """One word a doc by its first editor, every doc converged and the
+        queues drained."""
+        for d, name in enumerate(names):
+            self.editors[name][0].document.get_text("t").insert(0, WORDS[d % len(WORDS)])
+            if d % 16 == 15:
+                await asyncio.sleep(0)
+        await self.until_converged("the first words")
+        await self.until_idle("the first words")
+
+    async def rebuild(self, names, skip=()) -> tuple:
+        """Each doc of `names` not in `skip` served from a cell, its served
+        bytes rebuilding the server's document: (docs rebuilt, docs by
+        serving cell)."""
+        from hocuspocus_tpu_torch.crdt import Doc, apply_update, encode_state_as_update
+
+        rebuilt = 0
+        served_by = collections.Counter()
+        for name in names:
+            if name in skip:
+                continue
+            document = self.core.documents[name]
+            check(document.sync_source is not None, f"{self.tag}: {name} is not served by a cell: "
+                                                    f"{self.fallbacks[-4:]}")
+            served = await document.sync_source.encode_state_as_update_async(None)
+            check(served is not None, f"{self.tag}: {name} was not served from its cell")
+            doc = Doc()
+            apply_update(doc, served)
+            check(encode_state_as_update(doc) == encode_state_as_update(document),
+                  f"{self.tag}: {name}: served bytes rebuild another doc")
+            rebuilt += 1
+            served_by[self.runtime.cell_index_for(name)] += 1
+        return rebuilt, served_by
+
+    @staticmethod
+    def destroy(*groups_by_doc) -> None:
+        for groups in groups_by_doc:
+            for group in groups.values():
+                for p in group:
+                    p.destroy()
+                    p.websocket_provider.destroy()
+
+
 async def run_multi_device_server(rng, num_docs, capacity, device=None, recorder=None,
                                   rows=MULTI_ROWS, chunk=MULTI_JOIN_CHUNK,
                                   mega_inserts=MULTI_MEGA_INSERTS, mega_units=MULTI_MEGA_UNITS,
@@ -3634,16 +3901,10 @@ async def run_multi_device_server(rng, num_docs, capacity, device=None, recorder
     Each CPU fallback is attributed: the late cell's docs in its window,
     a migration's CPU snapshot, or the mega doc outgrowing its row.
     Returns the phase's numbers."""
-    import contextlib
-
-    from hocuspocus_tpu_torch.crdt import Doc, apply_update, encode_state_as_update
     from hocuspocus_tpu_torch.observability import Metrics
-    from hocuspocus_tpu_torch.provider import HocuspocusProvider, InProcessProviderSocket
     from hocuspocus_tpu_torch.server import Configuration, Hocuspocus
     from hocuspocus_tpu_torch.server.types import Payload
     from hocuspocus_tpu_torch.tpu import SupervisedTpuMergeExtension
-    from hocuspocus_tpu_torch.tpu import integrate as ti
-    from hocuspocus_tpu_torch.tpu import merge_plane as mp
     from hocuspocus_tpu_torch.tpu.scheduler import get_device_lane, reset_device_lane
     from hocuspocus_tpu_torch.tpu.supervisor import STATE_DEGRADED, STATE_INITIALIZING, STATE_READY
 
@@ -3676,163 +3937,12 @@ async def run_multi_device_server(rng, num_docs, capacity, device=None, recorder
           f"{tag}: the cells do not each admit through a lane of their own")
     ready_seconds = time.perf_counter() - started
 
-    # per-cell launch counts: each cell's flush (the lane's, a serve's, a
-    # hydration's, on whichever thread) and each canary mark their thread,
-    # and each launch of a wrapper the plane calls is counted under that
-    # mark where it launches (a card tensor)
-    dense_name, sparse_name = ARENAS["unit"]["wrap"]
-    dense_fn, sparse_fn = getattr(ti, dense_name), getattr(ti, sparse_name)
-    marking = threading.local()
-    flush_launches = collections.Counter()  # cell -> launches in its flushes; None: outside all
-    canary_launches = collections.Counter()
-    flushes = collections.Counter()  # cell -> flush calls while counting
-    counting = {"on": False}
-    for i, cell in enumerate(cells):
-        plane = cell.plane
-        real_flush, real_probe = plane.flush, plane.canary_probe
-
-        def marked_flush(max_batches=None, real_flush=real_flush, i=i, plane=plane):
-            outer = getattr(marking, "site", None)
-            marking.site = ("flush", i)
-            try:
-                count = real_flush(max_batches)
-            finally:
-                marking.site = outer
-            if counting["on"]:
-                flushes[i] += 1
-            if recorder is not None and i == recorder.cell:
-                recorder.after_flush(plane.state)
-            return count
-
-        def marked_probe(real_probe=real_probe, i=i):
-            marking.site = ("canary", i)
-            try:
-                return real_probe()
-            finally:
-                marking.site = None
-
-        plane.flush, plane.canary_probe = marked_flush, marked_probe
-    if recorder is not None:
-        recorder.gate = lambda: getattr(marking, "site", None) == ("flush", recorder.cell)
-
-    @contextlib.contextmanager
-    def counted_by_cell():
-        current = {name: getattr(mp, name) for name in (dense_name, sparse_name)}
-
-        def counted(fn):
-            def call(state, *args):
-                out = fn(state, *args)
-                if counting["on"] and state.id_client.is_cuda:
-                    site = getattr(marking, "site", None)
-                    if site is not None and site[0] == "canary":
-                        canary_launches[site[1]] += 1
-                    else:
-                        flush_launches[None if site is None else site[1]] += 1
-                return out
-            return call
-
-        for name, fn in current.items():
-            setattr(mp, name, counted(fn))
-        try:
-            yield
-        finally:
-            for name, fn in current.items():
-                setattr(mp, name, fn)
-
-    # every CPU fallback, attributed: (cell, doc, window)
-    window = {"now": "join"}
-    fallbacks = []
-    for i, cell in enumerate(cells):
-        real_fallback = cell._fallback_to_cpu
-
-        def recorded_fallback(document, real_fallback=real_fallback, i=i, cell=cell):
-            if document.name in cell._docs:
-                plane_doc = cell.plane.docs.get(document.name)
-                fallbacks.append((i, document.name, window["now"],
-                                  None if plane_doc is None else plane_doc.retire_reason))
-            return real_fallback(document)
-
-        cell._fallback_to_cpu = recorded_fallback
-    # migrations: start, and when the target serves the doc
-    migrations = []
-    real_migrate = runtime.migrate_doc
-
-    async def timed_migrate(name, src, dst):
-        t0 = time.perf_counter()
-        moved = await real_migrate(name, src, dst)
-        if moved:
-            migrations.append({"doc": name, "src": src, "dst": dst, "window": window["now"],
-                               "started": t0, "evicted": time.perf_counter(), "hydrated": None})
-        return moved
-
-    runtime.migrate_doc = timed_migrate
-
-    def note_hydrated() -> None:
-        now = time.perf_counter()
-        for move in migrations:
-            if move["hydrated"] is None and move["doc"] in cells[move["dst"]]._docs:
-                move["hydrated"] = now
-
+    counts = CellLaunches(cells, recorder)
+    h = CellHarness(tag, core, runtime, chunk)
     names = [f"multi-{i}" for i in range(num_docs)]
-    closes = collections.Counter()
-
-    def provider(name):
-        p = HocuspocusProvider(name=name, websocket_provider=InProcessProviderSocket(core))
-        p.on("close", lambda *_a, **_k: closes.update(["close"]))
-        p.on("authentication_failed", lambda *_a, **_k: closes.update(["denied"]))
-        return p
-
-    async def join(doc_names, per_doc) -> tuple:
-        """`chunk` docs at a time: (providers by doc, join -> synced seconds)."""
-        out, waits = {}, []
-        for s in range(0, len(doc_names), chunk):
-            wave = [(name, provider(name)) for name in doc_names[s:s + chunk] for _ in range(per_doc)]
-            synced_at = {}
-            t_join = time.perf_counter()
-            for _name, p in wave:
-                p.on("synced", lambda payload, p=p: payload.get("state")
-                     and synced_at.setdefault(p, time.perf_counter()))
-                p.attach()
-            await asyncio.wait_for(_all_synced([p for _n, p in wave]), 300)
-            waits += [synced_at.get(p, time.perf_counter()) - t_join for _n, p in wave]
-            for name, p in wave:
-                out.setdefault(name, []).append(p)
-        return out, waits
-
-    editors, editor_joins = await join(names, MULTI_EDITORS)
-
-    def diverged(groups) -> list:
-        out = []
-        for name, group in groups.items():
-            states = {encode_state_as_update(p.document) for p in group}
-            server = core.documents.get(name)
-            if server is not None:
-                states.add(encode_state_as_update(server))
-            if len(states) != 1:
-                out.append(name)
-        return out
-
-    async def until_converged(what, groups=None, timeout=300):
-        groups = editors if groups is None else groups
-        deadline = time.perf_counter() + timeout
-        left = diverged(groups)
-        while left:
-            check(time.perf_counter() < deadline, f"{tag}: {what}: {len(left)} docs never converged: {left[:4]}")
-            await asyncio.sleep(0.02)
-            left = diverged({name: groups[name] for name in left})
-
-    async def until_idle(what):
-        deadline = time.perf_counter() + 120
-        while any(cell.plane.pending_ops() > 0 or cell._flush_inflight for cell in cells):
-            check(time.perf_counter() < deadline, f"{tag}: {what}: the queues never drained")
-            await asyncio.sleep(0.005)
-
-    for d, name in enumerate(names):
-        editors[name][0].document.get_text("t").insert(0, WORDS[d % len(WORDS)])
-        if d % 16 == 15:
-            await asyncio.sleep(0)
-    await until_converged("the first words")
-    await until_idle("the first words")
+    editors, editor_joins = await h.join(names, MULTI_EDITORS)
+    h.editors = editors
+    await h.first_words(names)
     setup_seconds = time.perf_counter() - started
 
     clocks = {}
@@ -3852,30 +3962,29 @@ async def run_multi_device_server(rng, num_docs, capacity, device=None, recorder
             if d % 16 == 15:
                 await asyncio.sleep(0)
         await asyncio.wait_for(clock.idle.wait(), 300)
-        await until_converged(what)
+        await h.until_converged(what)
 
     base = [{k: cell.plane.counters[k] for k in ("flush_fast_ops", "flush_slow_ops", "cpu_fallbacks")}
             for cell in cells]
     lane0 = [dict(lane.counters) for lane in lanes]
-    dense_fn.launches = sparse_fn.launches = 0
-    counting["on"] = True
+    counts.start()
     recording = recorder if recorder is not None else contextlib.nullcontext()
     rounds = {}
 
     async def watch_hydrations():
-        while counting["on"]:
-            note_hydrated()
+        while counts.on:
+            h.note_hydrated()
             await asyncio.sleep(0.005)
 
     watcher = asyncio.ensure_future(watch_hydrations())
-    with recording, counted_by_cell():
-        window["now"] = "round 1"
+    with recording, counts.counted():
+        h.window = "round 1"
         t0 = time.perf_counter()
         await edit_round("round 1")
         rounds["round 1"] = time.perf_counter() - t0
 
         # the skew: the mega doc's appends among one edit of every other doc
-        window["now"] = "skew"
+        h.window = "skew"
         mega = names[0]
         mega_cell = runtime.cell_index_for(mega)
         migrated0 = runtime.migration_stats["docs_migrated"]
@@ -3906,28 +4015,22 @@ async def run_multi_device_server(rng, num_docs, capacity, device=None, recorder
             inserted += 1
             await asyncio.sleep(0)
         await asyncio.wait_for(clock.idle.wait(), 300)
-        await until_converged("the skew round")
+        await h.until_converged("the skew round")
         skew_stats = runtime.cell_stats()
         deadline = time.perf_counter() + 30
         while runtime.migration_stats["docs_migrated"] == migrated0:
             check(time.perf_counter() < deadline,
                   f"{tag}: no doc migrated off the hot cell {mega_cell}: {runtime.migration_stats} "
                   f"work before {[s['work_units'] for s in stats_before]}, after {[s['work_units'] for s in skew_stats]}, "
-                  f"now {[s['work_units'] for s in runtime.cell_stats()]}; fallbacks {fallbacks[:4]}")
+                  f"now {[s['work_units'] for s in runtime.cell_stats()]}; fallbacks {h.fallbacks[:4]}")
             await asyncio.sleep(0.05)
-        deadline = time.perf_counter() + 60
-        while True:
-            note_hydrated()
-            if all(move["hydrated"] is not None for move in migrations):
-                break
-            check(time.perf_counter() < deadline, f"{tag}: a migrated doc never hydrated on its target")
-            await asyncio.sleep(0.005)
-        await until_converged("after the migrations")
+        await h.until_hydrated()
+        await h.until_converged("after the migrations")
         rounds["skew"] = time.perf_counter() - t0
 
         # the late cell: its canary sleeps past the deadline until the
         # breaker opens; a round runs while its docs are on the CPU path
-        window["now"] = "late"
+        h.window = "late"
         late = (mega_cell + 1) % MULTI_CELLS
         sup = ext.supervisor
         late_plane = cells[late].plane
@@ -3975,20 +4078,20 @@ async def run_multi_device_server(rng, num_docs, capacity, device=None, recorder
         check(all(b.state == "closed" for b in sup.cell_breakers), f"{tag}: a breaker is open after the restore")
         check(sup.state == STATE_READY, f"{tag}: the supervisor left READY: {sup.state}")
 
-        window["now"] = "last"
+        h.window = "last"
         t0 = time.perf_counter()
         await edit_round("last round")
         rounds["last round"] = time.perf_counter() - t0
-        joiners, joiner_joins = await join(names, 1)
+        joiners, joiner_joins = await h.join(names, 1)
         groups = {name: editors[name] + joiners[name] for name in names}
-        await until_converged("the joiners", groups)
-        await until_idle("the last round")
-        note_hydrated()
-    counting["on"] = False
+        await h.until_converged("the joiners", groups)
+        await h.until_idle("the last round")
+        h.note_hydrated()
+    counts.on = False
     await watcher
     check(all(not p.has_unsynced_changes for group in editors.values() for p in group),
           f"{tag}: an editor's edit was never acknowledged")
-    launches = {dense_name: dense_fn.launches, sparse_name: sparse_fn.launches}
+    launches = counts.wrapper_launches()
     k1_ops = [cell.plane.counters["flush_slow_ops"] - base[i]["flush_slow_ops"] for i, cell in enumerate(cells)]
     append_ops = [cell.plane.counters["flush_fast_ops"] - base[i]["flush_fast_ops"] for i, cell in enumerate(cells)]
     fallback_total = sum(cell.plane.counters["cpu_fallbacks"] - base[i]["cpu_fallbacks"]
@@ -3996,7 +4099,7 @@ async def run_multi_device_server(rng, num_docs, capacity, device=None, recorder
     migration_cpu = sum(cell.plane.residency_stats.get("migration_cpu_snapshots", 0) for cell in cells)
     attributed = collections.Counter()
     unattributed = []
-    for i, name, when, reason in fallbacks:
+    for i, name, when, _migrating, reason in h.fallbacks:
         if when == "late" and i == late:
             attributed["late_cell"] += 1
         elif name == mega and reason == "capacity":
@@ -4031,27 +4134,13 @@ async def run_multi_device_server(rng, num_docs, capacity, device=None, recorder
         gauge_mismatch.append(("hocuspocus_tpu_cell_hbm_bytes", "all", hbm_gauges, "one card's total"))
     # every doc served from a cell, its served bytes rebuilding it (the
     # mega doc where it outgrew its row: its CPU document, held above)
-    rebuilt = 0
-    served_by = collections.Counter()
-    for name in names:
-        document = core.documents[name]
-        if name == mega and attributed["mega_capacity"]:
-            continue
-        check(document.sync_source is not None, f"{tag}: {name} is not served by a cell: {fallbacks[-4:]}")
-        served = await document.sync_source.encode_state_as_update_async(None)
-        check(served is not None, f"{tag}: {name} was not served from its cell")
-        doc = Doc()
-        apply_update(doc, served)
-        check(encode_state_as_update(doc) == encode_state_as_update(document),
-              f"{tag}: {name}: served bytes rebuild another doc")
-        rebuilt += 1
-        served_by[runtime.cell_index_for(name)] += 1
+    rebuilt, served_by = await h.rebuild(names, skip={mega} if attributed["mega_capacity"] else ())
     lanes_out = []
     for i, lane in enumerate(lanes):
         lanes_out.append({k: lane.counters[k] - lane0[i].get(k, 0)
                           for k in ("admissions", "dispatches_in_lane", "dispatches_bypass", "deferrals")})
-    note_hydrated()
-    migration_s = [m["hydrated"] - m["started"] for m in migrations if m["hydrated"] is not None]
+    h.note_hydrated()
+    migrations = h.migrations
     out = {
         "ready_seconds": round(ready_seconds, 3),
         "setup_seconds": round(setup_seconds, 3),
@@ -4067,7 +4156,7 @@ async def run_multi_device_server(rng, num_docs, capacity, device=None, recorder
             "docs": len(migrations),
             "in_skew_round": sum(m["window"] == "skew" for m in migrations),
             "moves": [(m["doc"], m["src"], m["dst"]) for m in migrations[:16]],
-            "seconds": percentiles_ms(migration_s),
+            "seconds": h.migration_ms(),
             "stats": dict(runtime.migration_stats),
         },
         "late_cell": {
@@ -4079,12 +4168,9 @@ async def run_multi_device_server(rng, num_docs, capacity, device=None, recorder
         "supervisor": {"state": ext.supervisor.state, "counters": dict(ext.supervisor.counters)},
         "cpu_fallbacks": {"total": fallback_total, **attributed, "unattributed": unattributed[:8],
                           "unattributed_count": len(unattributed)},
-        "client_closes": dict(closes),
+        "client_closes": dict(h.closes),
         "integrate_launches": launches,
-        "cell_launches": {str(i): flush_launches[i] for i in range(MULTI_CELLS)},
-        "canary_launches": {str(i): canary_launches[i] for i in range(MULTI_CELLS)},
-        "launches_outside_flush": flush_launches[None],
-        "cell_flushes": {str(i): flushes[i] for i in range(MULTI_CELLS)},
+        **counts.by_cell(MULTI_CELLS),
         "k1_ops": {str(i): k1_ops[i] for i in range(MULTI_CELLS)},
         "append_ops": {str(i): append_ops[i] for i in range(MULTI_CELLS)},
         "lanes": lanes_out,
@@ -4101,10 +4187,7 @@ async def run_multi_device_server(rng, num_docs, capacity, device=None, recorder
             "docs_hydrated", "docs_compacted", "plane_broadcasts", "sync_serves",
             "flush_fast_ops", "flush_slow_ops")} for cell in cells],
     }
-    for group in list(editors.values()) + list(joiners.values()):
-        for p in group:
-            p.destroy()
-            p.websocket_provider.destroy()
+    h.destroy(editors, joiners)
     await asyncio.sleep(0)
     await core.hooks("on_destroy", Payload(instance=core))
     return out
@@ -4186,6 +4269,594 @@ def check_multi_device(out, num_docs, cuts, on_card) -> int:
     check(not out["gauge_mismatch"], f"{tag}: /metrics cell gauges differ from the books: {out['gauge_mismatch']}")
     expected = num_docs - (1 if fallbacks.get("mega_capacity") else 0)
     check(out["rebuilt"] == expected, f"{tag}: {out['rebuilt']} of {expected} docs rebuilt from their cells")
+    return launches
+
+
+# -- the fleet autoscaler over per-device cells (--fleet-autoscale) ----------
+
+FLEET_DOCS = 1024
+FLEET_CELLS = 4
+FLEET_SPARES = 2
+# a cell's rows: 1,024 docs on 2 active cells read occupancy 0.25 / 0.85 =
+# 0.29, under the down threshold; on 1 cell 0.59, over the projection
+# guard's 0.55, so the controller's floor is 2 cells
+FLEET_ROWS = 2048
+FLEET_EDITORS = 2
+FLEET_JOIN_CHUNK = 64
+# diurnal_autoscale's day (hocuspocus_tpu/loadgen/scenarios.py:730-800):
+# each phase's share of the peak edit rate
+FLEET_DIURNAL = (("trough", 1 / 8), ("ramp_up", 1 / 2), ("peak", 1.0), ("ramp_down", 1 / 4),
+                 ("night", 1 / 8))
+# edits a second at the peak, spread over every open doc: the highest of
+# 512, 448 and 384 at which the overload ladder held GREEN through the
+# peak on an H100 machine (FLEET_CUTS["day"])
+FLEET_PEAK_RATE = 384.0
+FLEET_PHASE_S = 8.0
+FLEET_NIGHT_MAX_S = 60.0  # night runs until the scale-down parked its cell, at most this
+# the peak runs until every cell active in it has integrated ops through
+# K1 (a spare activated late in it has had fresh docs to serve), at most this
+FLEET_PEAK_MAX_S = 20.0
+# daytime sessions that open new docs: this many docs a second, each with
+# FLEET_EDITORS editors and a first word, through these phases; placement
+# sends about 1/N of them to each active cell, so an activated spare loads
+FLEET_FRESH_RATE = 16.0
+FLEET_FRESH_PHASES = ("ramp_up", "peak")
+# dispatched insert units a second that read as one loaded cell: the peak
+# must read at least 1.0 a cell on 2 active cells, the trough under 0.35
+# on 3 (derivation in FLEET_CUTS["work_target"])
+FLEET_WORK_TARGET = 550.0
+# the CLI's --fleet-* flags at a smoke cadence, cooldown 3 ticks; the
+# floor at 2 cells (FLEET_CUTS["min_cells"])
+FLEET_CONTROLLER = {"interval_s": 0.5, "hold_ticks": 2, "cooldown_ticks": 3, "min_cells": 2,
+                    "warm_spares": FLEET_SPARES, "up_threshold": 0.75, "down_threshold": 0.35}
+# the controller's holds that end a night: its signal settled, no streak
+# or cooldown running
+FLEET_SETTLED = ("survivors_too_hot", "at_min_cells", "in_band")
+# diurnal_autoscale's slow rebalancer sweep
+FLEET_REBALANCE = {"rebalance_interval_s": 1.0, "rebalance_ratio": 2.0, "rebalance_min_units": 256.0}
+FLEET_SUPERVISOR = {**SUPERVISOR_DEFAULTS, "init_timeout": 60.0}
+# the interval at which the phase moves the collector's survivors to its
+# permanent generation (run_fleet_server)
+FLEET_FREEZE_S = 1.0
+FLEET_CUTS = {
+    "docs": "1k docs as config 2, 2 editors a doc (10 clients in config 2), joined 64 docs at a time; "
+            "16 more docs a second opened through ramp_up and the peak",
+    "devices": "4 cells wrapped onto the one card the machine has, each with its own lane",
+    "cadence": "the CLI's --fleet-interval 2 s cut to 0.5 s, --fleet-hold-ticks 3 to 2; the tick "
+               "loop runs from listen, as the CLI's does",
+    "min_cells": "--fleet-min-cells 2, the loaded floor (1,024 docs on 1 cell read 0.59, over the "
+                 "projection guard): with 1 the loop parked cell 0 over the empty fleet at boot, "
+                 "every doc loaded onto one cell, and its lane depth held the ladder at BROWNOUT-1/2 "
+                 "through the peak at 512, 384 and 256 edits/s, which parks the controller",
+    "day": "diurnal_autoscale's five phases, 8 s each (the peak until every cell active in it has "
+           "integrated ops through K1, at most 20 s; night until the scale-down parked, at most "
+           "60 s), at 1/8, 1/2, 1, 1/4, 1/8 of a peak cut from 512 to 384 edits/s: at 512 and 448 "
+           "the overload ladder left GREEN for BROWNOUT-1 on lane_depth (8 waiters over the "
+           "active cells' lanes, a flush and a sync serve each) and parked the controller",
+    "work_target": "550 insert units/s a cell: the peak's config 2 edits dispatched 2.93 units "
+                   "each on the card, so the 384/s peak reads 1.02 a cell on 2 active cells and the "
+                   "48/s trough (3.66 units an edit) 0.11 a cell on 3",
+    "gc": "the 2,560 clients live in the server's process: the earlier phases' garbage is collected "
+          "before the ladder samples, then every 1 s the survivors move to the collector's permanent "
+          "generation (gc.freeze), so a full collection walks the last second's objects, not every "
+          "client's document; automatic collection stays on",
+}
+
+
+async def run_fleet_server(rng, num_docs, capacity, device=None, recorder=None, rows=FLEET_ROWS,
+                           chunk=FLEET_JOIN_CHUNK, peak_rate=FLEET_PEAK_RATE, phase_s=FLEET_PHASE_S,
+                           night_max_s=FLEET_NIGHT_MAX_S, work_target=FLEET_WORK_TARGET,
+                           fresh_rate=FLEET_FRESH_RATE, peak_max_s=FLEET_PEAK_MAX_S):
+    """The CLI's `--tpu-serve --tpu-devices 4 --fleet-autoscale
+    --fleet-warm-spares 2 --metrics` deployment in process: the port's
+    core with `Metrics`, `OverloadExtension` (the CLI's default ladder),
+    `SupervisedTpuMergeExtension(devices=4)` (no `device`: the card; unit
+    arena, `rows` rows a cell) and `FleetControllerExtension` at
+    FLEET_CONTROLLER's cadence, its tick loop started by the core's
+    `on_listen` as the CLI's is; the rebalancer at diurnal_autoscale's
+    slow sweep.
+
+    The controller boots with the last two cells parked. Each doc has
+    FLEET_EDITORS editors, joined `chunk` docs at a time, and starts with
+    one word. Then diurnal_autoscale's day: each phase paces config 2's
+    edits at its share of `peak_rate` over random open docs for `phase_s`
+    seconds (the peak until every cell active in it has integrated ops
+    through K1, at most `peak_max_s`; night until a scale-down of
+    ramp_down or night parked its cell and the controller holds
+    settled, at most `night_max_s`), every
+    insert timed to the doc's other editor, every doc converged after the
+    phase. Through ramp_up and the peak fresh sessions open
+    `fresh_rate` new docs a second, each with its editors and a first
+    word, which placement spreads over the active cells, an activated
+    spare among them. Then a fresh joiner a doc. From the first phase on
+    each K1 launch is counted under the cell whose flush or canary made
+    it (CellLaunches); every decision is logged with the ladder's rung at
+    its tick, every actuation timed from the decision to the cell parked
+    or active with the migrations it made, every migration from its
+    start to the doc hydrated on its target; each CPU fallback is
+    attributed to a migration or not; every 0.1 s the active cells, the
+    rung and the docs of each cell are sampled. Returns the phase's
+    numbers."""
+    from hocuspocus_tpu_torch.fleet import FleetControllerExtension
+    from hocuspocus_tpu_torch.observability import Metrics, get_profiler
+    from hocuspocus_tpu_torch.server import Configuration, Hocuspocus
+    from hocuspocus_tpu_torch.server.overload import RUNG_NAMES, OverloadExtension, get_overload_controller
+    from hocuspocus_tpu_torch.server.types import Payload
+    from hocuspocus_tpu_torch.tpu import SupervisedTpuMergeExtension
+    from hocuspocus_tpu_torch.tpu.scheduler import CLASS_CANARY, reset_device_lane
+    from hocuspocus_tpu_torch.tpu.supervisor import STATE_INITIALIZING, STATE_READY
+
+    tag = "fleet_server"
+    reset_device_lane()
+    overload = get_overload_controller()
+    overload.reset()
+    # The harness's clients live in the server's process (a deployment's
+    # clients are browsers), and a gen-2 collection that walks their
+    # documents paused the loop for 0.1-0.5 s on an H100 machine's host:
+    # the ladder reads each pause as loop lag and leaves GREEN, which
+    # parks the controller, and one full collection of an earlier phase's
+    # garbage during the joins took it to RED, which refuses the joins.
+    # So the earlier phases' garbage is collected here, before the ladder
+    # samples, and from here on the sampler moves what survives to the
+    # collector's permanent generation every FLEET_FREEZE_S (gc.freeze):
+    # automatic collection stays on, and a full collection walks what the
+    # last interval made instead of every client's document. Each phase's
+    # collections and rungs are reported.
+    gc.collect()
+    gc.freeze()
+    started = time.perf_counter()
+    ext = SupervisedTpuMergeExtension(
+        devices=FLEET_CELLS, num_docs=rows, capacity=capacity, serve=True, arena="unit",
+        **FLEET_SUPERVISOR, **FLEET_REBALANCE,
+        **({} if device is None else {"device": device}),
+    )
+    profiler = get_profiler().configure(hz=PROFILE_HZ)
+    metrics = Metrics(**METRICS_DEFAULTS)
+    fleet = FleetControllerExtension(**FLEET_CONTROLLER, work_target=work_target)
+    core = Hocuspocus(Configuration(quiet=True, extensions=[
+        metrics, OverloadExtension(hold_s=2.0, retry_after_s=1.0), ext, fleet,
+    ]))
+    # every decision but a hold, with the ladder's rung at its tick; every
+    # actuation from its decision to the cell active or parked. Installed
+    # before listen starts the tick loop: each tick reads these attributes
+    h = None
+    window = lambda: "boot" if h is None else h.window  # noqa: E731
+    decisions, rung_ticks, actuations = [], collections.Counter(), []
+    real_tick = fleet.tick_once
+
+    async def logged_tick(cells_in=None):
+        rung = RUNG_NAMES[overload.rung]
+        decision = await real_tick(cells_in)
+        rung_ticks[rung] += 1
+        if decision.get("action") != "hold":
+            decisions.append({**decision, "rung": rung, "phase": window(),
+                              "t_s": round(time.perf_counter() - started, 3)})
+        return decision
+
+    fleet.tick_once = logged_tick
+    for action in ("scale_up", "scale_down"):
+        real_do = getattr(fleet, f"_do_{action}")
+
+        async def timed_do(index, real_do=real_do, action=action):
+            t0 = time.perf_counter()
+            first_move = len(h.migrations) if h is not None else 0
+            await real_do(index)
+            cell = ext.runtime.cells[index]
+            entry = {"action": action, "cell": index, "phase": window(),
+                     "seconds": round(time.perf_counter() - t0, 3),
+                     "moves": list(range(first_move, len(h.migrations) if h is not None else 0)),
+                     "docs_left": len(cell._docs)}
+            if action == "scale_down":
+                # the parked cell's lane admissions from here on
+                entry["admissions"] = list(cell.lane.class_admissions)
+            actuations.append(entry)
+
+        setattr(fleet, f"_do_{action}", timed_do)
+    await core.ensure_configured()
+    await core.hooks("on_listen", Payload(instance=core, configuration=core.configuration, port=None))
+    deadline = time.perf_counter() + 180
+    while ext.supervisor.state != STATE_READY:
+        check(ext.supervisor.state == STATE_INITIALIZING,
+              f"{tag}: the supervisor is {ext.supervisor.state}: {ext.health_status()}")
+        check(time.perf_counter() < deadline, f"{tag}: the cells never attached")
+        await asyncio.sleep(0.02)
+    runtime = ext.runtime
+    cells = runtime.cells
+    check(len(cells) == FLEET_CELLS, f"{tag}: {len(cells)} cells")
+    # the controller adopts the supervised runtime at its first read and
+    # parks the warm spares then, before any doc loads; the first scaling
+    # decision needs two ticks after that
+    h = CellHarness(tag, core, runtime, chunk)
+    check(fleet.plane is runtime, f"{tag}: the controller did not adopt the cell plane")
+    boot = {"timeline": [dict(entry) for entry in fleet.timeline]}
+    counts = CellLaunches(cells, recorder)
+    spares = list(range(FLEET_CELLS - FLEET_SPARES, FLEET_CELLS))
+
+    # samples every 0.1 s, by window: active cells, the ladder's rung, the
+    # docs each cell serves, and any parked cell that holds docs
+    samples = collections.defaultdict(lambda: {"active": [], "rungs": collections.Counter(),
+                                               "docs": [], "healthy": set(), "queued": (0, {})})
+    parked_with_docs = []
+    sampling = asyncio.Event()
+
+    async def sample():
+        ticks = 0
+        while not sampling.is_set():
+            ticks += 1
+            if ticks % round(FLEET_FREEZE_S / 0.1) == 0:
+                gc.freeze()
+            bucket = samples[h.window]
+            healthy = set(runtime.placement.healthy)
+            docs = [len(cell._docs) for cell in cells]
+            bucket["active"].append(len(healthy))
+            bucket["rungs"][RUNG_NAMES[overload.rung]] += 1
+            bucket["docs"].append(docs)
+            bucket["healthy"] |= healthy
+            # the lanes' waiters (the ladder's lane_depth), by site: the
+            # phase keeps its deepest sample
+            queued = collections.Counter(f"{i}:{w.site}" for i, cell in enumerate(cells)
+                                         for w in list(cell.lane._waiters))
+            if sum(queued.values()) > bucket["queued"][0]:
+                bucket["queued"] = (sum(queued.values()), dict(queued))
+            parked_with_docs.extend((h.window, i, docs[i]) for i in range(FLEET_CELLS)
+                                    if i not in healthy and docs[i] and not h.migrating)
+            h.note_hydrated()
+            await asyncio.sleep(0.1)
+
+    sampler = asyncio.ensure_future(sample())
+    for cell in cells:
+        await cell.warmup_task
+        check(cell.plane.compile_watch.warmed, f"{tag}: a cell's warm grid did not finish")
+    ready_seconds = time.perf_counter() - started
+    names = [f"fleet-{i}" for i in range(num_docs)]
+    editors, editor_joins = await h.join(names, FLEET_EDITORS)
+    h.editors = editors
+    boot["docs_on_spares"] = sum(len(cells[i]._docs) for i in spares if i not in runtime.placement.healthy)
+    await h.first_words(names)
+    setup_seconds = time.perf_counter() - started
+
+    def peak_done() -> bool:
+        for i in samples["peak"]["healthy"]:
+            if cells[i].plane.counters["flush_slow_ops"] == base[i]["flush_slow_ops"]:
+                return False
+            if cells[i].plane.device.type == "cuda" and not counts.flush_launches[i]:
+                return False
+        return True
+
+    def night_done() -> bool:
+        downs = [a for a in actuations if a["action"] == "scale_down"
+                 and a["phase"] in ("ramp_down", "night")]
+        last = fleet.controller.last_decision or {}
+        return bool(downs) and downs[-1]["cell"] not in runtime.placement.healthy and (
+            last.get("action") == "hold" and last.get("reason") in FLEET_SETTLED)
+
+    clocks, phases = {}, []
+    base = [{k: cell.plane.counters[k] for k in ("flush_fast_ops", "flush_slow_ops", "cpu_fallbacks")}
+            for cell in cells]
+    lane0 = [dict(cell.lane.counters) for cell in cells]
+    # the loop's stalls: each loop-lag sample the ladder reads at 60 ms or
+    # more (its BROWNOUT-1 threshold), each collection's pause, and the
+    # loop thread's sampled stacks a phase
+    lags = []
+    started_day = time.perf_counter()
+
+    def note_lag(lag_ms):
+        if lag_ms >= 60.0:
+            lags.append((round(time.perf_counter() - started_day, 3), h.window, round(lag_ms, 1)))
+
+    overload.on_loop_lag.append(note_lag)
+    seams = HostSeams()
+    gc.callbacks.append(seams.collected)
+    profiles = {}
+    profiler.reset()
+    counts.start()
+    recording = recorder if recorder is not None else contextlib.nullcontext()
+    live = list(names)  # the docs the day edits: the first 1,024 and each fresh one once it has its word
+    fresh_names, fresh_joins, openings = [], [], []
+
+    current = {}  # the running phase's EditClock
+
+    async def open_fresh(batch) -> None:
+        """Fresh sessions: `batch` new docs with their editors, each given
+        a first word once synced (timed on the phase running then), then
+        edited with the rest. The day does not wait for them: a join
+        still open at a phase's end carries into the next."""
+        group_by_doc, waits = await h.join(batch, FLEET_EDITORS)
+        fresh_joins.extend(waits)
+        clock = current["clock"]
+        for d, name in enumerate(batch):
+            group = group_by_doc[name]
+            for p in group:
+                clock.watch(p)
+            editors[name] = group
+            group[0].document.get_text("t").insert(0, WORDS[d % len(WORDS)])
+            clock.expect(group[1], group[0])
+            live.append(name)
+
+    with recording, counts.counted():
+        for phase, share in FLEET_DIURNAL:
+            h.window = phase
+            rate = peak_rate * share
+            clock = current["clock"] = clocks[phase] = EditClock(asyncio.Event())
+            for group in editors.values():
+                for p in group:
+                    clock.watch(p)
+            units0 = [cell.plane.dispatched_total for cell in cells]
+            t0 = time.perf_counter()
+            sent = inserts = opened = 0
+            behind_s = 0.0
+            while True:
+                elapsed = time.perf_counter() - t0
+                if elapsed >= phase_s and (
+                        (phase == "peak" and (peak_done() or elapsed >= peak_max_s))
+                        or (phase == "night" and (night_done() or elapsed >= night_max_s))
+                        or phase not in ("peak", "night")):
+                    break
+                if phase in FLEET_FRESH_PHASES:
+                    batch = [f"fleet-day-{len(fresh_names) + j}"
+                             for j in range(int(elapsed * fresh_rate) + 1 - opened)]
+                    if batch:
+                        fresh_names.extend(batch)
+                        opened += len(batch)
+                        openings.append(asyncio.ensure_future(open_fresh(batch)))
+                due = int(elapsed * rate) + 1
+                behind_s = max(behind_s, (due - sent - 1) / rate)
+                while sent < due:
+                    name = live[int(rng.integers(0, len(live)))]
+                    k = int(rng.integers(0, FLEET_EDITORS))
+                    group = editors[name]
+                    if _server_edit(rng, group[k].document.get_text("t")):
+                        clock.expect(group[(k + 1) % len(group)], group[k])
+                        inserts += 1
+                    sent += 1
+                await asyncio.sleep(max(0.0, min((sent / rate) - (time.perf_counter() - t0), 0.05)))
+            seconds = time.perf_counter() - t0
+            profiles[phase] = profile_tops(profiler.collapsed(), roots=("MainThread",))["MainThread"]
+            phase_gc = seams.summary()
+            seams.reset()
+            profiler.reset()
+            units = [cell.plane.dispatched_total - units0[i] for i, cell in enumerate(cells)]
+            await asyncio.wait_for(clock.idle.wait(), 300)
+            await h.until_converged(f"after {phase}")
+            bucket = samples[phase]
+            phases.append({
+                "phase": phase, "rate": rate, "seconds": round(seconds, 3), "edits": sent,
+                "inserts": inserts, "kept_rate": round(sent / seconds, 1),
+                "behind_ms_max": round(behind_s * 1e3, 1), "units": units,
+                "units_per_edit": round(sum(units) / max(sent, 1), 3),
+                "docs_opened": opened,
+                "active_mean": round(float(np.mean(bucket["active"])), 3) if bucket["active"] else None,
+                "active_cells": sorted(bucket["healthy"]),
+                "rungs": dict(bucket["rungs"]),
+                "lane_waiters_max": {"total": bucket["queued"][0], "by_cell_site": bucket["queued"][1]},
+                "docs_max": [max(d[i] for d in bucket["docs"]) for i in range(FLEET_CELLS)]
+                if bucket["docs"] else None,
+                "gc": phase_gc,
+                "loop_lags": sum(1 for lag in lags if lag[1] == phase),
+            })
+        await asyncio.gather(*openings)
+        await h.until_converged("the fresh sessions")
+        h.window = "joiners"
+        all_names = names + fresh_names
+        joiners, joiner_joins = await h.join(all_names, 1)
+        groups = {name: editors[name] + joiners[name] for name in all_names}
+        await h.until_converged("the joiners", groups)
+        await h.until_idle("the joiners")
+        await h.until_hydrated()
+    counts.on = False
+    sampling.set()
+    await sampler
+    gc.callbacks.remove(seams.collected)
+    overload.on_loop_lag.remove(note_lag)
+    check(all(not p.has_unsynced_changes for group in editors.values() for p in group),
+          f"{tag}: an editor's edit was never acknowledged")
+    launches = counts.wrapper_launches()
+    k1_ops = [cell.plane.counters["flush_slow_ops"] - base[i]["flush_slow_ops"] for i, cell in enumerate(cells)]
+    append_ops = [cell.plane.counters["flush_fast_ops"] - base[i]["flush_fast_ops"] for i, cell in enumerate(cells)]
+    fallback_total = sum(cell.plane.counters["cpu_fallbacks"] - base[i]["cpu_fallbacks"]
+                         for i, cell in enumerate(cells))
+    migration_cpu = sum(cell.plane.residency_stats.get("migration_cpu_snapshots", 0) for cell in cells)
+    in_migration = sum(1 for f in h.fallbacks if f[3])
+    outside = [f[:3] for f in h.fallbacks if not f[3]]
+    # each cell parked at the end, its lane after its last park: canaries only
+    parked_lanes = []
+    last_parks = {a["cell"]: a for a in actuations if a["action"] == "scale_down"}
+    for entry in last_parks.values():
+        if entry["cell"] not in runtime.placement.healthy:
+            now = list(cells[entry["cell"]].lane.class_admissions)
+            grown = [now[c] - entry["admissions"][c] for c in range(len(now)) if c != CLASS_CANARY]
+            parked_lanes.append({"cell": entry["cell"], "admitted_after_park": sum(grown),
+                                 "canaries_after_park": now[CLASS_CANARY] - entry["admissions"][CLASS_CANARY],
+                                 "docs": len(cells[entry["cell"]]._docs)})
+    # /debug/fleet and the autoscale families against the controller's
+    # own status, all read between two of its ticks
+    for _attempt in range(20):
+        status = json.loads(json.dumps(fleet.status()))
+        code, body = await scrape(metrics, "/debug/fleet")
+        check(code == 200, f"{tag}: /debug/fleet answered {code}")
+        view = json.loads(body).get("autoscale")
+        code, text = await scrape(metrics, "/metrics")
+        check(code == 200, f"{tag}: /metrics answered {code}")
+        if json.loads(json.dumps(fleet.status())) == status:
+            break
+    series = parse_prometheus(text, f"{tag} /metrics")
+    counters = status["counters"]
+    expected = {
+        ("hocuspocus_fleet_autoscale_active_cells", ()): float(len(status["roster"]["active"])),
+        ("hocuspocus_fleet_autoscale_parked", ()): 1.0 if status["parked"] else 0.0,
+        ("hocuspocus_fleet_autoscale_signal", ()): float(status["signal"] or 0.0),
+        ("hocuspocus_fleet_autoscale_migrations_total", ()): float(status["actuation"]["docs_migrated"]),
+        ("hocuspocus_fleet_autoscale_decisions_total", (("action", "scale_up"),)): float(counters["scale_ups"]),
+        ("hocuspocus_fleet_autoscale_decisions_total", (("action", "scale_down"),)): float(counters["scale_downs"]),
+    }
+    gauge_mismatch = []
+    for key, want in expected.items():
+        got = series.get(key, 0.0 if key[0].endswith("_total") else None)
+        if got is None or (round(got, 4) if "signal" in key[0] else got) != want:
+            gauge_mismatch.append((key, got, want))
+    view_matches = view == status
+    # every doc served from a cell, its served bytes rebuilding it
+    rebuilt, served_by = await h.rebuild(all_names)
+    lanes_out = [{k: cell.lane.counters[k] - lane0[i].get(k, 0)
+                  for k in ("admissions", "dispatches_in_lane", "dispatches_bypass", "deferrals")}
+                 for i, cell in enumerate(cells)]
+    night = next(p for p in phases if p["phase"] == "night")
+    out = {
+        "ready_seconds": round(ready_seconds, 3),
+        "setup_seconds": round(setup_seconds, 3),
+        "seconds": round(time.perf_counter() - started, 3),
+        "boot": boot,
+        "spares": spares,
+        "docs_total": len(all_names),
+        "phases": phases,
+        "edit_observe": {k: percentiles_ms(c.samples) for k, c in clocks.items()},
+        "join_synced_editors": percentiles_ms(editor_joins),
+        "join_synced_fresh": percentiles_ms(fresh_joins),
+        "join_synced_joiners": percentiles_ms(joiner_joins),
+        "decisions": decisions,
+        "rung_ticks": dict(rung_ticks),
+        "left_green": [{"phase": p["phase"], "rate": p["rate"],
+                        "rungs": {r: n for r, n in p["rungs"].items() if r != "green"}}
+                       for p in phases if set(p["rungs"]) - {"green"}],
+        "loop_lags": lags[:40],
+        "loop_lags_count": len(lags),
+        "loop_profile": profiles,
+        "actuations": [{k: v for k, v in a.items() if k not in ("moves", "admissions")}
+                       | {"docs_migrated": len(a["moves"]), "evict_hydrated": h.migration_ms(a["moves"])}
+                       for a in actuations],
+        "migrations": {"docs": len(h.migrations),
+                       "by_window": dict(collections.Counter(m["window"] for m in h.migrations)),
+                       "evict_hydrated": h.migration_ms(), "stats": dict(runtime.migration_stats)},
+        "parked_lanes": parked_lanes,
+        "parked_with_docs": parked_with_docs[:8],
+        "parked_with_docs_count": len(parked_with_docs),
+        "timeline": list(status["timeline"]),
+        "controller": {k: status[k] for k in ("counters", "actuation", "thresholds", "bounds", "signal")},
+        "footprint_ratio": None if night["active_mean"] is None else round(night["active_mean"] / FLEET_CELLS, 4),
+        "peak_active": sorted(samples["peak"]["healthy"]),
+        "supervisor": {"state": ext.supervisor.state, "counters": dict(ext.supervisor.counters)},
+        "cpu_fallbacks": {"total": fallback_total, "in_migrations": in_migration,
+                          "migration_snapshots": migration_cpu, "outside": outside[:8],
+                          "outside_count": len(outside)},
+        "client_closes": dict(h.closes),
+        "integrate_launches": launches,
+        **counts.by_cell(FLEET_CELLS),
+        "k1_ops": {str(i): k1_ops[i] for i in range(FLEET_CELLS)},
+        "append_ops": {str(i): append_ops[i] for i in range(FLEET_CELLS)},
+        "lanes": lanes_out,
+        "gauge_mismatch": gauge_mismatch,
+        "debug_fleet_matches": view_matches,
+        "rebuilt": rebuilt,
+        "served_by_cell": {str(i): served_by[i] for i in range(FLEET_CELLS)},
+        "counters": [{k: cell.plane.counters[k] for k in (
+            "cpu_fallbacks", "docs_retired_capacity", "docs_evicted", "docs_hydrated",
+            "plane_broadcasts", "sync_serves", "flush_fast_ops", "flush_slow_ops")} for cell in cells],
+    }
+    h.destroy(editors, joiners)
+    await asyncio.sleep(0)
+    await core.hooks("on_destroy", Payload(instance=core))
+    profiler.stop()
+    overload.reset()
+    gc.unfreeze()
+    gc.collect()
+    return out
+
+
+def phase_fleet_server(rng, num_docs, capacity, cuts):
+    """The fleet autoscaler on the card (run_fleet_server) with its checks
+    (check_fleet), then cell 0's biggest integrate batch replayed through
+    the kernel and the plain version. Returns (launches, max_abs_err)."""
+    from hocuspocus_tpu_torch.tpu import merge_plane as mp
+
+    recorder = Recorder(mp, *ARENAS["unit"]["wrap"])
+    recorder.cell = 0
+    out = asyncio.run(run_fleet_server(rng, num_docs, capacity, recorder=recorder))
+    launches = check_fleet(out, num_docs, cuts, on_card=True)
+    err = phase_served_replay(recorder.best, "unit", path="fleet_server")
+    recorder.best = recorder.before = None
+    return launches, err
+
+
+def check_fleet(out, num_docs, cuts, on_card) -> int:
+    """The fleet_server phase's line and gates: the controller booted with
+    the two warm spares parked, no doc placed on them, and no parked cell
+    held a doc at any sample outside a migration; a scale-up in ramp_up or
+    peak; a scale-down in ramp_down or night that migrated docs off its
+    cell under the edits, and the last such cell parked at the end,
+    holding no doc, its lane admitting only canaries after the park; no
+    scaling decision off GREEN and every park naming its rung; nothing
+    acknowledged lost (the phase converged every doc after each phase and
+    held every editor acknowledged), no client-visible close; K1
+    launched with ops of its own on every cell active in the peak, each
+    launch counted under its cell, none outside, the cells' counts adding
+    up to the wrapper's; no CPU fallback outside a migration; /debug/fleet
+    and the autoscale families equal to the controller's status; every
+    doc rebuilt from its served bytes. On the CPU (`on_card` False) no
+    launch is counted. Returns the wrapper's launches."""
+    tag = "fleet_server"
+    launches = sum(out["integrate_launches"].values())
+    emit(
+        tag,
+        gpu=nvidia_smi_line() if on_card else None,
+        config="BASELINE config 2's Y.Text edits through the CLI's --tpu-serve --tpu-devices 4 "
+               "--fleet-autoscale --fleet-warm-spares 2 deployment, diurnal_autoscale's day",
+        arena="unit",
+        docs=num_docs,
+        cells=FLEET_CELLS,
+        rows=FLEET_ROWS,
+        controller_flags=FLEET_CONTROLLER,
+        rebalance=FLEET_REBALANCE,
+        cuts=cuts,
+        **out,
+    )
+    boot = out["boot"]["timeline"]
+    check(boot and boot[0]["action"] == "boot" and boot[0]["active"] == [0, 1],
+          f"{tag}: the controller did not boot with cells 2 and 3 parked: {out['boot']}")
+    check(out["boot"]["docs_on_spares"] == 0, f"{tag}: docs placed on the warm spares: {out['boot']}")
+    check(out["parked_with_docs_count"] == 0, f"{tag}: parked cells held docs: {out['parked_with_docs']}")
+    actions = [(a["action"], a["phase"]) for a in out["actuations"]]
+    check(any(a == "scale_up" and p in ("ramp_up", "peak") for a, p in actions),
+          f"{tag}: no scale-up in ramp_up or peak: {out['decisions']}")
+    late_downs = [a for a in out["actuations"] if a["action"] == "scale_down" and a["phase"] in ("ramp_down", "night")]
+    check(late_downs, f"{tag}: no scale-down in ramp_down or night: {out['decisions']}")
+    check(any(a["docs_migrated"] > 0 for a in late_downs),
+          f"{tag}: no scale-down in ramp_down or night migrated a doc: {late_downs}")
+    parked = {lane["cell"]: lane for lane in out["parked_lanes"]}
+    check(late_downs[-1]["cell"] in parked,
+          f"{tag}: the last scale-down's cell is not parked at the end: {out['actuations']}")
+    lane = parked[late_downs[-1]["cell"]]
+    check(lane["docs"] == 0, f"{tag}: the parked cell still holds {lane['docs']} docs")
+    for lane in out["parked_lanes"]:
+        check(lane["admitted_after_park"] == 0,
+              f"{tag}: parked cell {lane['cell']}'s lane admitted work after the park: {lane}")
+    for decision in out["decisions"]:
+        if decision["action"] in ("scale_up", "scale_down"):
+            check(decision["rung"] == "green", f"{tag}: a scaling decision off GREEN: {decision}")
+        if decision["action"] == "park":
+            check(decision["reason"] == f"brownout:{decision['rung']}",
+                  f"{tag}: a park does not name the ladder's rung: {decision}")
+    check(not out["client_closes"], f"{tag}: client-visible closes: {out['client_closes']}")
+    for i in map(str, out["peak_active"]):
+        check(out["k1_ops"][i] > 0, f"{tag}: no op integrated through K1 on cell {i}")
+        if on_card:
+            check(out["cell_launches"][i] > 0, f"{tag}: K1 never launched in cell {i}'s flushes")
+    for i, lane in enumerate(out["lanes"]):
+        check(lane["dispatches_bypass"] == 0, f"{tag}: cell {i}'s dispatches bypassed its lane")
+    check(out["launches_outside_flush"] == 0,
+          f"{tag}: {out['launches_outside_flush']} K1 launches outside every cell's flush and canary")
+    check(sum(out["cell_launches"].values()) + sum(out["canary_launches"].values()) == launches,
+          f"{tag}: the cells' launches {out['cell_launches']} + canaries {out['canary_launches']} "
+          f"do not add up to the wrappers' {launches}")
+    if on_card:
+        check(launches > 0, f"{tag}: K1 never launched from the cells")
+    check(out["cpu_fallbacks"]["outside_count"] == 0,
+          f"{tag}: CPU fallbacks outside the migrations: {out['cpu_fallbacks']}")
+    check(not out["gauge_mismatch"], f"{tag}: the autoscale families differ from status(): {out['gauge_mismatch']}")
+    check(out["debug_fleet_matches"], f"{tag}: /debug/fleet's autoscale section differs from status()")
+    check(out["docs_total"] >= num_docs and out["rebuilt"] == out["docs_total"],
+          f"{tag}: {out['rebuilt']} of {out['docs_total']} docs rebuilt from their cells")
+    check(out["supervisor"]["state"] == "ready", f"{tag}: the supervisor ended {out['supervisor']['state']}")
+    check(out["controller"]["actuation"]["failures"] == 0, f"{tag}: actuations failed: {out['controller']}")
     return launches
 
 
@@ -5064,6 +5735,7 @@ LOADGEN_HASHES = {
     ("edge_handoff", None): "04a7e2616a26fd07da5ccf943569bc7568aace596d32d91138276e29f37a48ab",
     ("multi_device_storm", None): "e52390f0efbb491c3268e5ed52151036cb11a2e6c1ac0bf218265cabc9fdb99b",
     ("mega_audience", None): "4b6cfc8bf10bbfbabe44dc74bc73877a323ebc7ab80d7f8107913381661d7f0f",
+    ("diurnal_autoscale", None): "197b784d9577015b04511590db91a16084846b23b8de66b735a9ae88822c37d0",
 }
 # the edge scenarios, at their published defaults (2 edges, 2 cells, each
 # cell's plane on the card), gated
@@ -5075,6 +5747,10 @@ LOADGEN_AUDIENCE_SCENARIOS = ("mega_audience",)
 # per-device merge cells at multi_device_storm's published defaults: 24
 # docs, 2 instances of 4 cells, so 8 cells in one process on one card
 LOADGEN_MULTI_SCENARIOS = ("multi_device_storm",)
+# diurnal_autoscale at its defaults: one instance of four cells under the
+# fleet controller; verdict, footprint ratio, convergence and every
+# acknowledged edit gated
+LOADGEN_AUTOSCALE_SCENARIOS = ("diurnal_autoscale",)
 LOADGEN_ACK_S = 120.0  # acknowledged edits must be observed on the other instance within this
 LOADGEN_READERS_PER_CHUNK = 64  # fresh readers joining the other instance at once
 LOADGEN_CUTS = {"docs": "replication_lag's 16 docs widened to 1,024 (its other parameters as published)"}
@@ -5484,8 +6160,27 @@ def acked_runner(schedule, device):
                         # writers and sampled readers, on different edges
                         self.convergence = await self._check_convergence()
                     await self._acknowledged(harness)
+                    if len(harness.servers) == 1 and harness.edges == 0:
+                        self.convergence = await self._held_by_the_server(harness)
             finally:
                 await super()._teardown()
+
+        @staticmethod
+        async def _held_by_the_server(harness):
+            """One instance: every writer's doc byte-identical to the
+            server's document (its acknowledged edits are all there)."""
+            documents = harness.servers[0].hocuspocus.documents
+
+            def diverged():
+                return [d for d, writer in enumerate(harness.writers)
+                        if documents.get(f"load-{d}") is None
+                        or encode_state_as_update(documents[f"load-{d}"])
+                        != encode_state_as_update(writer.document)]
+
+            wait = await _until(lambda: not diverged(), LOADGEN_ACK_S,
+                                lambda: f"loadgen: docs {diverged()[:16]} differ from the server's")
+            return {"docs_checked": len(harness.writers), "converged": True, "diverged": [],
+                    "wait_s": round(wait, 3)}
 
         async def _acknowledged(self, harness):
             wait = await _until(
@@ -5574,8 +6269,8 @@ async def run_loadgen(num_docs, device="cuda", seed=LOADGEN_SEED):
     dense_fn, sparse_fn = (getattr(ti, name) for name in ARENAS["unit"]["wrap"])
     out = {}
     runs = [("smoke", None), (LOADGEN_DOCS_SCENARIO, num_docs)]
-    runs += [(name, None) for name in
-             LOADGEN_EDGE_SCENARIOS + LOADGEN_AUDIENCE_SCENARIOS + LOADGEN_MULTI_SCENARIOS]
+    runs += [(name, None) for name in LOADGEN_EDGE_SCENARIOS + LOADGEN_AUDIENCE_SCENARIOS
+             + LOADGEN_MULTI_SCENARIOS + LOADGEN_AUTOSCALE_SCENARIOS]
     for name, docs in runs:
         reset_device_lane()
         scenario = get_scenario(name) if docs is None else get_scenario(name, num_docs=docs)
@@ -5593,7 +6288,8 @@ async def run_loadgen(num_docs, device="cuda", seed=LOADGEN_SEED):
                      "acked": runner.acked, **_scenario_summary(result)}
         if name == LOADGEN_DOCS_SCENARIO:
             out[name]["mini_redis"] = result["extra"].get("mini_redis")
-        if name in LOADGEN_EDGE_SCENARIOS + LOADGEN_AUDIENCE_SCENARIOS + LOADGEN_MULTI_SCENARIOS:
+        if name in (LOADGEN_EDGE_SCENARIOS + LOADGEN_AUDIENCE_SCENARIOS + LOADGEN_MULTI_SCENARIOS
+                    + LOADGEN_AUTOSCALE_SCENARIOS):
             # every edit of these scenarios is an append: reported, not
             # gated, since the cells' warm grid alone launches K1
             out[name]["k1_launches_are"] = (
@@ -5612,6 +6308,17 @@ async def run_loadgen(num_docs, device="cuda", seed=LOADGEN_SEED):
                 m["migrations"]["docs_migrated"] for m in extra.get("multi_device", {}).values()
             )
             out[name]["lanes"] = [phase.get("lane") for phase in result["phases"]]
+        if name in LOADGEN_AUTOSCALE_SCENARIOS:
+            autoscale = result["extra"].get("autoscale") or {}
+            out[name]["convergence"] = runner.convergence
+            out[name]["autoscale"] = {
+                "steady_footprint_ratio": autoscale.get("steady_footprint_ratio"),
+                "max_ratio": autoscale.get("max_ratio"),
+                "phase_active_cells": autoscale.get("phase_active_cells"),
+                "decisions": [d for c in autoscale.get("controllers", []) for d in c["decisions"]],
+                "actuation": [c["actuation"] for c in autoscale.get("controllers", [])],
+                "timeline": [c["timeline"] for c in autoscale.get("controllers", [])],
+            }
         if name in LOADGEN_EDGE_SCENARIOS + LOADGEN_AUDIENCE_SCENARIOS:
             out[name]["convergence"] = runner.convergence
             out[name]["mini_redis"] = result["extra"].get("mini_redis")
@@ -5688,6 +6395,18 @@ def phase_loadgen(num_docs, cuts):
         check(run["docs_migrated"] >= 1, f"loadgen {name}: no doc migrated: {run['multi_device']}")
         check(run["acked"] is not None and run["acked"]["docs_observed"] == run["docs"],
               f"loadgen {name}: {run['acked']} docs observed on the other instance")
+    for name in LOADGEN_AUTOSCALE_SCENARIOS:
+        run = out[name]
+        check(run["verdict"] == "pass", f"loadgen {name}: verdict {run['verdict']} ({run['breached']})")
+        ratio, limit = run["autoscale"]["steady_footprint_ratio"], run["autoscale"]["max_ratio"]
+        check(ratio is not None and ratio <= limit,
+              f"loadgen {name}: steady footprint ratio {ratio} over {limit}: {run['autoscale']}")
+        check(run["convergence"] is not None and run["convergence"]["converged"],
+              f"loadgen {name}: writers diverged from the server: {run['convergence']}")
+        check(run["acked"] is not None and run["acked"]["docs_observed"] == min(8, run["docs"]),
+              f"loadgen {name}: {run['acked']} sampled readers observed their writers")
+        check(all(a["failures"] == 0 for a in run["autoscale"]["actuation"]),
+              f"loadgen {name}: actuations failed: {run['autoscale']['actuation']}")
     for name in LOADGEN_EDGE_SCENARIOS + LOADGEN_AUDIENCE_SCENARIOS:
         run = out[name]
         check(run["verdict"] == "pass", f"loadgen {name}: verdict {run['verdict']} ({run['breached']})")
@@ -5814,8 +6533,13 @@ def main(argv=None) -> int:
         results["unit"]["multi_device_server"], results["unit"]["multi_device_server_err"] = (
             phase_multi_device_server(rng, num_docs=MULTI_DOCS, capacity=4096, cuts=MULTI_CUTS)
         )
+        # the same deployment with --fleet-autoscale --fleet-warm-spares 2:
+        # the controller parks and activates cells through diurnal_autoscale's day
+        results["unit"]["fleet_server"], results["unit"]["fleet_server_err"] = phase_fleet_server(
+            rng, num_docs=FLEET_DOCS, capacity=4096, cuts=FLEET_CUTS,
+        )
         for arena, path in (("rle", "cluster_server"), ("rle", "edge_server"),
-                            ("rle", "multi_device_server"), ("unit", "tiptap_server"),
+                            ("rle", "multi_device_server"), ("rle", "fleet_server"), ("unit", "tiptap_server"),
                             ("rle", "cli_server"), ("rle", "loadgen")):
             results[arena][path] = results[arena][f"{path}_err"] = 0
         phase_supervised_full(args.seed, started)

@@ -6,11 +6,12 @@ on the card (`--tpu-device cuda`, the default, which fails without
 CUDA) unless `--tpu-device cpu` asks for the CPU. `--tpu-devices N`
 runs N supervised merge cells (0 = one per visible card; more cells
 than cards wrap, so one card holds several), each with its own arena
-and device lane, `--tpu-docs` / `--tpu-capacity` sized per cell. The
-branches whose modules are not ported yet exit with code 2 and one line
-on stderr naming their ROADMAP.md Queue A item: `--tpu-shards > 1`,
-`--tpu-scheduler off` and the lane and governor tuning flags away from
-their defaults (item 7b), and `--fleet-autoscale` (item 8).
+and device lane, `--tpu-docs` / `--tpu-capacity` sized per cell;
+`--fleet-autoscale` puts the fleet controller over those cells
+(`--fleet-warm-spares` of them boot parked). The branches whose modules
+are not ported yet exit with code 2 and one line on stderr naming their
+ROADMAP.md Queue A item: `--tpu-shards > 1`, `--tpu-scheduler off` and
+the lane and governor tuning flags away from their defaults (item 7b).
 `--role cell` makes the server a merge cell of the edge
 tier (with `--tpu-serve`, its plane on the card by default), and
 `--role edge` a stateless edge server in front of the cells.
@@ -546,11 +547,6 @@ _LANE_DEFAULTS = {
 def unported_branch(args: argparse.Namespace) -> "str | None":
     """Why this command line asks for something the port does not have
     yet, naming its ROADMAP.md Queue A item, or None."""
-    if args.fleet_autoscale:
-        return (
-            "--fleet-autoscale needs the fleet controller, not ported yet: "
-            "ROADMAP.md, Queue A item 8"
-        )
     if args.tpu_shards > 1:
         return (
             "--tpu-shards > 1 (a sharded plane) is not ported yet: ROADMAP.md, "
@@ -684,6 +680,27 @@ async def run(args: argparse.Namespace) -> None:
                 hydrate_batch=args.tpu_hydrate_batch,
                 compact_threshold=args.tpu_compact_threshold,
                 device=args.tpu_device,
+            )
+        )
+    if args.fleet_autoscale:
+        if args.tpu_devices == 1 or not (args.tpu_merge or args.tpu_serve):
+            print(
+                "--fleet-autoscale requires the multi-device cell plane "
+                "(--tpu-serve with --tpu-devices != 1)",
+                file=sys.stderr,
+            )
+            sys.exit(2)
+        from .fleet import FleetControllerExtension
+
+        extensions.append(
+            FleetControllerExtension(
+                interval_s=args.fleet_interval,
+                warm_spares=args.fleet_warm_spares,
+                min_cells=args.fleet_min_cells,
+                up_threshold=args.fleet_up,
+                down_threshold=args.fleet_down,
+                hold_ticks=args.fleet_hold_ticks,
+                work_target=args.fleet_work_target,
             )
         )
 

@@ -1,38 +1,18 @@
-"""The fleet layer: the roster that lets cells on other hosts join the
-edge tier's placement, and (not ported yet) the autoscaling controller.
+"""The fleet layer: the autoscaling controller over the per-device merge
+cells, and the roster that lets cells on other hosts join the edge
+tier's placement.
 
-`roster.py` is a copy of the JAX package's: the host-qualified cell ids,
-the edges' clock-gated `AdmissionGate` and the cells' `PeerRoster`
-membership epochs, which `edge/` imports. `FleetController` and
-`FleetControllerExtension` drive the multi-device cell plane's
-`park_cell` / `activate_cell` (tpu/cells.py); they are not ported yet
-(ROADMAP.md, Queue A item 8): they stay importable and raise when
-constructed.
+`controller.py` is a copy of the JAX package's: `FleetController`, the
+pure decision core (streaks, cooldown, projection guard, brownout park),
+and `FleetControllerExtension`, which samples the co-installed cell
+plane (`tpu/cells.py`) and actuates through its `activate_cell` /
+`park_cell`. `roster.py` is a copy too: the host-qualified cell ids, the
+edges' clock-gated `AdmissionGate` and the cells' `PeerRoster`
+membership epochs, which `edge/` imports.
 """
 
+from .controller import FleetController, FleetControllerExtension
 from .roster import AdmissionGate, PeerRoster, cell_host, qualify_cell_id
-
-
-class _NotPortedYet:
-    """A name of the JAX package's `fleet` whose code is not ported yet:
-    importable, so callers resolve it, and raising when constructed."""
-
-    what = ""
-
-    def __init__(self, *args, **kwargs) -> None:
-        raise NotImplementedError(
-            f"{type(self).__name__} ({self.what}) is not ported yet: "
-            "ROADMAP.md, Queue A item 8"
-        )
-
-
-class FleetController(_NotPortedYet):
-    what = "the autoscaling decision core over per-card cells"
-
-
-class FleetControllerExtension(_NotPortedYet):
-    what = "the autoscaling controller's server extension"
-
 
 __all__ = [
     "AdmissionGate",

@@ -17,9 +17,9 @@ The planes run on the card; ``--device cpu`` (``device="cpu"`` for
 ``ScenarioRunner`` and ``ServedLoadHarness``) asks for the CPU.
 The edge scenarios boot the split front door (stateless edges and merge
 cells over a MiniRedis relay bus); ``multi_device_storm`` serves each
-instance from per-device merge cells. Sharded scenarios are not ported
-yet and raise NotImplementedError naming ROADMAP.md, Queue A item 7b;
-``diurnal_autoscale``, which needs the fleet controller, names item 8.
+instance from per-device merge cells, and ``diurnal_autoscale`` puts
+the fleet controller over them. Sharded scenarios are not ported yet
+and raise NotImplementedError naming ROADMAP.md, Queue A item 7b.
 
 Import weight: the schedule/timeline layers (scenario, scenarios,
 timeline) are stdlib-only and imported eagerly — tools and the

@@ -18,7 +18,9 @@ With `edges > 0` the harness boots the split front door instead:
 plane) and `edges` stateless `EdgeServer`s over one MiniRedis relay bus.
 
 With `devices > 1` each instance is served by per-device merge cells
-(`MultiDeviceMergeExtension`, tpu/cells.py) instead of one plane.
+(`MultiDeviceMergeExtension`, tpu/cells.py) instead of one plane;
+with `autoscale=` a `FleetControllerExtension` (fleet/controller.py)
+beside each such plane parks and activates its cells.
 
 Not ported yet, and raising NotImplementedError at construction:
 sharded planes (`shards > 1`; ROADMAP.md, Queue A item 7b).
@@ -66,6 +68,9 @@ class ServedLoadHarness:
     - devices / multi_device: devices > 1 serves each instance from that
       many per-device merge cells (tpu/cells.py); multi_device carries
       the rebalancer's tuning (interval, ratio, batch) to the extension.
+    - autoscale: FleetControllerExtension tuning; with devices > 1 each
+      instance gets a fleet controller over its cells
+      (`fleet_controllers`).
     - device: where each instance's plane runs ("cuda" by default;
       "cpu" only when asked).
     - docs_per_socket: provider multiplexing width per in-process socket.
@@ -96,6 +101,7 @@ class ServedLoadHarness:
         overload: "Optional[dict]" = None,
         anti_entropy_s: "Optional[float]" = None,
         replica_watermark: "Optional[int]" = None,
+        autoscale: "Optional[dict]" = None,
         device: str = "cuda",
         progress=None,
     ) -> None:
@@ -138,6 +144,11 @@ class ServedLoadHarness:
         # mega-audience scenarios set a CI-scale watermark so a small
         # join wave grows follower cells
         self.replica_watermark = replica_watermark
+        # autoscale: FleetControllerExtension tuning per plane-holding
+        # instance (docs/guides/elastic-fleet.md) — only meaningful with
+        # devices > 1, where the controller can park/activate cells
+        self.autoscale = autoscale
+        self.fleet_controllers: list[Any] = []
         # with_metrics: add a Metrics extension per instance (enables
         # the wire telemetry singleton and binds each plane's trace
         # book to the e2e histogram)
@@ -238,6 +249,12 @@ class ServedLoadHarness:
                 self.metrics.append(metrics)
                 extensions.append(metrics)
             extensions.append(plane_ext)
+            if self.autoscale is not None and self.devices > 1:
+                from ..fleet import FleetControllerExtension
+
+                fleet_ext = FleetControllerExtension(**self.autoscale)
+                self.fleet_controllers.append(fleet_ext)
+                extensions.append(fleet_ext)
             server = Server(Configuration(quiet=True, extensions=extensions))
             await server.listen(port=0)
             for plane in planes:
@@ -333,6 +350,12 @@ class ServedLoadHarness:
                 self.metrics.append(metrics)
                 extensions.append(metrics)
             extensions.append(ext)
+            if self.autoscale is not None and self.devices > 1:
+                from ..fleet import FleetControllerExtension
+
+                fleet_ext = FleetControllerExtension(**self.autoscale)
+                self.fleet_controllers.append(fleet_ext)
+                extensions.append(fleet_ext)
             server = Server(Configuration(quiet=True, extensions=extensions))
             await server.listen(port=0)
             for plane in planes:

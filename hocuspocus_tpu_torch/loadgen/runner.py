@@ -84,13 +84,14 @@ class ScenarioRunner:
         # inputs as extra.wire_saturation (docs/guides/load-testing.md)
         self._wire_sat_config = params.get("wire_saturation")
         self._tracer_state = None  # (enabled, sample) to restore post-run
-        # the fleet controller is not ported yet (ROADMAP.md, Queue A
-        # item 8): an autoscaled population raises before anything starts
-        if params.get("autoscale"):
-            raise NotImplementedError(
-                "autoscaled populations need the fleet controller, not ported "
-                "yet: ROADMAP.md, Queue A item 8"
-            )
+        # elastic-fleet seam: params["autoscale"] installs a
+        # FleetControllerExtension next to each multi-device plane;
+        # params["autoscale_slo"] makes the steady-trough footprint a
+        # latched verdict input
+        self._autoscale_config = params.get("autoscale")
+        self._autoscale_slo = params.get("autoscale_slo") or {}
+        self._autoscale_samples: "dict[str, list[int]]" = {}
+        self._autoscale_evidence: "Optional[dict]" = None
         # sharded populations raise here, before anything starts
         # (ROADMAP.md, Queue A item 7b)
         self.harness = ServedLoadHarness(
@@ -111,6 +112,7 @@ class ScenarioRunner:
             overload=self._overload_config,
             anti_entropy_s=params.get("anti_entropy_s"),
             replica_watermark=params.get("replica_watermark"),
+            autoscale=self._autoscale_config,
             device=device,
             progress=self._progress,
         )
@@ -173,6 +175,16 @@ class ScenarioRunner:
             self.engine.sample()
         elif not self.engine.maybe_sample():
             return
+        if self._current_phase and self.harness.fleet_controllers:
+            # footprint evidence rides the SLO cadence: per-phase active
+            # cell counts feed the steady-trough footprint verdict
+            active = sum(
+                len(ext.active_cells())
+                for ext in self.harness.fleet_controllers
+            )
+            self._autoscale_samples.setdefault(
+                self._current_phase, []
+            ).append(active)
         timeline = get_loadgen_timeline()
         for target in self.engine.targets:
             for window, _secs in self.engine.windows:
@@ -489,6 +501,64 @@ class ScenarioRunner:
             "wait_ms": round((time.perf_counter() - t0) * 1000, 1),
         }
 
+    def _latch_autoscale_footprint(self) -> None:
+        """The elasticity acceptance (docs/guides/elastic-fleet.md):
+        mean active cells during the configured trough phase over the
+        static fleet size must stay <= max_ratio — a fleet that never
+        scales back down fails the run even with every latency SLO
+        green. Latched like any breach; the ratio lands in
+        ``extra.autoscale`` for the bench gate's
+        diurnal_autoscale.steady_footprint_ratio stage."""
+        controllers = self.harness.fleet_controllers
+        if not self._autoscale_config or not controllers:
+            return
+        total = sum(
+            ext.controller.num_cells if ext.controller else 0
+            for ext in controllers
+        )
+        phase_means = {
+            phase: round(sum(samples) / len(samples), 3)
+            for phase, samples in self._autoscale_samples.items()
+            if samples
+        }
+        evidence: dict = {
+            "fleet_cells": total,
+            "phase_active_cells": phase_means,
+            "controllers": [ext.status() for ext in controllers],
+        }
+        trough = self._autoscale_slo.get("trough_phase")
+        max_ratio = self._autoscale_slo.get("max_ratio")
+        if trough and max_ratio is not None and total:
+            samples = self._autoscale_samples.get(trough) or []
+            if samples:
+                ratio = (sum(samples) / len(samples)) / total
+                evidence["trough_phase"] = trough
+                evidence["max_ratio"] = float(max_ratio)
+                evidence["steady_footprint_ratio"] = round(ratio, 4)
+                if ratio > float(max_ratio):
+                    self._breached["autoscale_footprint"] = True
+                    get_loadgen_timeline().note_breach(
+                        trough, "autoscale_footprint"
+                    )
+                    get_flight_recorder().record(
+                        "__loadgen__",
+                        "autoscale_footprint_breach",
+                        phase=trough,
+                        ratio=round(ratio, 4),
+                        max_ratio=float(max_ratio),
+                    )
+                    self._progress(
+                        f"AUTOSCALE FOOTPRINT BREACH {ratio:.2f} > "
+                        f"{float(max_ratio):.2f}"
+                    )
+            else:
+                # no samples in the measured trough = the verdict input
+                # is missing, not vacuously green
+                self._breached["autoscale_footprint"] = True
+                evidence["steady_footprint_ratio"] = None
+        self._autoscale_evidence = evidence
+
+
     def _chaos_evidence(self) -> dict:
         """Overload/partition accounting attached to the artifact: the
         ladder's transition history + shed counters, mini_redis's
@@ -587,6 +657,11 @@ class ScenarioRunner:
                 }
         if multi:
             evidence["multi_device"] = multi
+        if self._autoscale_evidence is not None:
+            # elastic-fleet evidence: roster timeline, scale decisions,
+            # per-phase active-cell means and the steady-trough
+            # footprint ratio
+            evidence["autoscale"] = self._autoscale_evidence
         publish = {}
         for i, server in enumerate(self.harness.servers):
             for ext in getattr(server.hocuspocus, "_extensions", []):
@@ -823,6 +898,8 @@ class ScenarioRunner:
                     self._progress(
                         f"CONVERGENCE FAILED: {convergence['diverged']}"
                     )
+
+            self._latch_autoscale_footprint()
 
             wire_sat = None
             if self._wire_sat_config:

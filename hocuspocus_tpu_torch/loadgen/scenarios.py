@@ -7,10 +7,10 @@ arguments (defaults are CI-scale; pass bigger numbers for real storms).
 through it. The library is the reference's, every scenario included;
 the port runs the single-plane ones (``smoke``, ``replication_lag``,
 ``overload_storm``, ``partition_heal``, ``wire_saturation``), the edge
-ones (``edge_fanout``, ``edge_handoff``, ``mega_audience``) and the
-multi-device one (``multi_device_storm``), and raises
-NotImplementedError for the sharded ones (ROADMAP.md, Queue A item 7b)
-and for ``diurnal_autoscale`` (the fleet controller, item 8).
+ones (``edge_fanout``, ``edge_handoff``, ``mega_audience``), the
+multi-device one (``multi_device_storm``) and the autoscaled one
+(``diurnal_autoscale``), and raises NotImplementedError for the sharded
+ones (ROADMAP.md, Queue A item 7b).
 
 The mixes (ROADMAP item 5, Collabs arXiv:2212.02618 composed multi-user
 workloads, Eg-walker arXiv:2409.14252 realistic-concurrency merges):

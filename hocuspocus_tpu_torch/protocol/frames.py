@@ -15,7 +15,6 @@ from __future__ import annotations
 import time
 
 from ..native import get_codec
-from ..observability.costs import get_cost_ledger
 
 
 def _type_name(message_type: int) -> str:
@@ -114,3 +113,10 @@ def build_update_frames_batch(
 def build_sync_status_frame(name: str, ok: bool) -> bytes:
     """[name][SyncStatus][0|1] — the per-update durability ack."""
     return get_codec().build_sync_status_frame(name, ok)
+
+
+# Imported last: the observability package imports the server, whose
+# connection module imports `parse_frame_header` from here. With the
+# helpers above already defined, importing this module first (before the
+# server) completes instead of meeting a partly initialized module.
+from ..observability.costs import get_cost_ledger  # noqa: E402

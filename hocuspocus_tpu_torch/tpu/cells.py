@@ -273,6 +273,8 @@ class MultiDeviceMergeExtension(Extension):
             "cells_parked": 0,
             "cells_activated": 0,
         }
+        # cells a `park_cell` is draining: no migration may land on one
+        self._parking: "set[int]" = set()
         self._rebalance_handle: Optional[asyncio.TimerHandle] = None
         self._rebalance_inflight = False
         # set by cancel_timers/on_destroy: an in-flight tick must not
@@ -327,7 +329,17 @@ class MultiDeviceMergeExtension(Extension):
         for index, cell in enumerate(self.cells):
             if document_name in cell._docs or document_name in cell.plane.docs:
                 return index
-        return self.placement.place(document_name)
+        index = self.placement.place(document_name)
+        survivors = sorted(self.placement.healthy - self._parking)
+        if index in self._parking and survivors:
+            # a new load while its cell drains for a park goes where the
+            # park would migrate it (the JAX package loads it onto the
+            # draining cell, which then parks holding it)
+            index = max(
+                survivors,
+                key=lambda i: (self.placement._score(document_name, i), -i),
+            )
+        return index
 
     def cell_for(self, document_name: str) -> TpuMergeExtension:
         return self.cells[self.cell_index_for(document_name)]
@@ -483,22 +495,30 @@ class MultiDeviceMergeExtension(Extension):
         rejoins in one epoch bump with zero rebuild cost."""
         cell = self.cells[index]
         migrated = declined = 0
-        for name in list(cell._docs):
-            survivors = sorted(self.placement.healthy - {index})
-            if not survivors:
-                declined += len(cell._docs)
-                break
-            # rendezvous over the survivors — the same score the map
-            # will compute once this cell is gone, minus the override
-            dst = max(
-                survivors,
-                key=lambda i: (self.placement._score(name, i), -i),
-            )
-            if await self.migrate_doc(name, index, dst):
-                migrated += 1
-            else:
-                declined += 1
-        self.placement.mark_down(index)
+        # while it drains nothing may land here: the rebalancer's plan
+        # and placement still count the cell healthy (the JAX package
+        # lets such a move or a new load in, and the doc stays on the
+        # parked cell); `migrate_doc` and `cell_index_for` read this
+        self._parking.add(index)
+        try:
+            for name in list(cell._docs):
+                survivors = sorted(self.placement.healthy - {index})
+                if not survivors:
+                    declined += len(cell._docs)
+                    break
+                # rendezvous over the survivors — the same score the map
+                # will compute once this cell is gone, minus the override
+                dst = max(
+                    survivors,
+                    key=lambda i: (self.placement._score(name, i), -i),
+                )
+                if await self.migrate_doc(name, index, dst):
+                    migrated += 1
+                else:
+                    declined += 1
+            self.placement.mark_down(index)
+        finally:
+            self._parking.discard(index)
         drained = not cell._docs
         if drained:
             # fully drained: quiesce the serving loop — a warm spare
@@ -732,12 +752,20 @@ class MultiDeviceMergeExtension(Extension):
         document = source._docs.get(name)
         if document is None or source.residency is None or target.residency is None:
             return False
+        # a target being parked, or out of placement since the plan was
+        # made, takes nothing: the doc stays where it is
+        closed = lambda: dst in self._parking or dst not in self.placement.healthy  # noqa: E731
+        if closed():
+            self.migration_stats["migrations_declined"] += 1
+            return False
         # background-class admission on the SOURCE cell: the eviction
         # snapshot may flush pending ops through the serving path — a
         # device dispatch like any other, and it must never bypass the
         # lane or displace interactive work
         ticket = await source.residency._admit_background("migrate")
-        if ticket is False:
+        if ticket is False or closed():
+            if ticket is not None and ticket is not False:
+                ticket.release()
             self.migration_stats["migrations_declined"] += 1
             return False
         try:

@@ -1902,6 +1902,10 @@ class TpuMergeExtension(Extension):
         # the listen-time warm grid (on_listen); awaitable by callers that
         # must not race it
         self.warmup_task: Optional[asyncio.Task] = None
+        # set at teardown: the warm grid stops before its next shape, so
+        # a process exit waits for at most the shape in flight (its
+        # executor thread cannot be interrupted)
+        self._warm_stopped = False
         # docs whose recycle attempt found no headroom for their live
         # state: further attempts are suppressed until unload
         self._recycle_declined: set[str] = set()
@@ -1962,6 +1966,7 @@ class TpuMergeExtension(Extension):
     def cancel_timers(self) -> None:
         """Teardown without touching the device (the supervisor's
         non-READY shutdown: a wedged device must not hang destroy)."""
+        self._warm_stopped = True
         if self._flush_handle is not None:
             self._flush_handle.cancel()
             self._flush_handle = None
@@ -2007,6 +2012,8 @@ class TpuMergeExtension(Extension):
         async def warm_one(work) -> bool:
             from .scheduler import CLASS_CANARY, LaneDeferred
 
+            if self._warm_stopped:
+                return False  # torn down: the rest of the grid is moot
             try:
                 # the lowest class; weight 1 lets a queued canary go first
                 ticket = await self.lane.admit(CLASS_CANARY, site="warmup", weight=1)
@@ -2014,6 +2021,8 @@ class TpuMergeExtension(Extension):
                 return False  # parked (breaker open): the re-attach warms again
             try:
                 async with self.plane.flush_lock:
+                    if self._warm_stopped:
+                        return False
                     await asyncio.get_event_loop().run_in_executor(None, work)
             except Exception:
                 from ..server import logger as _logger_mod
@@ -2156,6 +2165,7 @@ class TpuMergeExtension(Extension):
                 await asyncio.sleep(0)
 
     async def on_destroy(self, data: Payload) -> None:
+        self._warm_stopped = True
         if self._flush_handle is not None:
             self._flush_handle.cancel()
         if self._broadcast_handle is not None:

@@ -705,25 +705,32 @@ class PlaneServing:
                 future.set_result(None)
 
     async def _drain_catchup(self) -> None:
-        self._catchup_scheduled = False
-        batch, self._catchup_queue = self._catchup_queue, []
-        if not batch:
-            return
         plane = self.plane
         # device-lane admission (tpu/scheduler.py): the drain flushes and
         # runs the triage — interactive class, a joiner is blocked on the
         # reply. A parked lane (breaker open) resolves the batch to CPU
-        # fallback, as abort_pending does
+        # fallback, as abort_pending does. The batch is taken once the
+        # lane admits: a request that lands while the drain waits joins
+        # it instead of queuing a drain (and a lane waiter) of its own,
+        # which the JAX package does (ROADMAP Queue C)
         ticket = None
-        if plane.lane is not None:
+        if plane.lane is not None and self._catchup_queue:
             from .scheduler import CLASS_INTERACTIVE, LaneDeferred
 
             try:
                 ticket = await plane.lane.admit(CLASS_INTERACTIVE, site="sync")
             except LaneDeferred:
+                self._catchup_scheduled = False
+                batch, self._catchup_queue = self._catchup_queue, []
                 for *_rest, future in batch:
                     future.done() or future.set_result(None)
                 return
+        self._catchup_scheduled = False
+        batch, self._catchup_queue = self._catchup_queue, []
+        if not batch:
+            if ticket is not None:
+                ticket.release()
+            return
         try:
             # the whole drain — flush, refresh, triage, encode — holds the
             # flush lock: every step reads device state

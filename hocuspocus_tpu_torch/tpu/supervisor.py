@@ -302,6 +302,15 @@ class PlaneSupervisor:
         self._stopped = True
         for task in list(self._tasks):
             task.cancel()
+        thread = self._init_thread
+        if thread is not None and thread.is_alive():
+            # the init worker is a daemon thread inside torch's C++: a
+            # process that exits under it aborts ("terminate called
+            # without an active exception"), so teardown waits for it, at
+            # most the init deadline (a wedged device still cannot hang it)
+            deadline = time.monotonic() + self.init_timeout
+            while thread.is_alive() and time.monotonic() < deadline:
+                await asyncio.sleep(0.02)
         runtime = self.runtime
         if runtime is None:
             return
@@ -792,6 +801,17 @@ class PlaneSupervisor:
         return self.on_card or any(
             plane.device.type == "cuda" for plane in runtime.planes()
         )
+
+    def card_fault(self, what: str, error: BaseException) -> bool:
+        """A caller outside the supervisor (the fleet controller's
+        actuation) saw `what` raise: on the card the supervisor stops
+        serving with the error (`_fail_stop`) and True comes back, so the
+        caller re-raises it; on the CPU nothing happens and False comes
+        back, so the caller counts the failure and goes on."""
+        if not self._card():
+            return False
+        self._fail_stop(what, error)
+        return True
 
     def _fail_stop(self, what: str, error: BaseException) -> None:
         """A card runtime's `what` raised: a kernel that does not build

@@ -5,10 +5,11 @@ free port (the port's with `--tpu-device cpu`), drives it with that
 package's provider over a real websocket, and returns what it observed
 (texts, endpoint answers) with the CLI's exit codes; the two packages'
 observations must be equal and the port's CLI must exit 0. `--tpu-devices 2`
-serves from two merge cells in both packages. The port's sharded, fleet and
-lane-tuning branches exit with code 2 and one line on stderr naming their
-ROADMAP.md Queue A item, and without `--tpu-device cpu` the plane needs
-CUDA. The flows are plain tests over `asyncio.run`: two CLI boots can
+serves from two merge cells in both packages, and `--tpu-devices 4
+--fleet-autoscale --fleet-warm-spares 2` boots the fleet controller with
+two cells parked in both. The port's sharded and lane-tuning branches exit
+with code 2 and one line on stderr naming ROADMAP.md Queue A item 7b, and
+without `--tpu-device cpu` the plane needs CUDA. The flows are plain tests over `asyncio.run`: two CLI boots can
 outlast the 60 s that tests/conftest.py gives one coroutine test when
 the suite runs in parallel.
 """
@@ -337,9 +338,8 @@ def _port_cli(*args, env=None):
         (("--tpu-serve", "--tpu-shards", "2"), "Queue A item 7b"),
         (("--tpu-serve", "--tpu-scheduler", "off"), "Queue A item 7b"),
         (("--tpu-serve", "--tpu-drain-watermark", "64"), "Queue A item 7b"),
-        (("--tpu-serve", "--fleet-autoscale", "--tpu-devices", "0"), "Queue A item 8"),
     ],
-    ids=["shards", "scheduler-off", "drain-watermark", "fleet"],
+    ids=["shards", "scheduler-off", "drain-watermark"],
 )
 def test_unported_branches_exit_naming_their_queue_a_item(args, item):
     proc = _port_cli(*args, "--tpu-device", "cpu")
@@ -401,6 +401,68 @@ async def _cells_serve(package):
 
 def test_cli_serves_a_doc_from_per_device_cells_as_the_jax_cli():
     assert asyncio.run(_both(_cells_serve)) == (2, 1, True)
+
+
+async def _fleet_serve(package):
+    """--tpu-serve --tpu-devices 4 --fleet-autoscale --fleet-warm-spares 2:
+    the controller boots with the last two cells parked (the /debug/fleet
+    autoscale section and /debug/scheduler's placement), and a doc served
+    from an active cell reaches a late joiner byte for byte."""
+    provider_module = PACKAGES[package][1]
+    crdt = sys.modules[provider_module.__name__.rsplit(".", 1)[0] + ".crdt"]
+    async with _launch(
+        package, "--tpu-serve", "--tpu-devices", "4", "--fleet-autoscale",
+        "--fleet-warm-spares", "2", "--tpu-docs", "16", "--tpu-capacity", "512",
+        "--tpu-flush-interval", "1", "--tpu-broadcast-interval", "1", "--metrics",
+    ) as cli:
+        async def section(path, key):
+            try:
+                status, text = await cli.get(path)
+            except aiohttp.ClientConnectionError:
+                return None  # not listening yet
+            return json.loads(text).get(key) if status == 200 else None
+
+        # the supervised cells attach after boot; the controller adopts
+        # them at its first tick (2 s) and parks the spares
+        for _ in range(240):
+            autoscale = await section("/debug/fleet", "autoscale")
+            if autoscale and autoscale.get("roster", {}).get("total") == 4:
+                break
+            await asyncio.sleep(0.25)
+        roster = autoscale["roster"]
+        placement = await section("/debug/scheduler", "placement")
+        a = provider_module.HocuspocusProvider(name="cli-fleet", url=cli.url)
+        b = provider_module.HocuspocusProvider(name="cli-fleet", url=cli.url)
+        try:
+            await _wait_for(lambda: a.synced and b.synced, 60)
+            a.document.get_text("t").insert(0, "served beside warm spares ")
+            await _wait_for(lambda: "warm spares" in b.document.get_text("t").to_string(), 30)
+            await _wait_for(lambda: not a.has_unsynced_changes, 10)
+            c = provider_module.HocuspocusProvider(name="cli-fleet", url=cli.url)
+            try:
+                await _wait_for(lambda: c.synced, 60)
+                await _wait_for(
+                    lambda: crdt.encode_state_as_update(c.document)
+                    == crdt.encode_state_as_update(a.document), 30,
+                )
+            finally:
+                c.destroy()
+            devices = json.loads((await cli.get("/debug/scheduler"))[1]).get("devices", [])
+        finally:
+            a.destroy()
+            b.destroy()
+    parked_docs = sum(cell["docs"] for cell in devices if cell["cell"] in (2, 3))
+    return (
+        roster, sorted(placement["healthy"]), autoscale["bounds"], parked_docs,
+        crdt.encode_state_as_update(c.document) == crdt.encode_state_as_update(a.document),
+    ), (cli.exit_code,)
+
+
+def test_cli_fleet_autoscale_boots_warm_spares_parked_as_the_jax_cli():
+    roster, healthy, bounds, parked_docs, equal = asyncio.run(_both(_fleet_serve))
+    assert roster == {"active": [0, 1], "total": 4} and healthy == [0, 1]
+    assert bounds == {"min_cells": 1, "max_cells": 4}
+    assert parked_docs == 0 and equal
 
 
 def test_the_plane_needs_cuda_unless_asked_for_the_cpu():

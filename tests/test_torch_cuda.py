@@ -923,3 +923,150 @@ def test_tiptap_doc_through_the_webhook_on_the_run_length_plane(cuda, monkeypatc
     assert out["counters"]["cpu_fallbacks"] == 0, out["cpu_fallbacks_after"]
     assert out["counters"]["docs_retired_unsupported"] == 0
     assert out["served_docs"] == 4 and out["webhook"]["bad_signatures"] == 0
+
+
+@pytest.mark.cuda
+def test_fleet_controller_activates_and_parks_cells_on_the_card(cuda):
+    """Four cells wrapped onto the card under the fleet controller with two
+    warm spares: the controller boots with cells 2 and 3 parked; an
+    injected hot digest activates cell 2, then a cold one naming cell 1
+    the coldest parks it while its ~256 docs' editors type (its docs
+    migrate to cells 0 and 2 over the evict -> hydrate rail); nothing
+    acknowledged is lost, no client closes, the parked cell holds no doc
+    and its lane admits nothing but canaries afterwards, and K1 launches
+    with ops of its own in the flushes of every active cell (counted at
+    the wrapper under the cell, chip_smoke.CellLaunches). Prints the
+    park's seconds and docs migrated (`fleet_card:`; run with -s)."""
+    import asyncio
+    import json
+    import time
+
+    import chip_smoke
+    from hocuspocus_tpu_torch.crdt import encode_state_as_update
+    from hocuspocus_tpu_torch.fleet import FleetControllerExtension
+    from hocuspocus_tpu_torch.provider import HocuspocusProvider, InProcessProviderSocket
+    from hocuspocus_tpu_torch.server import Configuration, Hocuspocus
+    from hocuspocus_tpu_torch.server.types import Payload
+    from hocuspocus_tpu_torch.tpu import MultiDeviceMergeExtension
+    from hocuspocus_tpu_torch.tpu.scheduler import CLASS_CANARY, reset_device_lane
+
+    num_docs = 512
+    rng = np.random.default_rng(5)
+
+    async def body():
+        reset_device_lane()
+        ext = MultiDeviceMergeExtension(devices=4, num_docs=512, capacity=1024, serve=True,
+                                        flush_interval_ms=1, rebalance_interval_s=0)
+        fleet = FleetControllerExtension(interval_s=3600.0, warm_spares=2, min_cells=1, hold_ticks=1,
+                                         cooldown_ticks=0, work_target=100.0)
+        core = Hocuspocus(Configuration(quiet=True, extensions=[ext, fleet]))
+        await core.ensure_configured()
+        await core.hooks("on_listen", Payload(instance=core, port=None))
+        for cell in ext.cells:
+            await cell.warmup_task
+        assert fleet.active_cells() == [0, 1] and ext.placement.healthy == {0, 1}
+
+        def digest(loads):
+            return [{"cell": i, "healthy": i in ext.placement.healthy, "work_rate": w}
+                    for i, w in enumerate(loads)]
+
+        # every flush marked from the first; counting starts with no flush
+        # in flight (one in flight would count outside every cell)
+        counts = chip_smoke.CellLaunches(ext.cells)
+
+        names = [f"fleet-card-{i}" for i in range(num_docs)]
+        editors = {}
+        closes = []
+        try:
+            for base in range(0, num_docs, 64):
+                wave = []
+                for name in names[base:base + 64]:
+                    editors[name] = [HocuspocusProvider(name=name, websocket_provider=InProcessProviderSocket(core))
+                                     for _ in range(2)]
+                    wave += editors[name]
+                for p in wave:
+                    p.on("close", lambda *_a, **_k: closes.append(1))
+                    p.attach()
+                await _until(lambda: all(p.synced for p in wave), "synced editors")
+            assert not ext.cells[2]._docs and not ext.cells[3]._docs
+            for d, name in enumerate(names):
+                editors[name][0].document.get_text("t").insert(0, chip_smoke.WORDS[d % len(chip_smoke.WORDS)])
+
+            def converged():
+                return all(len({encode_state_as_update(p.document) for p in editors[n]}
+                               | {encode_state_as_update(core.documents[n])}) == 1 for n in names)
+
+            await _until(converged, "the first words")
+            await _until(lambda: not any(c.plane.pending_ops() or c._flush_inflight for c in ext.cells),
+                         "the queues drained")
+            counts.start()
+            slow0 = [cell.plane.counters["flush_slow_ops"] for cell in ext.cells]
+
+            async def edit_round():
+                for d, name in enumerate(names):
+                    for p in editors[name]:
+                        chip_smoke._server_edit(rng, p.document.get_text("t"))
+                    if d % 16 == 15:
+                        await asyncio.sleep(0.001)
+
+            with counts.counted():
+                up = await fleet.tick_once(cells=digest([90.0, 90.0, 0.0, 0.0]))
+                assert up["action"] == "scale_up" and up["cell"] == 2, up
+                assert ext.placement.healthy == {0, 1, 2}
+                held = sorted(ext.cells[1]._docs)
+                edits = asyncio.ensure_future(edit_round())
+                t0 = time.perf_counter()
+                down = await fleet.tick_once(cells=digest([20.0, 0.0, 20.0, 0.0]))
+                park_s = time.perf_counter() - t0
+                assert down["action"] == "scale_down" and down["cell"] == 1, down
+                retries = 0
+                while ext.cells[1]._docs and retries < 50:
+                    retries += 1
+                    await asyncio.sleep(0.02)
+                    await ext.park_cell(1)
+                await edits
+                assert not ext.cells[1]._docs and 1 not in ext.placement.healthy
+                parked_admissions = list(ext.cells[1].lane.class_admissions)
+                await _until(lambda: all(n in ext.cells[0]._docs or n in ext.cells[2]._docs for n in held),
+                             "the migrated docs hydrated on the survivors")
+                await edit_round()
+                await _until(converged, "convergence after the park")
+            assert all(not p.has_unsynced_changes for group in editors.values() for p in group)
+            assert not closes
+            after = list(ext.cells[1].lane.class_admissions)
+            after[CLASS_CANARY] = parked_admissions[CLASS_CANARY]
+            assert after == parked_admissions, (parked_admissions, ext.cells[1].lane.class_admissions)
+            k1_ops = [cell.plane.counters["flush_slow_ops"] - slow0[i] for i, cell in enumerate(ext.cells)]
+            for i in (0, 2):
+                assert counts.flush_launches[i] > 0 and k1_ops[i] > 0, (i, dict(counts.flush_launches), k1_ops)
+            assert counts.flush_launches[None] == 0
+            assert sum(ext.cells[i].plane.counters["cpu_fallbacks"] for i in range(4)) == 0
+            print("fleet_card:", json.dumps({
+                "docs_on_parked_cell": len(held), "park_seconds": round(park_s, 3), "park_retries": retries,
+                "docs_migrated": fleet.actuation["docs_migrated"], "cell_launches": dict(counts.flush_launches),
+                "k1_ops": k1_ops, "gpu": chip_smoke.nvidia_smi_line(),
+            }))
+        finally:
+            for group in editors.values():
+                for p in group:
+                    p.destroy()
+                    p.websocket_provider.destroy()
+            await core.hooks("on_destroy", Payload(instance=core))
+
+    asyncio.run(body())
+
+
+@pytest.mark.cuda
+def test_fleet_server_phase_on_the_card(cuda):
+    """The fleet_server phase at 64 docs on the card, through its own
+    gates (chip_smoke.check_fleet), the diurnal rates and the fresh
+    sessions scaled to the docs."""
+    import asyncio
+
+    import chip_smoke
+
+    out = asyncio.run(chip_smoke.run_fleet_server(
+        np.random.default_rng(5), 64, 4096, rows=128, chunk=16, peak_rate=128.0, work_target=150.0,
+        phase_s=4.0, night_max_s=30.0, fresh_rate=4.0,
+    ))
+    assert chip_smoke.check_fleet(out, 64, chip_smoke.FLEET_CUTS, on_card=True) > 0

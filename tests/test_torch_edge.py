@@ -722,6 +722,46 @@ def test_cli_edge_and_cell_roles_serve_a_provider():
     assert plain_state == jax_state
 
 
+def test_teardown_stops_the_warm_grid_before_its_next_shape():
+    """The `--role cell` process waited out the plane's whole warm grid
+    after SIGTERM: each shape runs in the loop's default executor, whose
+    shutdown at exit waits for it, and on a loaded CPU the grid took
+    longer than the 40 s the test above gives the exit. Teardown now
+    stops the grid before its next shape: with every shape slowed to
+    0.2 s, a destroy during the first shape lets exactly that one finish
+    and starts no other."""
+    from hocuspocus_tpu_torch.server import Configuration, Hocuspocus
+    from hocuspocus_tpu_torch.server.types import Payload
+    from hocuspocus_tpu_torch.tpu import TpuMergeExtension
+    from hocuspocus_tpu_torch.tpu.scheduler import reset_device_lane
+
+    async def body():
+        reset_device_lane()
+        ext = TpuMergeExtension(num_docs=8, capacity=1024, serve=True, device="cpu")
+        core = Hocuspocus(Configuration(quiet=True, extensions=[ext]))
+        await core.ensure_configured()
+        started = []
+        real = ext.plane.warmup_compiles
+
+        def slow(*args, **kwargs):
+            started.append(time.monotonic())
+            time.sleep(0.2)
+            return real(*args, **kwargs)
+
+        ext.plane.warmup_compiles = slow
+        await core.hooks("on_listen", Payload(instance=core, port=None))
+        while not started:
+            await asyncio.sleep(0.01)
+        t0 = time.monotonic()
+        await core.hooks("on_destroy", Payload(instance=core))
+        await asyncio.wait_for(ext.warmup_task, 5)
+        assert len(started) == 1, len(started)
+        assert time.monotonic() - t0 < 2.0
+        assert len(ext.plane.warmup_shapes()) > 1  # the grid had more to run
+
+    asyncio.run(body())
+
+
 def test_cli_roles_reference_body_on_the_port():
     """The JAX test itself, its MiniRedis and provider the port's, and its
     processes started from the port's CLI module."""

@@ -7,8 +7,8 @@ tests/test_torch_edge.py's `run_reference_test`, so providers get client
 ids fixed by the order they were made), and the cross-host twins compare
 the two packages' documents byte for byte. The port's cells run without a
 plane and with a served CPU plane. `FleetController` and its extension
-are not ported yet (ROADMAP.md, Queue A item 8): they raise when
-constructed.
+build in both packages with the same status (their decision tests are
+tests/test_torch_fleet_controller.py).
 """
 
 import pytest
@@ -72,11 +72,25 @@ def test_roster_decisions_match_the_jax_package():
 
 
 @pytest.mark.parametrize("cls", ["FleetController", "FleetControllerExtension"])
-def test_the_fleet_controller_raises_naming_its_queue_a_items(cls):
+def test_the_fleet_controller_builds_with_the_jax_packages_status(cls):
+    """Each class built from the same arguments in both packages (the
+    extension with its decision core, as its configure hook makes it)
+    reports the same `status()`."""
+    import hocuspocus_tpu.fleet as jax_fleet
     import hocuspocus_tpu_torch.fleet as port_fleet
 
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        getattr(port_fleet, cls)()
+    kwargs = {"num_cells": 4, "min_cells": 2, "hold_ticks": 2, "cooldown_ticks": 4,
+              "work_target": 300.0}
+    statuses = []
+    for fleet in (jax_fleet, port_fleet):
+        if cls == "FleetController":
+            built = fleet.FleetController(**kwargs)
+        else:
+            built = fleet.FleetControllerExtension(interval_s=0.25, warm_spares=1, **kwargs)
+            built.controller = fleet.FleetController(**kwargs)
+        statuses.append(built.status())
+    assert statuses[1] == statuses[0]
+    assert statuses[1]["bounds"] == {"min_cells": 2, "max_cells": 4}
 
 
 # whole documents compare across the packages: each test's edits are

@@ -283,6 +283,17 @@ def test_cli_loadgen_undo_and_relative_positions_import_no_jax_and_no_aiohttp():
     assert "LEAKED []" in out, out
 
 
+@pytest.mark.parametrize("module", ["protocol.frames", "fleet.controller", "tpu.cells"])
+def test_a_port_module_imports_first_in_a_fresh_process(module):
+    """`hocuspocus_tpu_torch.protocol.frames` imported first in a process
+    (as tests/test_torch_native.py does when its worker collects it
+    first) used to meet the observability -> server -> frames cycle half
+    way and raise ImportError; the JAX package's top-level import orders
+    that cycle for it."""
+    out = _run(f"import hocuspocus_tpu_torch.{module}; print('IMPORTED')")
+    assert "IMPORTED" in out, out
+
+
 def test_no_port_loadgen_or_cli_file_sets_a_jax_platform():
     offenders = [
         str(path.relative_to(ROOT))

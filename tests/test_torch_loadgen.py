@@ -9,18 +9,21 @@ measured op counts, served docs, sample counts, the ladder's path) must be
 equal, while latencies are each package's own. `/debug/loadgen` answers
 from the port's Metrics as from the JAX package's. The edge populations
 run through the split front door, and `multi_device_storm` through
-per-device merge cells (the port's on the CPU); the sharded ones, not
-ported yet, raise NotImplementedError naming ROADMAP.md, Queue A item 7b,
-and `diurnal_autoscale` names item 8 (the fleet controller). The twins that run both packages are plain tests over
+per-device merge cells (the port's on the CPU), and `diurnal_autoscale`
+through them under each package's fleet controller; the sharded ones, not
+ported yet, raise NotImplementedError naming ROADMAP.md, Queue A item 7b.
+The twins that run both packages are plain tests over
 `asyncio.run`: two runs can outlast the 60 s that tests/conftest.py gives
 one coroutine test when the suite runs in parallel.
 """
 
 import asyncio
+import importlib
 import json
 import os
 import subprocess
 import sys
+import time
 import types
 from pathlib import Path
 
@@ -43,6 +46,7 @@ import hocuspocus_tpu_torch.server.types as port_types
 from hocuspocus_tpu_torch.tpu.scheduler import reset_device_lane
 
 ROOT = Path(__file__).resolve().parent.parent
+ROOTS = {"jax": "hocuspocus_tpu", "port": "hocuspocus_tpu_torch"}
 
 PACKAGES = {
     "jax": types.SimpleNamespace(
@@ -61,12 +65,14 @@ PACKAGES = {
 SINGLE_PLANE = ("smoke", "replication_lag", "overload_storm", "partition_heal", "wire_saturation")
 UNPORTED = {
     "diurnal": "item 7b", "flash_crowd": "item 7b", "reconnect_herd": "item 7b",
-    "mega_doc": "item 7b", "storm": "item 7b", "diurnal_autoscale": "item 8",
+    "mega_doc": "item 7b", "storm": "item 7b",
 }
 # the split front door: edges in front of merge cells (tests/test_torch_edge.py)
 EDGE = ("edge_fanout", "edge_handoff", "mega_audience")
 # per-device merge cells behind each instance (tests/test_torch_multi_device.py)
 MULTI_DEVICE = ("multi_device_storm",)
+# the fleet controller over per-device cells (tests/test_torch_fleet_controller.py)
+AUTOSCALE = ("diurnal_autoscale",)
 
 
 # -- the schedule compilers ---------------------------------------------------
@@ -75,7 +81,7 @@ MULTI_DEVICE = ("multi_device_storm",)
 def test_the_library_names_the_same_scenarios_and_suite():
     assert list(port_scenarios.SCENARIOS) == list(jax_scenarios.SCENARIOS)
     assert list(port_loadgen.BENCH_SUITE) == list(jax_loadgen.BENCH_SUITE)
-    assert set(SINGLE_PLANE) | set(EDGE) | set(MULTI_DEVICE) | set(UNPORTED) == set(
+    assert set(SINGLE_PLANE) | set(EDGE) | set(MULTI_DEVICE) | set(AUTOSCALE) | set(UNPORTED) == set(
         port_scenarios.SCENARIOS
     )
 
@@ -443,6 +449,70 @@ def test_multi_device_storm_rebalances_cpu_cells_like_the_jax_package():
     assert degraded in ([], [0]), degraded
     assert all(health["docs_retired_capacity"] >= 1 for health in result["extra"]["plane_health"]
                if health["cpu_fallbacks"])
+
+
+def test_diurnal_autoscale_parks_cpu_cells_like_the_jax_package():
+    """`diurnal_autoscale` at its published defaults (24 docs, 4 cells,
+    the fleet controller at the CI cadence) through both packages, the
+    port's cells on the CPU: the same schedule, a pass verdict, every
+    writer's doc byte-identical to its server document and each sampled
+    doc's reader to its writer before teardown, and the night's
+    footprint ratio within the scenario's `max_ratio` after the
+    controller scaled down, with no actuation failing."""
+    out = {}
+    for name, pkg in PACKAGES.items():
+        schedule = pkg.loadgen.get_scenario("diurnal_autoscale").compile(seed=7)
+        runner = _runner(pkg, schedule)
+        converged = _hold_writers_to_readers(runner, name)
+        result = asyncio.run(runner.run())
+        autoscale = result["extra"]["autoscale"]
+        controllers = autoscale["controllers"]
+        assert result["verdict"] == "pass", (name, result["slo"]["breached_targets"])
+        assert result["extra"]["ops_failed"] == 0 and result["extra"]["ops_total"] == len(schedule.ops)
+        assert converged == {"docs": 24, "readers": 8, "diverged": []}, (name, converged)
+        assert autoscale["steady_footprint_ratio"] <= autoscale["max_ratio"] == 0.6, (name, autoscale)
+        assert autoscale["fleet_cells"] == 4 and len(controllers) == 1
+        assert controllers[0]["counters"]["scale_downs"] >= 1, (name, controllers)
+        assert controllers[0]["actuation"]["failures"] == 0, (name, controllers)
+        assert [p["name"] for p in result["phases"]] == ["trough", "ramp_up", "peak", "ramp_down", "night"]
+        out[name] = (result["schedule_hash"], [(p["name"], p["measured_ops"]) for p in result["phases"]])
+    assert out["port"] == out["jax"]
+
+
+def _hold_writers_to_readers(runner, package) -> dict:
+    """Before the runner tears its single instance down, wait until every
+    writer's document equals its server document and every sampled
+    reader's its writer's, byte for byte; the outcome lands in the
+    returned dict."""
+    encode = importlib.import_module(f"{ROOTS[package]}.crdt").encode_state_as_update
+    outcome: dict = {}
+    teardown = runner._teardown
+
+    async def checked():
+        harness = runner.harness
+        documents = harness.servers[0].hocuspocus.documents
+
+        def diverged():
+            bad = []
+            for d, writer in enumerate(harness.writers):
+                state = encode(writer.document)
+                server = documents.get(f"load-{d}")
+                if server is None or encode(server) != state or (
+                    d < len(harness.readers) and encode(harness.readers[d].document) != state
+                ):
+                    bad.append(d)
+            return bad
+
+        deadline = time.monotonic() + 30
+        left = diverged()
+        while left and time.monotonic() < deadline:
+            await asyncio.sleep(0.05)
+            left = diverged()
+        outcome.update(docs=len(harness.writers), readers=len(harness.readers), diverged=left)
+        await teardown()
+
+    runner._teardown = checked
+    return outcome
 
 
 # -- /debug/loadgen -----------------------------------------------------------

@@ -729,3 +729,70 @@ async def test_park_cell_drains_under_live_edits_and_activate_rejoins():
         await ext.activate_cell(src)
         assert src in ext.placement.healthy and ext.placement.epoch == epoch + 1
         assert ext.migration_stats["cells_activated"] == 1
+
+
+@pytest.mark.parametrize("package", ["jax", "port"])
+async def test_a_migration_onto_a_cell_being_parked_is_declined_in_the_port(package):
+    """A rebalancer's move onto the cell that a park is draining: the JAX
+    package takes it (the move returns True, and the doc can land on a
+    cell that leaves placement, which no controller tick retries); the
+    port declines it (`migrations_declined`), the doc stays on its cell
+    and the parked cell ends empty (ROADMAP Queue C)."""
+    from tests.utils import new_hocuspocus, new_provider, wait_synced
+
+    ext = _cells_ext(package, devices=4)
+    names = [f"parking-{i}" for i in range(12)]
+    park = ext.placement.place(names[0])
+    rival = next(n for n in names if ext.placement.place(n) != park)
+    if package == "port":
+        served = Served(ext)
+        await served.__aenter__()
+        providers = [served.provider(n) for n in names]
+        await served.synced(*providers)
+    else:
+        server = await new_hocuspocus(extensions=[ext])
+        providers = [new_provider(server, name=n) for n in names]
+        await wait_synced(*providers)
+    try:
+        for p in providers:
+            p.document.get_text("t").insert(0, "x")
+        await until(lambda: _assert(all(n in ext.cells[ext.placement.place(n)]._docs for n in names)))
+        await until(lambda: _assert(not any(c.plane.pending_ops() or c._flush_inflight for c in ext.cells)))
+        home = ext.cell_index_for(rival)
+        declined = ext.migration_stats["migrations_declined"]
+        result, moved = await asyncio.gather(ext.park_cell(park), ext.migrate_doc(rival, home, park))
+        assert park not in ext.placement.healthy
+        if package == "port":
+            assert moved is False and ext.migration_stats["migrations_declined"] == declined + 1, (
+                result, ext.migration_stats)
+            assert rival in ext.cells[home]._docs and result["drained"] and not ext.cells[park]._docs
+        else:
+            assert moved is True
+    finally:
+        for p in providers:
+            p.destroy()
+        if package == "port":
+            await served.__aexit__(None, None, None)
+        else:
+            await server.destroy()
+
+
+@pytest.mark.parametrize("package", ["jax", "port"])
+def test_a_new_load_while_its_cell_drains_for_a_park(package):
+    """A doc that loads while its placed cell drains for a park: the JAX
+    package routes it onto the draining cell (which then parks holding
+    it); the port routes it to the survivor the park would migrate it to,
+    and back to plain placement once the park is over."""
+    ext = _cells_ext(package, devices=4)
+    park = 1
+    fresh = next(f"fresh-{i}" for i in range(200) if ext.placement.place(f"fresh-{i}") == park)
+    survivors = sorted(ext.placement.healthy - {park})
+    survivor = max(survivors, key=lambda i: (ext.placement._score(fresh, i), -i))
+    draining = getattr(ext, "_parking", set())
+    draining.add(park)
+    try:
+        routed = ext.cell_index_for(fresh)
+    finally:
+        draining.discard(park)
+    assert routed == (park if package == "jax" else survivor)
+    assert ext.cell_index_for(fresh) == park

@@ -153,6 +153,53 @@ async def test_batched_catch_up_matches_jax():
     assert ours == theirs
 
 
+async def test_sync_requests_behind_a_held_lane_queue_one_drain_in_the_port():
+    """SyncStep1s that land one by one while the device lane is held: the
+    JAX package queues a drain, and a lane waiter, for each; the port
+    queues one drain whose batch takes them all once the lane admits, so
+    the overload ladder's lane depth reads 1, not N. The replies are the
+    same in both packages."""
+    import asyncio
+
+    from hocuspocus_tpu.tpu.scheduler import CLASS_INTERACTIVE as JAX_INTERACTIVE
+    from hocuspocus_tpu.tpu.scheduler import DeviceLane as JaxLane
+    from hocuspocus_tpu_torch.tpu.scheduler import CLASS_INTERACTIVE, DeviceLane
+
+    rng = np.random.default_rng(23)
+    names = [f"held-{n}" for n in range(6)]
+    editors, updates = {}, {}
+    for name in names:
+        a = Doc()
+        sent = []
+        a.on("update", lambda update, *rest, sent=sent: sent.append(update))
+        for step in range(4):
+            _random_edit(rng, a, step)
+        editors[name], updates[name] = a, sent
+
+    async def body(plane, serving, lane, interactive):
+        for name in names:
+            for update in updates[name]:
+                plane.enqueue_update(name, update)
+        plane.lane = lane
+        holder = await lane.admit(interactive, site="holder")
+        requests = []
+        for name in names:
+            requests.append(asyncio.ensure_future(serving.batched_sync(name, editors[name], None)))
+            for _ in range(3):
+                await asyncio.sleep(0)
+        waiters = lane.queue_depths()[interactive]
+        holder.release()
+        return waiters, await asyncio.gather(*requests)
+
+    jax_plane = JaxPlane(num_docs=8, capacity=512)
+    plane = MergePlane(num_docs=8, capacity=512, device="cpu")
+    jax_waiters, theirs = await body(jax_plane, JaxServing(jax_plane), JaxLane(), JAX_INTERACTIVE)
+    waiters, ours = await body(plane, PlaneServing(plane), DeviceLane(), CLASS_INTERACTIVE)
+    assert jax_waiters == len(names) and waiters == 1
+    # a doc the plane does not serve answers None (the CPU) in both
+    assert ours == theirs and sum(reply is not None for reply in ours) >= len(names) // 2
+
+
 def test_plane_text_and_health_readback():
     plane = MergePlane(num_docs=4, capacity=64, device="cpu")
     editor = Doc()

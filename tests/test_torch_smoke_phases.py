@@ -1,5 +1,5 @@
 """chip_smoke.py's supervised, compaction, cluster, edge, per-device
-cells, Tiptap, CLI and loadgen phases, rehearsed on the CPU.
+cells, fleet autoscaler, Tiptap, CLI and loadgen phases, rehearsed on the CPU.
 
 The phases run on the card at 1,024 docs; here the same functions run at
 a few docs on the CPU (`device="cpu"`), so their own checks and numbers
@@ -213,6 +213,37 @@ def test_multi_device_server_phase_on_the_cpu():
     assert out["cell_launches"] == {str(i): 0 for i in range(4)} and out["launches_outside_flush"] == 0
 
 
+def test_fleet_server_phase_on_the_cpu():
+    """The fleet autoscaler's phase at 32 docs on four CPU cells (64 rows
+    each: the full phase's occupancy of a quarter on two cells), the day's
+    rates, the fresh sessions and the work target scaled down, the
+    controller's tick loop running from listen, through the phase's own
+    gates (check_fleet): two warm spares parked at boot with no doc placed
+    on them and no parked cell holding a doc, a scale-up in ramp_up or
+    peak, a scale-down by night that migrated docs under the edits and
+    whose cell ends parked, empty, its lane admitting only canaries, no
+    decision off GREEN, K1 ops on every cell active in the peak, every doc
+    (the fresh sessions' too) converged after each phase and rebuilt from
+    its cell, no fallback outside a migration, /debug/fleet and the
+    autoscale families equal to the controller's status. On the CPU the
+    plain version integrates: no launch counted."""
+    smoke = _smoke()
+    out = asyncio.run(smoke.run_fleet_server(
+        np.random.default_rng(7), 32, 1024, device="cpu", rows=64, chunk=16, peak_rate=128.0,
+        work_target=150.0, phase_s=4.0, night_max_s=30.0, fresh_rate=2.0,
+    ))
+    assert smoke.check_fleet(out, 32, smoke.FLEET_CUTS, on_card=False) == 0
+    assert [p["phase"] for p in out["phases"]] == [name for name, _share in smoke.FLEET_DIURNAL]
+    opened = sum(p["docs_opened"] for p in out["phases"])
+    assert opened > 0 and out["docs_total"] == 32 + opened
+    assert out["join_synced_editors"]["n"] == 64 and out["join_synced_fresh"]["n"] == 2 * opened
+    assert out["join_synced_joiners"]["n"] == out["docs_total"]
+    assert set(out["edit_observe"]) == {name for name, _share in smoke.FLEET_DIURNAL}
+    assert out["timeline"][0]["action"] == "boot" and out["timeline"][0]["active"] == [0, 1]
+    assert out["footprint_ratio"] is not None and out["footprint_ratio"] < 1.0
+    assert out["cell_launches"] == {str(i): 0 for i in range(4)} and out["launches_outside_flush"] == 0
+
+
 def test_tiptap_server_phase_on_the_cpu(monkeypatch):
     """BASELINE configs 3 and 1 at 4 docs: every doc loads the receiver's
     Tiptap JSON through the webhook, readers follow the bursts, History
@@ -292,6 +323,12 @@ def test_loadgen_phase_on_the_cpu():
     # three cell planes behind the edges, reported by the phase
     audience = out["mega_audience"]
     assert audience["verdict"] == "pass" and audience["convergence"]["converged"], audience
+    # the fleet controller over four cells: parked back down by night
+    diurnal = out["diurnal_autoscale"]
+    assert diurnal["verdict"] == "pass" and diurnal["convergence"]["converged"], diurnal
+    assert diurnal["autoscale"]["steady_footprint_ratio"] <= diurnal["autoscale"]["max_ratio"] == 0.6
+    assert diurnal["acked"]["docs_observed"] == 8 and diurnal["convergence"]["docs_checked"] == 24
+    assert any(d["action"] == "scale_down" for d in diurnal["autoscale"]["decisions"]), diurnal
 
 
 def test_loadgen_phase_holds_the_jax_packages_schedule_hashes():

@@ -190,6 +190,25 @@ async def test_wedged_init_boots_and_serves_within_deadline():
         gate.set()
 
 
+async def test_teardown_waits_for_a_running_init_thread():
+    """A `--role cell --tpu-serve` process SIGTERMed while its plane was
+    still being built exited -6: the init worker is a daemon thread, and
+    an interpreter that finalizes under it while it runs torch's C++
+    aborts ("terminate called without an active exception"). Teardown
+    now waits for the worker, at most the init deadline."""
+
+    def slow_factory():
+        time.sleep(1.0)
+
+    reset_device_lane()
+    ext = SupervisedTpuMergeExtension(
+        runtime_factory=slow_factory, init_timeout=10.0, watchdog_interval=0.05
+    )
+    async with Supervised(ext):
+        assert ext.supervisor._init_thread.is_alive()
+    assert not ext.supervisor._init_thread.is_alive()
+
+
 async def test_late_init_hot_attaches_live_documents():
     gate = threading.Event()
 
